@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card, and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card, and check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,30 @@ Phases (any failure ends the run with a nonzero exit code):
 
 1. device: the card's name and power limit (nvidia-smi) and the float32
    matmul flags — the normal equations must not run in TF32;
-2. build: the port's CUDA kernel, compiled by nvcc from
-   ``rmcl_tpu_torch/csrc``;
-3. kernel vs plain version: the candidate-bin intersection kernel against
-   its plain PyTorch version on the same CUDA tensors, for 14,400 VLP-16
-   rays on the room scene and on the ~1M-face sphere, with timings;
+2. build: the port's three CUDA kernels, compiled by nvcc from
+   ``rmcl_tpu_torch/csrc`` in parallel (K1 candidate-bin intersection, K3
+   block cull, K4 factored pair loop);
+3. K1 vs plain version: the intersection kernel against its plain PyTorch
+   version on the same CUDA tensors, for 14,400 VLP-16 rays on the room
+   scene and on the ~1M-face sphere, with timings;
 4. main path: MICP-L on a ~480k-face building map — ten ``correct_once``
    calls from +0.2 m z / 0.05 rad yaw back to the true pose, counting the
-   kernel's launches; the kernel is then held against its plain version
-   on the main path's own inputs and timed beside its bound, and the cast
-   is repeated with no candidate budget to measure the hits the default
-   budgets cost;
+   K1 and K3 launches; both kernels are then held against their plain
+   versions on the main path's own inputs and timed beside their bounds,
+   and the cast is repeated with no candidate budget to measure the hits
+   the default budgets cost;
 5. reference-size cast: 1000 poses x VLP-16 (14.4M rays) against the
-   ~1M-face sphere, with the split between the cull and the kernel; the
-   default 128-ray blocks are measured too (hits, truncated blocks).
+   ~1M-face sphere through the dense engine, with the split between the
+   cull (K3) and K1; the default 128-ray blocks are measured too;
+6. tracking: ``TrackedCorrector`` on phase 4's map, sensor and start pose,
+   ten steps with candidate reuse (K3 on re-culls, K4 every step); K3 and
+   K4 held against their plain versions on the last step's inputs;
+7. the pose sweep at full width (``rmcl_tpu_torch.bench``: 1000 poses x
+   VLP-16 on the ~1M-face sphere, 16-pose x 8-direction factored blocks,
+   hypers -> supers -> bins, one reuse cull per 16-step chain): the
+   dataset's hits, ms per correction over three chains, ten iterated
+   corrections from +0.2 m z, and K3/K4 against their plain versions with
+   timings and bounds.
 
 Prints one JSON line per kernel (``{"kernels": [...]}``) and, last,
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -64,11 +74,44 @@ PEAK_F32_INSTR_PER_S = 33.5e12
 # + 6 t + 2 (u + v, 1 + eps - .) = 47, the reciprocal counted as one (an IEEE
 # division takes several, so the bound stays a floor)
 OPS_PER_PAIR = 47
+# K3: float instructions per cone-box test (_cone_box_test): 12 box offsets,
+# 9 gap/separation maxima, 2 x 6 for the norms (square root as one), 20 for
+# the first slab pass (it feeds only tf: 3 radii, 12 slab ends, 3 maxima, 2
+# minima), 25 for the second (the same, plus 3 minima and 2 maxima for tn),
+# 3 for the refined radius, 7 for the final min and max, canonical tn and
+# four compares, 1 for the min over cones: 89
+OPS_PER_TEST = 89
+# K4: float instructions per pair (t, u, v: 5; u + v and 1 + eps - it: 2;
+# four compares), per (triangle, direction) term (Nd, Bu, Bv: 15; the gate
+# and the reciprocal: 2), per (triangle, pose) term (No, Au, Av: 18) and per
+# triangle (the rows ng, |ng|^2, 1/|ng|^2, m1, m2, c0, cu, cv: 55); the
+# packed-key integer operations are not counted, so the bound stays a floor
+OPS_PER_BW_PAIR = 11
+OPS_PER_BW_DIR = 17
+OPS_PER_BW_POSE = 18
+OPS_PER_BW_TRI = 55
 
 # tolerances kernel vs plain version: built with --fmad=false the two round
 # alike and agree bitwise; 1e-5 relative leaves room for the rounding of a
 # near-tie only
 T_RTOL = 1e-5
+# K3 lists: equal, or differing only between keys that tie with the list's
+# last kept entry to this relative width (a budget cut between equal keys)
+TNEAR_RTOL = 1e-6
+
+# phase 6: TrackedCorrector settings of the tracking loop
+TRACK_STEPS = 10
+# phase 7: the sweep's iterated correction. The bench's one-shot Umeyama
+# step on point-to-plane projections contracts a z offset by only ~3% a
+# step on the sphere (VLP-16 normals are near horizontal): the JAX package's
+# own iteration, on the CPU at the parity test's size (32 poses, 180 x 16
+# rays, a 20k-face sphere of 50 m), ends at a median 0.1499 m after ten, the
+# port there at 0.1499 m too and at 0.1507 m for 1000 poses x 90 x 16 rays
+# (scripts/torch_sweep_probe.py). The port is held to that figure with room
+# for the full-size pose sample.
+SWEEP_ITERS = 10
+SWEEP_ITER_ERR_MAX = 0.155
+SWEEP_CHAINS = 3
 
 
 def log(msg):
@@ -162,6 +205,142 @@ def compare_kernel(name, tri, inputs):
     return out
 
 
+def wrappers():
+    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored
+
+    return {"K1": intersect_bins, "K3": cull_blocks, "K4": intersect_factored}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def require_launches(name, counts, kernels):
+    for k in kernels:
+        if counts[k] < 1:
+            fail(f"{name}: the path never launched {k}")
+
+
+def bound_of(bytes_moved, ops):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_INSTR_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cull_bound(args):
+    """Least time for K3's work on these inputs: the cone-box tests the
+    kernel runs (its level-0 boxes, the kept hypers' supers, R tests for
+    each bin of a kept super) at OPS_PER_TEST each, against reading the
+    cones and boxes once and writing the lists."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_tests
+
+    cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb = args
+    tests = float(cull_tests(cones, fat, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs)
+                  .double().sum())
+    Cb = cones.shape[0]
+    boxes = bin_aabb.numel() + super_aabb.numel() + (hyper_aabb.numel() if ch else 0)
+    bytes_moved = 4 * (cones.numel() + (fat.numel() if ch else 0) + n_hi.numel() + boxes) \
+        + Cb * cb * 8 + Cb * 5
+    return bound_of(bytes_moved, tests * OPS_PER_TEST) + (tests,)
+
+
+def check_cull(name, args):
+    """K3 against its plain version on the same CUDA tensors; fails unless
+    every block's lists agree (ties at the budget cut allowed). Returns the
+    two results, the tie blocks, and the timings."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_blocks_reference, cull_disagreements
+
+    launches = cull_blocks.launches
+    k = cull_blocks(*args)
+    p = cull_blocks_reference(*args)
+    torch.cuda.synchronize()
+    if cull_blocks.launches != launches + 1:
+        fail(f"{name}: K3 did not launch")
+    bad, ties = cull_disagreements(k, p, TNEAR_RTOL)
+    if bad:
+        fail(f"{name}: K3 and its plain version disagree on {bad} blocks")
+    err = (k[2] - p[2]).abs()
+    out = dict(ties=ties, max_abs_err=float(err[k[0] >= 0].max()) if bool((k[0] >= 0).any()) else 0.0,
+               saturated=int(k[3].sum()), mean_count=float(k[1].float().mean()),
+               max_count=int(k[1].max()))
+    out["ms"] = cuda_ms(lambda: cull_blocks(*args))
+    out["plain_ms"] = cuda_ms(lambda: cull_blocks_reference(*args), reps=1)
+    out["bound_ms"], out["bound_by"], out["tests"] = cull_bound(args)
+    return k, p, out
+
+
+def factored_bound(inputs, t_best, paired):
+    """Least time for K4's work on these inputs: per visited candidate (slot
+    < count and tnear <= the block's final worst t_best), its pairs,
+    (triangle, direction) and (triangle, pose) terms and triangle rows, at
+    the float32 instruction rate, against its bytes."""
+    tri, o_p, d_p, alive, t_min, t_max, cand, count, tnear = inputs
+    B = tri.shape[2]
+    G, P = d_p.shape[1], o_p.shape[1]
+    P_eff, n_pose = (1, G) if paired else (P, P)
+    slot = torch.arange(cand.shape[1], device=cand.device)[None, :]
+    worst = t_best.amax(dim=(1, 2))[:, None]
+    visits = float(((slot < count[:, None]) & (tnear <= worst)).sum())
+    ops = visits * B * (OPS_PER_BW_PAIR * G * P_eff + OPS_PER_BW_DIR * G
+                        + OPS_PER_BW_POSE * n_pose + OPS_PER_BW_TRI)
+    bytes_moved = visits * (9 * B * 4 + 8) + 4 * (o_p.numel() + d_p.numel() + alive.numel()
+                                                  + count.numel()) + t_best.numel() * 8
+    return bound_of(bytes_moved, ops) + (visits,)
+
+
+def check_factored(name, inputs, paired, order=None, time_plain=True):
+    """K4 against its plain version on the same CUDA tensors: t_best within
+    T_RTOL, and the same winner except at a near-tie, where the plain
+    version's t for the kernel's triangle is within T_RTOL of its own."""
+    from rmcl_tpu_torch.ops.raycast_cuda import (factored_winner_t, intersect_factored,
+                                                 intersect_factored_reference)
+
+    launches = intersect_factored.launches
+    kt, kref = intersect_factored(*inputs, paired=paired, order=order)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pt, pref = intersect_factored_reference(*inputs, paired=paired)
+    torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t) * 1e3
+    if intersect_factored.launches != launches + 1:
+        fail(f"{name}: K4 did not launch")
+    o_p, d_p = inputs[1], inputs[2]
+    G, P_eff = kt.shape[1], kt.shape[2]
+    tol = T_RTOL * pt.double().abs()
+    diff = (kt.double() - pt.double()).abs()
+    mis = kref != pref
+    o_r = (o_p[:, :, None] if paired else o_p[:, None]).expand(-1, G, P_eff, 3)
+    d_r = d_p[:, :, None].expand(-1, -1, P_eff, 3)
+    tie_t = factored_winner_t(inputs[0], o_r[mis], d_r[mis], inputs[4], kref[mis])
+    bad_t = int((diff > tol).sum())
+    bad_ref = int(((tie_t.double() - pt[mis].double()).abs() > tol[mis]).sum())
+    if bad_t or bad_ref:
+        fail(f"{name}: K4 and its plain version disagree ({bad_t} t, {bad_ref} winners)")
+    out = dict(max_abs_err=float(diff.max()), ref_mismatch=int(mis.sum()),
+               hit_frac=float((kref[inputs[3] > 0] >= 0).float().mean()))
+    out["ms"] = cuda_ms(lambda: intersect_factored(*inputs, paired=paired, order=order))
+    out["plain_ms"] = (cuda_ms(lambda: intersect_factored_reference(*inputs, paired=paired),
+                               reps=1) if time_plain else plain_once_ms)
+    out["bound_ms"], out["bound_by"], out["visits"] = factored_bound(inputs, kt, paired)
+    return kt, out
+
+
+def same_cast(name, cast_k, cast_p):
+    """The casts through K3's lists and through the plain version's lists
+    must give the same hits and t."""
+    (kt, kref), (pt, pref) = cast_k, cast_p
+    if not torch.equal(kref >= 0, pref >= 0):
+        fail(f"{name}: the casts through K3's and the plain lists hit different rays")
+    hit = kref >= 0
+    if not torch.allclose(kt[hit], pt[hit], rtol=T_RTOL, atol=0.0):
+        fail(f"{name}: the casts through K3's and the plain lists give different t")
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -178,11 +357,17 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from rmcl_tpu_torch import _build
 
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    _build.load_library("intersect_bins")
-    log(f"phase 2 build: intersect_bins in {time.perf_counter() - t0:.2f} s")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load_library, names))
+    log(f"phase 2 build: {', '.join(names)} (parallel nvcc) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def vlp16_rays(origin):
@@ -222,7 +407,9 @@ def phase_main_path():
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.pipeline import (MICPConfig, MICPSensorConfig,
                                               MICPSensorData, correct_once)
-    from rmcl_tpu_torch.ops.raycast_binned import _flat_rays, _kernel_inputs, cast_rays_binned
+    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _flat_rays, _kernel_inputs,
+                                                   _pad_rays, _resolve_budgets, _subblock_bounds,
+                                                   cast_rays_binned)
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins
     from rmcl_tpu_torch.sensors.models import SphericalModel
     from rmcl_tpu_torch.sensors.simulate import simulate
@@ -249,25 +436,26 @@ def phase_main_path():
     tom = Transform.from_pose_tuple([9.0, 3.0, 1.7, 0.0, 0.0, 0.35])
     progress = torch.zeros((), device="cuda")
     times = []
-    intersect_bins.launches = 0
+    reset_counts()
     for _ in range(N_CORRECTIONS):
         t = time.perf_counter()
         tom, stats = correct_once(bmap.bins, [sensor], tom, tbo, progress, config)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         progress = stats.convergence_progress
-    launches = intersect_bins.launches
+    counts = read_counts()
+    launches = counts["K1"]
     err_t = float(torch.linalg.vector_norm(tom.trans - true_pose.trans))
     dq = float(abs(torch.dot(tom.rot, true_pose.rot)))
     log(f"phase 4 main path: {N_CORRECTIONS} corrections x {model.n_rays} rays, "
         f"median {statistics.median(times):.3f} ms/correction (min {min(times):.3f}), "
         f"final |dt| {err_t:.2e} m, |<q, q_true>| {dq:.8f}, "
         f"matches {float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}, "
-        f"progress {float(stats.convergence_progress):.4f}, kernel launches {launches}")
+        f"progress {float(stats.convergence_progress):.4f}, launches K1 {counts['K1']}, "
+        f"K3 {counts['K3']}, K4 {counts['K4']}")
     if not err_t < 0.01:
         fail(f"main path did not converge: translation error {err_t} m")
-    if launches < 1:
-        fail("the main path never launched the intersection kernel")
+    require_launches("phase 4 main path", counts, ("K1", "K3"))
     if not bool(torch.isfinite(tom.rot).all() & torch.isfinite(tom.trans).all()):
         fail("non-finite pose")
 
@@ -289,6 +477,21 @@ def phase_main_path():
         f"cull {cull_ms:.3f} ms, {r['launches_per_correction']:.1f} launches/correction, "
         f"{r['saturated']} of {inputs[0].shape[0]} blocks saturated")
 
+    # K3 on the same cast's inputs, and the cast through both lists
+    blocks = _pad_rays(o, d, t_min_r, t_max_r, 128)
+    cs, cb = _resolve_budgets(bmap.bins, config.c_super, config.c_bin)
+    args = _cull_args(bmap.bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
+    k, p, r3 = check_cull("phase 4 K3", args)
+    same_cast("phase 4", intersect_bins(bmap.bins.tri, *blocks, *k[:3]),
+              intersect_bins(bmap.bins.tri, *blocks, *p[:3]))
+    r3.update(launches=counts["K3"])
+    log(f"phase 4 K3 on the main path's inputs: lists agree ({r3['ties']} tie blocks), "
+        f"kernel {r3['ms']:.4f} ms, plain {r3['plain_ms']:.3f} ms, bound {r3['bound_ms']:.4f} ms "
+        f"({r3['bound_by']}; {r3['tests']:.0f} tests), mean {r3['mean_count']:.2f} / max "
+        f"{r3['max_count']} candidates, {r3['saturated']} saturated; the cast through both "
+        f"lists agrees")
+    r["k3"] = r3
+
     # what the default budgets cost this cast: the same rays with no budget
     # (every super, every bin) truncate nowhere
     bins = bmap.bins
@@ -309,6 +512,7 @@ def phase_main_path():
         f"{int(both.sum())} rays both hit")
     if free_sat.any():
         fail("phase 4: the unbudgeted cull still truncated a block")
+    r.update(bmap=bmap, model=model, sensor=sensor, true_pose=true_pose, config=config)
     return r
 
 
@@ -326,10 +530,13 @@ def phase_reference_cast(sphere_bins):
     kw = dict(block_size=CAST_BLOCK_SIZE, block_chunk=CAST_BLOCK_CHUNK)
     hits = simulate(sphere_bins, model, tsm, **kw)  # warm-up
     torch.cuda.synchronize()
+    reset_counts()
     t = time.perf_counter()
     hits = simulate(sphere_bins, model, tsm, **kw)
     torch.cuda.synchronize()
     sim_ms = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    require_launches("phase 5 cast", counts, ("K1", "K3"))
     n = hits.hit.numel()
     hit_frac = float(hits.hit.float().mean())
 
@@ -374,11 +581,189 @@ def phase_reference_cast(sphere_bins):
         f"hits {hit_frac:.6f}; split: cull {cull_ms:.2f} ms + kernel {kernel_ms:.3f} ms "
         f"(plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms {bound_by}, {visits:.0f} bin visits), "
         f"max_abs_err {max_abs_err:.3g}, ref mismatches {ref_mismatch}, "
-        f"{saturated} of {inputs[0].shape[0]} blocks of {CAST_BLOCK_SIZE} rays saturated")
+        f"{saturated} of {inputs[0].shape[0]} blocks of {CAST_BLOCK_SIZE} rays saturated; "
+        f"launches in the cast K1 {counts['K1']}, K3 {counts['K3']}")
     if not hit_frac >= 0.999:
         fail(f"phase 5: only {hit_frac:.6f} of rays hit the sphere")
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 cull_ms=cull_ms, simulate_ms=sim_ms, hit_frac=hit_frac)
+
+
+def phase_tracking(main_r):
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.micp.tracking import TrackedCorrector
+    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_bounds,
+                                                   _pad_factored_blocks, _resolve_budgets)
+
+    bins, model, sensor = main_r["bmap"].bins, main_r["model"], main_r["sensor"]
+    true_pose, config = main_r["true_pose"], main_r["config"]
+    tbo = Transform.identity()
+    kw = dict(origin_margin=0.05, dir_margin=0.01, group=128, sub_blocks=4, payload="plane")
+    tc = TrackedCorrector(bins, model, config, **kw)
+    start = Transform.from_pose_tuple([9.0, 3.0, 1.7, 0.0, 0.0, 0.35])
+    # warm-up run (not counted): first-call allocations
+    state = tc.init(bins, start, tbo, sensor.tsb)
+    tc.step(bins, [sensor], state, tbo)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    state = tc.init(bins, start, tbo, sensor.tsb)
+    times = []
+    for _ in range(TRACK_STEPS):
+        last_tom = state.tom
+        t = time.perf_counter()
+        state, stats = tc.step(bins, [sensor], state, tbo)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = read_counts()
+    err_t = float(torch.linalg.vector_norm(state.tom.trans - true_pose.trans))
+    log(f"phase 6 tracking: {TRACK_STEPS} steps x {model.n_rays} rays, median "
+        f"{statistics.median(times):.3f} ms/step (min {min(times):.3f}), final |dt| "
+        f"{err_t:.2e} m, re-culls {state.n_reculls} (init included), launches K3 "
+        f"{counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}")
+    if not err_t < 0.01:
+        fail(f"phase 6: tracking did not converge: translation error {err_t} m")
+    require_launches("phase 6 tracking", counts, ("K3", "K4"))
+
+    # K3 and K4 on the last step's inputs: its blocks, a cull there, and
+    # the lists the step cast through
+    lay = tc._layouts[0]
+    o_blk, d_blk = lay.blocks((last_tom @ tbo) @ sensor.tsb)
+    o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
+    cs, cb = _resolve_budgets(bins, config.c_super, config.c_bin)
+    raw = _factored_bounds(o_p, d_p, alive, lay.t_min, lay.t_max, 4, 0.05, 0.01)
+    k, p, r3 = check_cull("phase 6 K3", _cull_args(bins, raw, 4, cs, cb, 0))
+    inputs = (bins.tri, o_p, d_p, alive, lay.t_min, lay.t_max) + tuple(
+        x.contiguous() for x in state.candidates[0])
+    _, r4 = check_factored("phase 6 K4", inputs, paired=False)
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
+    same_cast("phase 6", intersect_factored(*inputs[:6], *k[:3]),
+              intersect_factored(*inputs[:6], *p[:3]))
+    log(f"phase 6 K3 on the last step's inputs: lists agree ({r3['ties']} tie blocks), kernel "
+        f"{r3['ms']:.4f} ms, plain {r3['plain_ms']:.3f} ms, bound {r3['bound_ms']:.4f} ms "
+        f"({r3['bound_by']}); K4: max_abs_err {r4['max_abs_err']:.3g}, ref mismatches "
+        f"{r4['ref_mismatch']}, kernel {r4['ms']:.4f} ms, plain {r4['plain_ms']:.3f} ms, bound "
+        f"{r4['bound_ms']:.4f} ms ({r4['bound_by']}; {r4['visits']:.0f} bin visits); the cast "
+        f"through both lists agrees")
+    return dict(step_ms=statistics.median(times), err=err_t, reculls=state.n_reculls,
+                counts=counts, k3=r3, k4=r4)
+
+
+def phase_sweep():
+    from rmcl_tpu_torch.bench import JITTER, SweepBench, settings_from_env
+    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_block_candidates,
+                                                   _factored_bounds, _pad_factored_blocks,
+                                                   _resolve_budgets)
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
+
+    cfg, run = settings_from_env({})  # the JAX bench's defaults at 1M faces
+    t0 = time.perf_counter()
+    bench = SweepBench(**cfg, device="cuda")
+    torch.cuda.synchronize()
+    bins = bench.bins
+    log(f"phase 7 map: sphere {bins.n_bins * bins.bin_size} tris in {bins.n_bins} bins of "
+        f"{bins.bin_size}, {bins.n_super} supers, {bins.n_hyper} hypers, built in "
+        f"{time.perf_counter() - t0:.2f} s; {bench.trans_true.shape[0]} poses, "
+        f"{bench.sweep.n_rays} sweep rays in blocks of {bench.sweep.pt} poses x "
+        f"{bench.sweep.dir_groups} directions; {json.dumps(cfg)}")
+    trans = bench.trans_true
+    est0 = trans + torch.tensor([0.0, 0.0, 0.2], device="cuda")
+    k = run["steps"]
+    rng = bench.rng
+    jit_sets = [torch.from_numpy(rng.uniform(-JITTER, JITTER, size=(k,) + tuple(trans.shape))
+                                 .astype(np.float32)).cuda() for _ in range(SWEEP_CHAINS + 1)]
+    # warm-up (not counted): first-call allocations
+    data_points, data_mask = bench.make_dataset(trans)
+    bench.chain(data_points, data_mask, est0, jit_sets[0][:2])
+    torch.cuda.synchronize()
+
+    # the main path: the dataset cast, then three timed 16-step chains
+    reset_counts()
+    t = time.perf_counter()
+    data_points, data_mask = bench.make_dataset(trans)
+    torch.cuda.synchronize()
+    dataset_ms = (time.perf_counter() - t) * 1e3
+    chain_ms = []
+    for js in jit_sets[1:]:
+        t = time.perf_counter()
+        bench.chain(data_points, data_mask, est0, js)
+        torch.cuda.synchronize()
+        chain_ms.append((time.perf_counter() - t) * 1e3 / k)
+    counts = read_counts()
+    require_launches("phase 7 sweep", counts, ("K3", "K4"))
+    hit_frac = float(data_mask.float().mean())
+    ms = statistics.median(chain_ms)
+    rays_per_s = bench.n_rays / (ms * 1e-3)
+    log(f"phase 7 sweep: dataset cast {dataset_ms:.2f} ms, hits {hit_frac:.6f}; "
+        f"{SWEEP_CHAINS} chains of {k} corrections (one reuse cull each, margin "
+        f"{bench.margin} m): median {ms:.3f} ms/correction ({', '.join(f'{x:.3f}' for x in chain_ms)}), "
+        f"{rays_per_s:.4g} corr-rays/s; launches K3 {counts['K3']}, K4 {counts['K4']}, "
+        f"K1 {counts['K1']}")
+    if not hit_frac >= 0.999:
+        fail(f"phase 7: only {hit_frac:.6f} of the dataset's rays hit the sphere")
+
+    # saturation of the dataset cast's fresh cull and of a reuse cull
+    cs, cb = _resolve_budgets(bins, cfg["c_super"], cfg["c_bin"], cfg["c_mid"])
+    R = cfg["sub_blocks"]
+
+    def padded(tr):
+        return _pad_factored_blocks(*bench.sweep.factored_rays(tr, bench.dirs), None,
+                                    cfg["block_chunk"])
+
+    o_p, d_p, alive, n_blk, chunk, _ = padded(trans)
+    t_min, t_max = 0.0, float(3.0e38)
+    fresh = _factored_block_candidates(bins, o_p, d_p, alive, chunk, t_min, t_max, cs, cb,
+                                       cfg["c_hyper"], R, 0.0)
+    o_p, d_p, alive, n_blk, chunk, _ = padded(est0)
+    reuse_ms = cuda_ms(lambda: bench.candidates(est0), reps=3)
+
+    # K3 on the reuse cull's inputs at the chain's base estimate
+    args = _cull_args(bins, _factored_bounds(o_p, d_p, alive, t_min, t_max, R, bench.margin,
+                                             0.0), R, cs, cb, cfg["c_hyper"])
+    kl, pl, r3 = check_cull("phase 7 K3", args)
+    r3.update(launches=counts["K3"], reuse_cull_ms=reuse_ms)
+    log(f"phase 7 K3 (reuse cull, {n_blk} blocks, {R} cones each): lists agree ({r3['ties']} "
+        f"tie blocks); reuse cull {reuse_ms:.3f} ms end to end; kernel {r3['ms']:.3f} ms, plain "
+        f"{r3['plain_ms']:.1f} ms, bound {r3['bound_ms']:.3f} ms ({r3['bound_by']}; "
+        f"{r3['tests']:.4g} tests); candidates mean {r3['mean_count']:.2f}, max "
+        f"{r3['max_count']}; saturated blocks: {r3['saturated']} (reuse), "
+        f"{int(fresh[3].sum())} (dataset cast) of {o_p.shape[0]}")
+
+    # K4 on a correction's cast: the reuse lists at the chain's base estimate
+    order = torch.argsort(kl[1], descending=True, stable=True).to(torch.int32)
+    inputs = (bins.tri, o_p, d_p, alive, t_min, t_max) + tuple(x.contiguous() for x in kl[:3])
+    _, r4 = check_factored("phase 7 K4", inputs, paired=False, order=order, time_plain=False)
+    same_cast("phase 7", intersect_factored(*inputs[:6], *kl[:3]),
+              intersect_factored(*inputs[:6], *pl[:3]))
+    r4.update(launches=counts["K4"])
+    log(f"phase 7 K4 ({o_p.shape[0]} blocks of {o_p.shape[1]} x {d_p.shape[1]} rays): "
+        f"max_abs_err {r4['max_abs_err']:.3g}, ref mismatches {r4['ref_mismatch']}, hits "
+        f"{r4['hit_frac']:.6f}; kernel {r4['ms']:.3f} ms, plain {r4['plain_ms']:.1f} ms (one "
+        f"run), bound {r4['bound_ms']:.3f} ms ({r4['bound_by']}; {r4['visits']:.0f} bin "
+        f"visits); the cast through both lists agrees")
+
+    # where one correction's time goes (CUDA events, reused lists)
+    cands = bench.candidates(est0)
+    cast_ms = cuda_ms(lambda: bench.cast_sweep(est0, cands), reps=3)
+    corr_ms = cuda_ms(lambda: bench.correction(data_points, data_mask, est0, cands), reps=3)
+    log(f"phase 7 one correction (reused lists): {corr_ms:.3f} ms = cast {cast_ms:.3f} ms "
+        f"(K4 {r4['ms']:.3f} ms + payload, unpermute {cast_ms - r4['ms']:.3f} ms) + reduction "
+        f"and {bench.trans_true.shape[0]} Umeyama solves {corr_ms - cast_ms:.3f} ms; the reuse "
+        f"cull adds {reuse_ms / k:.3f} ms a correction over a {k}-step chain")
+
+    # ten iterated corrections from the reference's +0.2 m z offset
+    t = time.perf_counter()
+    est = bench.iterate(data_points, data_mask, est0, SWEEP_ITERS)
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t
+    err = torch.linalg.vector_norm(est - trans, dim=1)
+    med = float(err.median())
+    log(f"phase 7 iterated correction: median |dt| {med:.6f} m after {SWEEP_ITERS} (from "
+        f"0.2 m; max {float(err.max()):.6f} m), {iter_s:.2f} s")
+    if not (med < SWEEP_ITER_ERR_MAX and bool(torch.isfinite(est).all())):
+        fail(f"phase 7: the iterated correction ended at a median {med} m")
+    return dict(k3=r3, k4=r4, ms=ms, rays_per_s=rays_per_s, hit_frac=hit_frac, iter_err=med,
+                counts=counts)
 
 
 def main():
@@ -399,20 +784,24 @@ def main():
     phase_kernel_vs_plain(sphere)
     main_r = phase_main_path()
     phase_reference_cast(sphere)
+    del sphere
+    phase_tracking(main_r)
+    sweep_r = phase_sweep()
 
-    log(json.dumps({"kernels": [{
-        "name": "intersect_bins",
-        "route": "cuda",
-        "source": "rmcl_tpu_torch/csrc/intersect_bins.cu",
-        "replaces": "rmcl_tpu/ops/raycast_pallas.py:35",
-        "launches": main_r["launches"],
-        "max_abs_err": main_r["max_abs_err"],
-        "ms": main_r["ms"],
-        "plain_ms": main_r["plain_ms"],
-        "bound_ms": main_r["bound_ms"],
-        "bound_by": main_r["bound_by"],
-        "library_ms": None,
-    }]}))
+    k3, k4 = sweep_r["k3"], sweep_r["k4"]
+    row = lambda name, source, replaces, r: {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None}
+    log(json.dumps({"kernels": [
+        row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
+            "rmcl_tpu/ops/raycast_pallas.py:35", main_r),
+        row("cull_blocks", "rmcl_tpu_torch/csrc/cull_blocks.cu",
+            "rmcl_tpu/ops/raycast_binned.py:751", k3),
+        row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
+            "rmcl_tpu/ops/raycast_binned.py:1650", k4),
+    ]}))
     log(f"card: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,88 +1,49 @@
-"""Dense binned ray caster.
+"""Dense binned ray casters.
 
 Counterpart of ``rmcl_tpu.ops.raycast_binned``: rays are processed in
-coherent blocks; each block is culled against super-bins and bins with a
-conservative cone test (never false-culls), nearest first, down to at most
-``c_bin`` candidate bins; the candidates are intersected by one launch of
-the hand-written kernel :func:`rmcl_tpu_torch.ops.raycast_cuda.intersect_bins`;
-the winner's triangle row is gathered once per ray and t, point and normal
-are re-derived from its plane.
+coherent blocks; each block is culled against hyper-bins, super-bins and
+bins with a conservative cone test (never false-culls), nearest first, down
+to at most ``c_bin`` candidate bins; the candidates are then intersected.
 
-The cull (``_block_bounds`` … ``_chunk_candidates``) is plain PyTorch tensor
-code, run per chunk of ``block_chunk`` blocks to bound its intermediates.
+Two engines share the cull:
+
+* :func:`cast_rays_binned`, rays in any coherent order: Möller-Trumbore in
+  the hand-written kernel :func:`rmcl_tpu_torch.ops.raycast_cuda.intersect_bins`
+  (K1); the winner's triangle row is gathered once per ray and t, point and
+  normal are re-derived from its plane;
+* :func:`cast_rays_binned_factored`, blocks of P pose origins x G shared
+  directions (the pose sweep of :class:`TiledSweep`, the tracking loop):
+  Baldwin-Weber in :func:`rmcl_tpu_torch.ops.raycast_cuda.intersect_factored`
+  (K4); candidate lists from :func:`factored_candidates` can be reused
+  across casts whose poses moved less than the cull's margins.
+
+The cull's per-sub-block cone bounds are plain PyTorch tensor code; the box
+tests and nearest-first selections run in the hand-written kernel
+:func:`rmcl_tpu_torch.ops.cull_cuda.cull_blocks` (K3).
 
 Budgets truncate candidate lists nearest-first: a block needing more than
-``c_super`` supers or ``c_bin`` bins may miss geometry (``candidate_stats``
-shows the counts). The JAX package's ``c_mid`` / ``c_hyper`` levels,
-``dir_groups``, ``sort_blocks`` and ``with_lossless`` are not ported yet.
+``c_hyper`` hypers, ``c_super`` supers or ``c_bin`` bins may miss geometry
+(the cull's ``sat`` flags say where). The JAX package's ``c_mid`` level,
+``dir_groups``, ``sort_blocks`` and ``with_lossless`` of the dense engine
+are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from rmcl_tpu_torch._device import resolve_device
 from rmcl_tpu_torch.bvh.bins import TriangleBins
+from rmcl_tpu_torch.bvh.builder import morton_codes_3d
+from rmcl_tpu_torch.ops.cull_cuda import _BIG, _cone_box_test, _norm, cull_blocks, pack_cones
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits
-from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins
+from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, plane_of
 
 Tensor = torch.Tensor
-
-_BIG = 3.0e38
-_SENTINEL_KEY = 0x7FFFFFF0
-
-
-def _norm(x: Tensor) -> Tensor:
-    return torch.sqrt(torch.sum(x * x, dim=-1))
-
-
-def _top_k_desc(score: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """``jax.lax.top_k`` on float scores: k largest, ties to the lower index
-    (``torch.topk`` promises no tie order; a stable sort does)."""
-    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
-    """Conservative (origin-box x direction-cone) vs AABB test.
-
-    The ray block is the Minkowski sum of an origin box (center ``oc``,
-    half-extents ``oh``) and a direction cone (unit axis ``a``, ``tan_th``
-    = tan of the max angular deviation); intersected with the ball bound.
-    Never false-culls.
-
-    Shapes: oc/oh/a (..., 1, 3), tan_th/t_hi (..., 1), bmin/bmax (..., K, 3).
-    Returns (pass (..., K), t_near (..., K), t_far (..., K))."""
-    a_safe = torch.where(torch.abs(a) < 1e-30, 1e-30, a)
-    inv = 1.0 / a_safe
-    b0 = bmin - oh - oc
-    b1 = bmax + oh - oc
-    gap = torch.clamp(torch.maximum(b0, -b1), min=0.0)
-    d_near = _norm(gap)
-    sep = torch.maximum(b1, -b0)
-    d_far = _norm(sep)
-    # the cone's displacement off the axis is perpendicular to it: its reach
-    # along axis k is r * sqrt(1 - a_k^2)
-    s_perp = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
-
-    def slab(r):
-        rk = r * s_perp
-        t0 = (b0 - rk) * inv
-        t1 = (b1 + rk) * inv
-        tn = torch.amax(torch.minimum(t0, t1), dim=-1)
-        tf = torch.amin(torch.maximum(t0, t1), dim=-1)
-        return tn, tf
-
-    r0 = (t_hi * tan_th)[..., None]
-    _, tf0 = slab(r0)
-    # refine: over the box's own window the cone radius is tf0 * tan_th
-    r1 = (torch.minimum(torch.clamp(tf0, min=0.0), t_hi) * tan_th)[..., None]
-    tn, tf = slab(r1)
-    tn = torch.maximum(tn, d_near)
-    tf = torch.minimum(tf, d_far)
-    ok = (tn <= tf) & (tf >= 0.0) & (tn <= t_hi) & (d_near <= t_hi)
-    return ok, torch.clamp(tn, min=0.0), tf
 
 
 def _block_bounds(ob, db, t_min_b, t_max_b):
@@ -138,54 +99,14 @@ def _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi):
     return torch.minimum(t_hi, scene_far[..., 0] * 1.0001 + 1e-3)
 
 
-def _bins_by_super(bins):
-    """bin AABBs as (n_super, S, 6), zero-padded to whole supers."""
-    S = bins.bins_per_super
-    pad_bins = bins.n_super * S - bins.n_bins
-    g = bins.bin_aabb
-    if pad_bins:
-        g = torch.cat([g, g.new_zeros((pad_bins, 6))], 0)
-    return g.reshape(bins.n_super, S, 6)
-
-
-def _global_bin_ids(sup_ids, S):
-    iota = torch.arange(S, dtype=torch.int32, device=sup_ids.device)
-    return sup_ids.to(torch.int32)[..., None] * S + iota
-
-
 def _build_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb):
     """Two-level cull with one fat cone per block: nearest-first candidate
-    bins per ray block (the Pallas kernel's input in the JAX package).
+    bins per ray block (the Pallas kernel's input in the JAX package) —
+    the chunk cull with one sub-block.
 
     Returns (cand_bin (n_blk, cb) int32 with -1 padding, cand_count
     (n_blk,) int32, cand_tnear (n_blk, cb) conservative parametric entry)."""
-    n_blk = ob.shape[0]
-    S = bins.bins_per_super
-    oc, oh, axis, tan_th, t_hi, n_hi, block_dead = _block_bounds(
-        ob, db, t_min_b, t_max_b)
-    axis = _dead_axis(axis, block_dead)
-    t_hi = torch.where(block_dead, 0.0, t_hi)
-    t_hi = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
-
-    # level 0: block x supers
-    pass_sup, tn_sup, _ = _cone_box_test(
-        oc[:, None], oh[:, None], axis[:, None], tan_th[:, None], t_hi[:, None],
-        bins.super_aabb[None, :, 0:3], bins.super_aabb[None, :, 3:6],
-    )  # (n_blk, n_super)
-    score = torch.where(pass_sup, -tn_sup, -_BIG)
-    sup_score, sup_ids = _top_k_desc(score, cs)
-    sup_valid = sup_score > -_BIG
-
-    # level 1: block x candidate supers' bins
-    sub = _bins_by_super(bins)[sup_ids]  # (n_blk, cs, S, 6)
-    pass_bin, tn_bin, _ = _cone_box_test(
-        oc[:, None, None], oh[:, None, None], axis[:, None, None],
-        tan_th[:, None, None], t_hi[:, None, None], sub[..., 0:3], sub[..., 3:6],
-    )  # (n_blk, cs, S)
-    gbin = _global_bin_ids(sup_ids, S)
-    valid_bin = (pass_bin & sup_valid[..., None] & (gbin < bins.n_bins)).reshape(n_blk, cs * S)
-    tn_flat = torch.clamp(tn_bin.reshape(n_blk, cs * S), min=0.0)
-    return _chunk_select(bins, valid_bin, gbin.reshape(n_blk, cs * S), tn_flat, n_hi, cb)
+    return _chunk_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb, 1)[:3]
 
 
 def _pad_rays(o, d, t_min_r, t_max_r, Rb):
@@ -212,8 +133,13 @@ def _flat_rays(orig, dirs, t_min, t_max):
             batch_shape)
 
 
-def _resolve_budgets(bins, c_super, c_bin):
-    """The cull budgets clamped to the structure's level sizes: (cs, cb)."""
+def _resolve_budgets(bins, c_super, c_bin, c_mid=0):
+    """The cull budgets clamped to the structure's level sizes: (cs, cb),
+    shared by the casts and the standalone cull so that reused candidate
+    lists match the cast's shapes. The mid level (``c_mid``) is not ported
+    yet."""
+    if c_mid:
+        raise NotImplementedError("c_mid (the three-level cull) is not ported yet")
     cs = min(c_super, bins.n_super)
     return cs, min(c_bin, bins.n_bins, cs * bins.bins_per_super)
 
@@ -241,109 +167,59 @@ def _subblock_bounds(ob, db, t_min_b, t_max_b, sub_blocks):
     return tuple(x.reshape((n_blk, R) + tuple(x.shape[1:])) for x in out)
 
 
-def _chunk_level0(bins, ob, db, t_min_b, t_max_b, cs, sub_blocks):
-    """Front of the chunk cull: sub-block cone bounds, scene-exit cap,
-    level-0 super tests + nearest-first selection of ``cs`` supers.
-
-    Returns (bounds, sup_ids, sup_valid, n_hi_b, sat0) with bounds = (oc,
-    oh, axis, tan_th, t_hi) of shapes (Cb, R, ...); sat0 (Cb,) is True when
-    more supers passed than the budget kept."""
-    oc, oh, axis, tan_th, t_hi, n_hi, dead = _subblock_bounds(
-        ob, db, t_min_b, t_max_b, sub_blocks)
+def _capped_bounds(bins, raw):
+    """Sub-block bounds ``raw = (oc, oh, axis, tan_th, t_hi, n_hi, dead)``
+    (Cb, r, ...) with dead sub-blocks parked and every reach capped at the
+    scene's exit: (cones (Cb, r, 11) for the cull kernel, n_hi (Cb, r))."""
+    oc, oh, axis, tan_th, t_hi, n_hi, dead = raw
     axis = _dead_axis(axis, dead)
     t_hi = torch.where(dead, 0.0, t_hi)
     t_hi = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
-    bounds = (oc, oh, axis, tan_th, t_hi)
-    n_hi_b = torch.amax(n_hi, dim=1)  # (Cb,) |d| scale, max over sub-blocks
-
-    # level 0: sub-block cones x supers -> OR over sub-blocks
-    pass_sup, tn_sup, _ = _cone_box_test(
-        oc[:, :, None], oh[:, :, None], axis[:, :, None], tan_th[:, :, None],
-        t_hi[:, :, None],
-        bins.super_aabb[None, None, :, 0:3], bins.super_aabb[None, None, :, 3:6],
-    )  # (Cb, R, n_super)
-    tn_sup = torch.amin(torch.where(pass_sup, tn_sup, _BIG), dim=1)
-    any_sup = torch.any(pass_sup, dim=1)  # (Cb, n_super)
-    score = torch.where(any_sup, -tn_sup, -_BIG)
-    sup_score, sup_ids = _top_k_desc(score, cs)
-    sup_valid = sup_score > -_BIG
-    sat0 = torch.sum(any_sup, dim=1) > cs
-    return bounds, sup_ids, sup_valid, n_hi_b, sat0
+    return pack_cones(oc, oh, axis, tan_th, t_hi), n_hi
 
 
-def _group_box_tests(bounds, boxes):
-    """Sub-block cone tests against grouped boxes (Cb, K, G, 6), OR over
-    sub-blocks. Returns (any (Cb, K, G), tn (Cb, K, G))."""
-    oc, oh, axis, tan_th, t_hi = bounds
-    Cb, K, G, _ = boxes.shape
-    bf = boxes.reshape(Cb, 1, K * G, 6)
-    pass_b, tn_b, _ = _cone_box_test(
-        oc[:, :, None], oh[:, :, None], axis[:, :, None], tan_th[:, :, None],
-        t_hi[:, :, None], bf[..., 0:3], bf[..., 3:6],
-    )  # (Cb, R, K*G)
-    tn = torch.amin(torch.where(pass_b, tn_b, _BIG), dim=1).reshape(Cb, K, G)
-    return torch.any(pass_b, dim=1).reshape(Cb, K, G), tn
+def _hyper_budget(bins, c_hyper):
+    """The hyper budget in force: 0 unless asked for and the bins have the
+    level."""
+    return min(c_hyper, bins.n_hyper) if c_hyper and bins.hyper_aabb is not None else 0
 
 
-def _chunk_cull_tests(bins, ob, db, t_min_b, t_max_b, cs, sub_blocks):
-    """Box-test phase of the two-level chunk cull: bounds + level 0 +
-    level-1 bin tests over the cs candidate supers. Returns (valid_bin
-    (Cb, cs*S), gbin, tn_flat, n_hi_b, sat0) for :func:`_chunk_select`."""
-    Cb = ob.shape[0]
-    S = bins.bins_per_super
-    bounds, sup_ids, sup_valid, n_hi_b, sat0 = _chunk_level0(
-        bins, ob, db, t_min_b, t_max_b, cs, sub_blocks)
-    sub = _bins_by_super(bins)[sup_ids]  # (Cb, cs, S, 6)
-    any_bin, tn_bin = _group_box_tests(bounds, sub)  # (Cb, cs, S)
-    gbin = _global_bin_ids(sup_ids, S)
-    valid_bin = (any_bin & sup_valid[..., None] & (gbin < bins.n_bins)).reshape(Cb, cs * S)
-    tn_flat = torch.clamp(tn_bin.reshape(Cb, cs * S), min=0.0)
-    return valid_bin, gbin.reshape(Cb, cs * S), tn_flat, n_hi_b, sat0
+def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, c_hyper):
+    """The arguments of :func:`cull_blocks` for bounds from
+    ``raw_bounds(r)`` (r cones per block). With the hyper level, the coarse
+    levels use ONE fat block cone (r = 1) and the sub-block cones stay for
+    the bin tests, as in the JAX package."""
+    cones, n_hi = _capped_bounds(bins, raw_bounds(sub_blocks))
+    ch = _hyper_budget(bins, c_hyper)
+    fat = None
+    if ch:
+        fat = (_capped_bounds(bins, raw_bounds(1))[0] if sub_blocks > 1 else cones)[:, 0]
+        fat = fat.contiguous()
+    return (cones, fat, torch.amax(n_hi, dim=1).contiguous(), bins.bin_aabb, bins.super_aabb,
+            bins.hyper_aabb, bins.bins_per_super, bins.supers_per_hyper, ch, cs, cb)
 
 
-def _chunk_select(bins, valid_bin, gbin, tn_flat, n_hi_b, cb):
-    """Selection phase of the cull: the cb nearest valid bins per block.
-    Returns (cand_bin (Cb, cb), cand_count (Cb,), cand_tnear (Cb, cb))."""
-    id_bits = max(1, (bins.n_bins - 1).bit_length())
-    if id_bits <= 20:
-        # the bin id rides in the low mantissa bits of the (positive) entry
-        # distance: ONE int top-k selects ids and distances together; keys
-        # are unique, so the tie order of torch.topk does not matter.
-        # Truncation only rounds tnear down — still a conservative bound.
-        idm = (1 << id_bits) - 1
-        tb = tn_flat.view(torch.int32)
-        key = torch.where(valid_bin, (tb & ~idm) | gbin, _SENTINEL_KEY)
-        kmin = torch.topk(key, cb, dim=1, largest=False, sorted=True).values
-        cand_ok = kmin != _SENTINEL_KEY
-        cand_bin = torch.where(cand_ok, kmin & idm, -1)
-        cand_tnear = torch.where(
-            cand_ok, (kmin & ~idm).view(torch.float32) / n_hi_b[:, None], _BIG)
-    else:  # ids don't fit the mantissa — sort scores and carry ids along
-        bscore = torch.where(valid_bin, -tn_flat, -_BIG)
-        cand_score, cand_pos = _top_k_desc(bscore, cb)
-        cand_bin = torch.where(cand_score > -_BIG, torch.gather(gbin, 1, cand_pos), -1)
-        cand_tnear = torch.where(cand_bin >= 0, -cand_score / n_hi_b[:, None], _BIG)
-    cand_count = torch.sum(cand_bin >= 0, dim=1).to(torch.int32)
-    return cand_bin.to(torch.int32).contiguous(), cand_count, cand_tnear.contiguous()
+def _cull(bins, raw_bounds, sub_blocks, cs, cb, c_hyper):
+    """Bounds, then the box tests and selections (:func:`cull_blocks`)."""
+    return cull_blocks(*_cull_args(bins, raw_bounds, sub_blocks, cs, cb, c_hyper))
 
 
-def _chunk_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks):
-    """Per-sub-block chunk cull: the contract of :func:`_build_candidates`,
-    tighter (a union of R narrow cones instead of one fat block cone).
+def _chunk_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, c_mid=0,
+                      c_hyper=0, bounds_fn=None):
+    """Per-sub-block chunk cull: a union of R = ``sub_blocks`` narrow cones
+    per block (``bounds_fn(r)`` replaces the bounds from the rays).
 
     Returns (cand_bin (Cb, cb), cand_count (Cb,), cand_tnear (Cb, cb), sat
     (Cb,) bool — True when a budget level truncated this block's candidate
     set)."""
-    valid_bin, gbin, tn_flat, n_hi_b, sat0 = _chunk_cull_tests(
-        bins, ob, db, t_min_b, t_max_b, cs, sub_blocks)
-    sat = sat0 | (torch.sum(valid_bin, dim=1) > cb)
-    cand_bin, cand_count, cand_tnear = _chunk_select(
-        bins, valid_bin, gbin, tn_flat, n_hi_b, cb)
-    return cand_bin, cand_count, cand_tnear, sat
+    if c_mid:
+        raise NotImplementedError("c_mid (the three-level cull) is not ported yet")
+    raw = bounds_fn or (lambda r: _subblock_bounds(ob, db, t_min_b, t_max_b, r))
+    return _cull(bins, raw, sub_blocks, cs, cb, c_hyper)
 
 
 def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                   block_chunk, sub_blocks):
+                   block_chunk, sub_blocks, c_hyper=0):
     """Blocked rays and their candidate lists: exactly what
     :func:`cast_rays_binned` hands :func:`intersect_bins`.
 
@@ -367,7 +243,8 @@ def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
     for s in range(0, n_blk, block_chunk):
         sl = slice(s, s + block_chunk)
         cand_bin[sl], cand_count[sl], cand_tnear[sl], sat[sl] = _chunk_candidates(
-            bins, ob[sl], db[sl], t_min_b[sl], t_max_b[sl], cs, cb, sub_blocks)
+            bins, ob[sl], db[sl], t_min_b[sl], t_max_b[sl], cs, cb, sub_blocks,
+            c_hyper=c_hyper)
     return (ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear), sat
 
 
@@ -396,10 +273,11 @@ def cast_rays_binned(
     winner's triangle row is gathered once per ray after the kernel);
     False/"none" is the occlusion query (t only, the packed-key t).
     ``block_chunk`` bounds the cull's intermediates and changes no result.
+    ``c_hyper`` > 0 (with bins built with a hyper level) routes the super
+    selection through the ``c_hyper`` nearest hyper boxes.
     Rays should come in a spatially coherent order (scan grids are)."""
     for name, value in (("dir_groups", dir_groups), ("sort_blocks", sort_blocks),
-                        ("c_mid", c_mid), ("c_hyper", c_hyper),
-                        ("with_lossless", with_lossless)):
+                        ("c_mid", c_mid), ("with_lossless", with_lossless)):
         if value:
             raise NotImplementedError(f"cast_rays_binned: {name} is not ported yet")
     pmode = {True: "select", False: "none"}.get(payload, payload)
@@ -408,7 +286,7 @@ def cast_rays_binned(
     o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
     n = o.shape[0]
     inputs, _ = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                               block_chunk, sub_blocks)
+                               block_chunk, sub_blocks, c_hyper)
     t_best_b, ref_b = intersect_bins(bins.tri, *inputs)
     t_best = t_best_b.reshape(-1)[:n]
     hit = (t_best < t_max_r) & (t_best < _BIG)
@@ -450,3 +328,452 @@ def cast_rays_binned(
         prim_id=out_shape(ids(12)), inst_id=out_shape(ids(13)),
         point=out_shape(point), normal=out_shape(normal),
     )
+
+
+# --- the factored engine: (P pose origins x G shared directions) blocks ---
+
+# rays per step of the factored cull's bounds (changes no result: every
+# block is culled on its own)
+_CULL_RAYS_PER_STEP = 1 << 21
+
+
+def _pad_factored_blocks(o_blk, d_blk, alive, block_chunk):
+    """Pad the blocks to whole chunks; padding blocks are dead (alive = 0:
+    t_max = 0, no hits). Returns (o_blk, d_blk, alive_f, n_blk, chunk,
+    n_chunks)."""
+    o_blk = o_blk.to(torch.float32).contiguous()
+    d_blk = d_blk.to(torch.float32).contiguous()
+    n_blk = o_blk.shape[0]
+    if alive is None:
+        alive_f = o_blk.new_ones((n_blk,))
+    else:
+        alive_f = torch.as_tensor(alive, device=o_blk.device).to(torch.float32)
+    chunk = min(block_chunk, n_blk)
+    blk_pad = (-n_blk) % chunk
+    if blk_pad:
+        padz = lambda x, fill: torch.cat([x, x.new_full((blk_pad,) + tuple(x.shape[1:]), fill)])
+        o_blk, d_blk, alive_f = padz(o_blk, 0.0), padz(d_blk, 1.0), padz(alive_f, 0.0)
+    return o_blk, d_blk, alive_f.contiguous(), n_blk, chunk, (n_blk + blk_pad) // chunk
+
+
+def _factored_block_candidates(bins, o_blk, d_blk, alive_f, chunk, t_min_s, t_max_s, cs, cb,
+                               c_hyper, sub_blocks, origin_margin, dir_margin=0.0):
+    """Cull phase of the factored cast: nearest-first candidate bins of
+    (P pose origins x G shared directions) blocks.
+
+    ``origin_margin`` > 0 inflates every block's origin box by +/- margin
+    per axis, so the lists (and their tnear lower bounds) hold for ANY
+    block origins within L-inf distance ``margin`` of these — the basis of
+    candidate reuse across corrections. ``dir_margin`` (radians) widens
+    every cone's half-angle so the lists also survive direction tilts up to
+    the margin (pose rotations).
+
+    Returns (cand (n_blk, cb), count (n_blk,), tnear (n_blk, cb), sat
+    (n_blk,)) for the padded blocks."""
+    n_blk_p, P, _ = o_blk.shape
+    Rb = P * d_blk.shape[1]
+    step = chunk * max(1, _CULL_RAYS_PER_STEP // (chunk * Rb))
+    parts = [_cull(bins, _factored_bounds(o_blk[s:s + step], d_blk[s:s + step],
+                                          alive_f[s:s + step], t_min_s, t_max_s, sub_blocks,
+                                          origin_margin, dir_margin),
+                   sub_blocks, cs, cb, c_hyper)
+             for s in range(0, n_blk_p, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _factored_bounds(o_c, d_c, alive_c, t_min_s, t_max_s, sub_blocks, origin_margin,
+                     dir_margin):
+    """The raw sub-block bounds function ``r -> (oc, oh, axis, tan_th, t_hi,
+    n_hi, dead)`` of factored blocks (Cb, P, 3) x (Cb, G, 3), with the
+    margins applied."""
+    Cb, P, _ = o_c.shape
+    G = d_c.shape[1]
+    Rb = P * G
+    tan_dm = math.tan(dir_margin) if dir_margin else 0.0
+
+    def widen_cone(tan_th):
+        """tan(theta + dir_margin), conservatively pass-all past ~89 deg."""
+        if not tan_dm:
+            return tan_th
+        den = 1.0 - tan_th * tan_dm
+        return torch.where(den > 1e-4, (tan_th + tan_dm) / torch.clamp(den, min=1e-4), 1e4)
+
+    def expand_rays():
+        """Compact (Cb, P, 3) x (Cb, G, 3) -> rays (Cb, Rb, ...), ray g*P + p."""
+        ob = o_c[:, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
+        db = d_c[:, :, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
+        tmin_b = o_c.new_full((Cb, Rb), t_min_s)
+        tmax_b = (alive_c * t_max_s)[:, None].expand(Cb, Rb)
+        return ob, db, tmin_b, tmax_b
+
+    def fact_bounds(r):
+        """Sub-block bounds straight from the factored structure (ray g*P +
+        p, so sub-block r = directions [r*G/R, ...) x all origins), equal to
+        _subblock_bounds on the expanded rays."""
+        live = alive_c > 0.0
+        o_lo = torch.where(live[:, None], torch.amin(o_c, dim=1), 0.0)
+        o_hi = torch.where(live[:, None], torch.amax(o_c, dim=1), 0.0)
+        oc1 = 0.5 * (o_lo + o_hi)
+        oh1 = 0.5 * (o_hi - o_lo)
+        if origin_margin:
+            oh1 = oh1 + torch.where(live[:, None], origin_margin, 0.0)
+        oc = oc1[:, None].expand(Cb, r, 3)
+        oh = oh1[:, None].expand(Cb, r, 3)
+        dg = d_c.reshape(Cb, r, G // r, 3)
+        dn = dg * torch.rsqrt(torch.clamp(torch.sum(dg * dg, -1, keepdim=True), min=1e-30))
+        dsum = torch.sum(dn, dim=2)
+        a = dsum * torch.rsqrt(torch.clamp(torch.sum(dsum * dsum, -1, keepdim=True),
+                                           min=1e-30))
+        ca = torch.amin(torch.sum(dn * a[:, :, None, :], -1), dim=2)
+        ca = torch.clamp(ca, 0.05, 1.0)
+        tan_th = widen_cone(torch.sqrt(torch.clamp(1.0 - ca * ca, min=0.0)) / ca)
+        nrm = torch.sqrt(torch.clamp(torch.sum(dg * dg, -1), min=1e-30))
+        n_hi = torch.amax(nrm, dim=2)
+        t_hi = torch.where(live, t_max_s, 0.0)[:, None] * n_hi
+        dead = (~live)[:, None].expand(Cb, r)
+        return oc, oh, a, tan_th, t_hi, n_hi, dead
+
+    def margin_sb_bounds(r):
+        oc, oh, a, tan_th, t_hi, n_hi, dead = _subblock_bounds(*expand_rays(), r)
+        oh = oh + torch.where(dead[..., None], 0.0, origin_margin)
+        return oc, oh, a, widen_cone(tan_th), t_hi, n_hi, dead
+
+    if G % sub_blocks == 0:
+        return fact_bounds
+    if origin_margin or dir_margin:
+        return margin_sb_bounds
+    rays = expand_rays()
+    return lambda r: _subblock_bounds(*rays, r)
+
+
+def factored_candidates(
+    bins: TriangleBins,
+    o_blk: Tensor,  # (n_blk, P, 3) per-block pose origins
+    d_blk: Tensor,  # (n_blk, G, 3) per-block shared directions
+    t_min: float = 0.0,
+    t_max: float = NO_HIT_T,
+    alive: "Tensor | None" = None,
+    c_super: int = 24,
+    c_bin: int = 64,
+    block_chunk: int = 512,
+    c_mid: int = 0,
+    c_hyper: int = 0,
+    sub_blocks: int = 4,
+    origin_margin: float = 0.0,
+    dir_margin: float = 0.0,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Standalone cull for :func:`cast_rays_binned_factored`: build the
+    candidate lists once and reuse them across corrections.
+
+    With ``origin_margin`` = m (meters) and ``dir_margin`` = r (radians),
+    the lists are conservative for any cast whose block origins each moved
+    by < m per axis AND whose directions each tilted by < r, at unchanged
+    budgets: pass them as ``candidates=`` to the cast. Budgets and chunking
+    must match the cast's (the cast checks the shapes).
+
+    Returns (cand (n_blk_padded, cb) int32 with -1 padding, count
+    (n_blk_padded,) int32, tnear (n_blk_padded, cb) f32)."""
+    cs, cb = _resolve_budgets(bins, c_super, c_bin, c_mid)
+    o_p, d_p, alive_f, _, chunk, _ = _pad_factored_blocks(o_blk, d_blk, alive, block_chunk)
+    return _factored_block_candidates(
+        bins, o_p, d_p, alive_f, chunk, float(t_min), float(t_max), cs, cb, c_hyper,
+        sub_blocks, float(origin_margin), float(dir_margin))[:3]
+
+
+def cast_rays_binned_factored(
+    bins: TriangleBins,
+    o_blk: Tensor,  # (n_blk, P, 3) per-block pose origins
+    d_blk: Tensor,  # (n_blk, G, 3) per-block shared directions
+    t_min: float = 0.0,
+    t_max: float = NO_HIT_T,
+    alive: "Tensor | None" = None,  # (n_blk,) bool; None = all alive
+    c_super: int = 24,
+    c_bin: int = 64,
+    block_chunk: int = 512,
+    sort_blocks: bool = True,
+    c_mid: int = 0,
+    c_hyper: int = 0,
+    sub_blocks: int = 4,
+    payload: str = "plane",
+    flip_normals: bool = True,
+    origin_margin: float = 0.0,
+    dir_margin: float = 0.0,
+    candidates: "Tuple[Tensor, Tensor, Tensor] | None" = None,
+    paired: bool = False,
+) -> RayHits:
+    """Closest hit for *factored* ray blocks: each block is the cross
+    product of P pose origins x G shared directions (ray = g*P + p within
+    the block), the pose-sweep structure. Rays are never materialized for
+    the pair loop: the Baldwin-Weber kernel (K4) forms per-triangle,
+    per-(triangle, direction) and per-(triangle, pose) terms, and a pair
+    costs ``t = No*invNd; u = Au + t*Bu; v = Av + t*Bv`` and the hit test.
+
+    ``payload`` (resolved after the kernel from the winner's triangle row):
+    "plane" gives t, point and normal re-derived from the winner's plane
+    (prim_id/inst_id are -1); "full" and "index" add the ids; "none" is
+    the occlusion query (t only, the packed-key t).
+
+    ``candidates``: a (cand, count, tnear) triple from
+    :func:`factored_candidates` skips the cull (candidate reuse);
+    ``origin_margin``/``dir_margin`` inflate the cull when it runs here.
+    ``sort_blocks`` launches the blocks in descending candidate count (it
+    changes no result). ``paired=True``: per-ray origins, ``o_blk (n_blk,
+    G, 3)`` with origin i paired with direction i (the OnDn layout); the
+    cull bounds the origin set as before.
+
+    Constraints: ``t_min >= 0`` (degenerate and padding triangles rely on
+    t = 0 failing the gate); scalar t_min/t_max. Outputs have shape (n_blk,
+    Rb) (and (n_blk, Rb, 3))."""
+    if payload not in ("index", "plane", "full", "none"):
+        raise ValueError(f"unknown payload mode {payload!r}")
+    n_blk, P, _ = o_blk.shape
+    G = d_blk.shape[1]
+    if paired and tuple(o_blk.shape) != tuple(d_blk.shape):
+        raise ValueError("paired=True needs one origin per direction: o_blk (n_blk, G, 3)")
+    P_eff = 1 if paired else P
+    Rb = P_eff * G
+    t_min_s, t_max_s = float(t_min), float(t_max)
+    if t_min_s < 0.0:
+        raise ValueError("t_min must be >= 0")
+    B = bins.bin_size
+    if B & (B - 1):
+        raise ValueError("bin_size must be a power of two (packed-key min)")
+    cs, cb = _resolve_budgets(bins, c_super, c_bin, c_mid)
+    o_p, d_p, alive_f, n_blk, chunk, n_chunks = _pad_factored_blocks(
+        o_blk, d_blk, alive, block_chunk)
+    n_blk_p = n_chunks * chunk
+    if candidates is not None:
+        cand, count, tnear = candidates
+        if tuple(cand.shape) != (n_blk_p, cb):
+            raise ValueError(f"candidates shape {tuple(cand.shape)} != {(n_blk_p, cb)}: build "
+                             "them with factored_candidates at the same blocks and budgets")
+    else:
+        cand, count, tnear, _ = _factored_block_candidates(
+            bins, o_p, d_p, alive_f, chunk, t_min_s, t_max_s, cs, cb, c_hyper, sub_blocks,
+            float(origin_margin), float(dir_margin))
+    order = None
+    if sort_blocks:
+        order = torch.argsort(count, descending=True, stable=True).to(torch.int32)
+    t_best, ref = intersect_factored(bins.tri, o_p, d_p, alive_f, t_min_s, t_max_s,
+                                     cand.contiguous(), count.contiguous(),
+                                     tnear.contiguous(), paired=paired, order=order)
+    t_best = t_best.reshape(n_blk_p, Rb)[:n_blk]
+    ref = ref.reshape(n_blk_p, Rb)[:n_blk]
+    # dead blocks start at t_best = 0 and must not read as hits: compare
+    # against their own (alive-gated) t_max
+    hit = (t_best < (alive_f[:n_blk] * t_max_s)[:, None]) & (t_best < _BIG)
+    if payload == "none":
+        neg1 = torch.full((n_blk, Rb), -1, dtype=torch.int32, device=o_p.device)
+        zero3 = o_p.new_zeros((n_blk, Rb, 3))
+        return RayHits(t=torch.where(hit, t_best, NO_HIT_T), hit=hit, prim_id=neg1,
+                       inst_id=neg1, point=zero3, normal=zero3)
+
+    # per-ray origins and directions for the plane re-derivation
+    if paired:
+        o_r = o_p[:n_blk]
+    else:
+        o_r = o_p[:n_blk, None].expand(n_blk, G, P, 3).reshape(n_blk, Rb, 3)
+    d_r = d_p[:n_blk, :, None].expand(n_blk, G, P_eff, 3).reshape(n_blk, Rb, 3)
+    # the winner's row, one gather per ray (misses read row 0 and are masked)
+    r = torch.where(hit, ref, 0).to(torch.int64)
+    base = (r // B) * (14 * B) + r % B
+    flat = bins.tri.reshape(-1)
+    comp = lambda k: flat[base + k * B]
+    # the plane with the pair loop's formulas: ng = e1 x e2, c0 = ng.v0
+    ngx, ngy, ngz, c0 = plane_of(*(comp(k) for k in range(9)))
+    denom = ngx * d_r[..., 0] + ngy * d_r[..., 1] + ngz * d_r[..., 2]
+    safe_denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+    num = c0 - (ngx * o_r[..., 0] + ngy * o_r[..., 1] + ngz * o_r[..., 2])
+    t_plane = num / safe_denom
+    t_out = torch.where(hit, t_plane, NO_HIT_T)
+    point = torch.where(hit[..., None], o_r + t_plane[..., None] * d_r, 0.0)
+    inv_len = torch.rsqrt(torch.clamp(ngx * ngx + ngy * ngy + ngz * ngz, min=1e-30))
+    normal = torch.stack([ngx, ngy, ngz], dim=-1) * inv_len[..., None]
+    if flip_normals:
+        normal = normal * torch.where(denom > 0, -1.0, 1.0)[..., None]
+    normal = torch.where(hit[..., None], normal, 0.0)
+    if payload == "plane":
+        prim = inst = torch.full((n_blk, Rb), -1, dtype=torch.int32, device=o_p.device)
+    else:
+        prim = torch.where(hit, comp(12), -1.0).to(torch.int32)
+        inst = torch.where(hit, comp(13), -1.0).to(torch.int32)
+    return RayHits(t=t_out, hit=hit, prim_id=prim, inst_id=inst, point=point, normal=normal)
+
+
+# --- pose-sweep orders ---
+
+
+def _pose_order(origins: np.ndarray) -> np.ndarray:
+    """Poses sorted along the Morton curve of their bounding box."""
+    lo = origins.min(axis=0)
+    extent = np.maximum(origins.max(axis=0) - lo, 1e-12)
+    return np.argsort(morton_codes_3d((origins - lo) / extent), kind="stable")
+
+
+def tiled_sweep_order(origins, width: int, height: int, poses_per_tile: int = 32,
+                      az_tile: int = 8, el_tile: int = 1, dir_major: bool = False,
+                      device="cuda") -> Tuple[Tensor, Tensor]:
+    """Permutation for pose-sweep workloads producing *compact* ray blocks:
+    tiles of ``poses_per_tile`` Morton-clustered origins x ``az_tile *
+    el_tile`` angularly adjacent scan directions.
+
+    Rays are assumed pose-major: ray index = pose * (width*height) + dir,
+    with the scan grid flattened row-major (dir = el * width + az).
+    ``dir_major=True`` orders each tile direction-outer / pose-inner.
+
+    Returns (perm, inv) int64 on ``device``: apply ``rays[perm]``;
+    un-apply ``hits[inv]``."""
+    dev = resolve_device(device)
+    origins = np.asarray(origins, np.float32).reshape(-1, 3)
+    n_poses = origins.shape[0]
+    n_dirs = width * height
+    pose_order = _pose_order(origins).astype(np.int64)
+    pt = max(1, min(poses_per_tile, n_poses))
+    at = max(1, min(az_tile, width))
+    et = max(1, min(el_tile, height))
+    n_pt = (n_poses + pt - 1) // pt
+    pose_pad = np.concatenate(
+        [pose_order, np.repeat(pose_order[-1:], n_pt * pt - n_poses)]).reshape(n_pt, pt)
+    n_at = (width + at - 1) // at
+    n_et = (height + et - 1) // et
+    az_ids, el_ids = np.arange(width), np.arange(height)
+    az_tiles = np.concatenate([az_ids, np.repeat(az_ids[-1:], n_at * at - width)]).reshape(n_at, at)
+    el_tiles = np.concatenate([el_ids, np.repeat(el_ids[-1:], n_et * et - height)]).reshape(n_et, et)
+    if dir_major:
+        p = pose_pad[:, None, None, None, None, :]
+        a = az_tiles[None, :, None, :, None, None]
+        e = el_tiles[None, None, :, None, :, None]
+    else:
+        p = pose_pad[:, None, None, :, None, None]
+        a = az_tiles[None, :, None, None, :, None]
+        e = el_tiles[None, None, :, None, None, :]
+    perm = (p * n_dirs + e * width + a).reshape(-1)
+    # inverse ignoring duplicate (padded) entries: the last write wins, and
+    # duplicates compute identical rays
+    inv = np.zeros(n_poses * n_dirs, np.int64)
+    inv[perm] = np.arange(perm.shape[0])
+    return torch.from_numpy(perm).to(dev), torch.from_numpy(inv).to(dev)
+
+
+class TiledSweep:
+    """Factored tiled pose-sweep ordering — reshapes, transposes and small
+    per-axis gathers only.
+
+    The permutation of :func:`tiled_sweep_order` is a product of three
+    small per-axis orders (Morton pose order x azimuth tiles x elevation
+    tiles), so both directions factor into reshapes and tiny gathers. Use
+    for translation sweeps of one shared scan grid::
+
+        sweep = TiledSweep(trans, width, height, 16, 8, 1)
+        o_blk, d_blk = sweep.factored_rays(trans_t, dirs_t)
+        hits = cast_rays_binned_factored(bins, o_blk, d_blk)
+        t = sweep.unpermute(hits.t.reshape(sweep.n_rays, 1))  # (n_poses, n_dirs, 1)
+
+    Ray layout: axes (pose_tile, az_tile, el_tile, az_in, el_in, pose_in)
+    flattened C-order; each tile cell is one block of ``az_tile*el_tile``
+    directions x ``poses_per_tile`` poses. The index arrays are numpy; the
+    methods take tensors and gather on their device.
+    """
+
+    def __init__(self, origins, width: int, height: int, poses_per_tile: int = 16,
+                 az_tile: int = 8, el_tile: int = 1):
+        origins = np.asarray(origins, np.float32).reshape(-1, 3)
+        n_poses = origins.shape[0]
+        pose_order = _pose_order(origins).astype(np.int32)
+        pt = max(1, min(poses_per_tile, n_poses))
+        at = max(1, min(az_tile, width))
+        et = max(1, min(el_tile, height))
+        n_pt = (n_poses + pt - 1) // pt
+        n_at = (width + at - 1) // at
+        n_et = (height + et - 1) // et
+        # pad every axis by repeating its last entry; padding sits at the
+        # END of each flattened axis, so the inverse is a plain slice there
+        pose_pad = np.concatenate([pose_order, np.repeat(pose_order[-1:], n_pt * pt - n_poses)])
+        self.pose_tiles = pose_pad.reshape(n_pt, pt)
+        # position of pose p in the padded pose axis (inverse of pose_order)
+        self.pose_rank = np.argsort(pose_order, kind="stable").astype(np.int32)
+        self.width, self.height = width, height
+        self.n_poses, self.n_dirs = n_poses, width * height
+        self.pt, self.at, self.et = pt, at, et
+        self.n_pt, self.n_at, self.n_et = n_pt, n_at, n_et
+        self.block_size = at * et * pt
+        self.dir_groups = at * et
+        self.n_rays = n_pt * n_at * n_et * self.block_size
+        # scan-grid direction ids per (az_tile, el_tile, az_in, el_in)
+        az_pad = np.minimum(np.arange(n_at * at), width - 1)
+        el_pad = np.minimum(np.arange(n_et * et), height - 1)
+        self.dir_ids = (el_pad.reshape(1, n_et, 1, et) * width
+                        + az_pad.reshape(n_at, 1, at, 1)).astype(np.int32)
+        # first-occurrence mask (padded duplicate dirs excluded)
+        first = ((np.arange(n_at * at) < width).reshape(n_at, 1, at, 1)
+                 & (np.arange(n_et * et) < height).reshape(1, n_et, 1, et))
+        self.dir_valid = np.broadcast_to(first, self.dir_ids.shape)
+
+    @staticmethod
+    def _idx(a: np.ndarray, like: Tensor) -> Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(like.device)
+
+    def rays(self, trans: Tensor, dirs: Tensor) -> Tuple[Tensor, Tensor]:
+        """Permuted-flat (origins, directions) from per-pose translations
+        (n_poses, 3) and shared scan directions (n_dirs, 3)."""
+        full = (self.n_pt, self.n_at, self.n_et, self.at, self.et, self.pt, 3)
+        tp = trans.to(torch.float32)[self._idx(self.pose_tiles, trans)]  # (n_pt, pt, 3)
+        o = tp[:, None, None, None, None].expand(full)
+        dg = dirs.to(torch.float32)[self._idx(self.dir_ids, dirs)]  # (n_at, n_et, at, et, 3)
+        d = dg[None, :, :, :, :, None].expand(full)
+        return o.reshape(-1, 3), d.reshape(-1, 3)
+
+    def factored_rays(self, trans: Tensor, dirs: Tensor) -> Tuple[Tensor, Tensor]:
+        """Compact per-block rays for :func:`cast_rays_binned_factored`:
+        (origins (n_blk, P, 3), directions (n_blk, G, 3)), block index
+        (pose_tile, az_tile, el_tile) C-order and in-block ray order g*P + p
+        — the flat order of :meth:`rays`, so :meth:`unpermute` applies to
+        hits reshaped to (n_blk * block_size, ...)."""
+        n_pt, n_at, n_et = self.n_pt, self.n_at, self.n_et
+        G = self.at * self.et
+        tp = trans.to(torch.float32)[self._idx(self.pose_tiles, trans)]  # (n_pt, pt, 3)
+        o_blk = tp[:, None, None].expand(n_pt, n_at, n_et, self.pt, 3).reshape(-1, self.pt, 3)
+        dg = dirs.to(torch.float32)[self._idx(self.dir_ids, dirs)]
+        d_blk = dg.reshape(n_at, n_et, G, 3)[None].expand(n_pt, n_at, n_et, G, 3).reshape(-1, G, 3)
+        return o_blk.contiguous(), d_blk.contiguous()
+
+    def permute(self, data: Tensor) -> Tensor:
+        """Canonical (n_poses, n_dirs, *k) -> sweep-flat (n_rays, *k); padded
+        slots replicate their axis's last entry."""
+        k = tuple(data.shape[2:])
+        tp = data[self._idx(self.pose_tiles.reshape(-1), data)].reshape(
+            (self.n_pt, self.pt, self.n_dirs) + k)
+        dg = tp[:, :, self._idx(self.dir_ids.reshape(-1), data)].reshape(
+            (self.n_pt, self.pt, self.n_at, self.n_et, self.at, self.et) + k)
+        out = dg.permute((0, 2, 3, 4, 5, 1) + tuple(6 + i for i in range(len(k))))
+        return out.reshape((self.n_rays,) + k)
+
+    def pose_sums(self, vals: Tensor) -> Tensor:
+        """Per-pose sums of per-ray values in sweep-flat order: (n_rays, *k)
+        -> (n_poses, *k), excluding padded duplicate dirs and pose slots."""
+        k = tuple(vals.shape[1:])
+        v = vals.reshape((self.n_pt, self.n_at, self.n_et, self.at, self.et, self.pt) + k)
+        dmask = torch.from_numpy(np.ascontiguousarray(self.dir_valid)).to(
+            device=vals.device, dtype=vals.dtype).reshape(
+            (1, self.n_at, self.n_et, self.at, self.et, 1) + (1,) * len(k))
+        s = torch.sum(v * dmask, dim=(1, 2, 3, 4)).reshape((self.n_pt * self.pt,) + k)
+        return s[self._idx(self.pose_rank, vals)]
+
+    def unpermute(self, y: Tensor) -> Tensor:
+        """Permuted-flat (n_rays, *k) -> (n_poses, n_dirs, *k) via a
+        transpose, slices and one small pose gather."""
+        k = tuple(y.shape[1:])
+        y6 = y.reshape((self.n_pt, self.n_at, self.n_et, self.at, self.et, self.pt) + k)
+        y6 = y6.permute((0, 5, 2, 4, 1, 3) + tuple(6 + i for i in range(len(k))))
+        y3 = y6.reshape((self.n_pt * self.pt, self.n_et * self.et, self.n_at * self.at) + k)
+        out = y3[:, : self.height, : self.width][self._idx(self.pose_rank, y)]
+        return out.reshape((self.n_poses, self.n_dirs) + k)
+
+
+def direction_major_order(n_poses: int, n_dirs: int, device="cuda") -> Tuple[Tensor, Tensor]:
+    """Permutation turning pose-major rays into direction-major order (all
+    poses' ray #0, all poses' ray #1, ...). Returns (perm, inv) int64 on
+    ``device``: apply ``rays[perm]``, un-apply with ``hits[inv]``."""
+    dev = resolve_device(device)
+    perm = torch.arange(n_poses * n_dirs, device=dev).reshape(n_poses, n_dirs).T.reshape(-1)
+    return perm, torch.argsort(perm)

@@ -1,5 +1,5 @@
-"""Candidate-bin intersection: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Candidate-bin intersection: the hand-written CUDA kernels and their
+plain PyTorch versions.
 
 ``intersect_bins`` is the port of the JAX package's only Pallas kernel,
 ``rmcl_tpu/ops/raycast_pallas.py::_intersect_kernel`` (wrapper
@@ -8,7 +8,12 @@ runs in its place (``rmcl_tpu/ops/raycast_binned.py:951-1114``). The kernel
 source is ``rmcl_tpu_torch/csrc/intersect_bins.cu``; its header says what
 bounds it on the card and what the design does about that.
 
-Contract (the Pallas kernel's): ray blocks ``ob, db (n_blk, Rb, 3)``,
+``intersect_factored`` (K4) ports the Baldwin-Weber pair loop of
+``rmcl_tpu/ops/raycast_binned.py::cast_rays_binned_factored`` (:1650-1771),
+source ``rmcl_tpu_torch/csrc/intersect_factored.cu``; its contract is in
+its docstring.
+
+Contract of ``intersect_bins`` (the Pallas kernel's): ray blocks ``ob, db (n_blk, Rb, 3)``,
 ``t_min_b, t_max_b (n_blk, Rb)``; per block a nearest-first candidate list
 ``cand_bin (n_blk, cb)`` int32 (-1 padding), ``cand_count (n_blk,)`` and
 ``cand_tnear (n_blk, cb)``; triangle payload ``tri (n_rows, 14, B)`` with B
@@ -185,4 +190,228 @@ def intersect_bins_reference(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tenso
         better = running[:, None] & (t_bin < t_best)
         t_best = torch.where(better, t_bin, t_best)
         ref = torch.where(better, bid[:, None] * B + (key_min & jmask), ref)
+    return t_best, ref
+
+
+# --- the factored pair loop (Baldwin-Weber over pose x direction blocks) ---
+
+_ONE_PLUS_EPS = 1.0 + _EPS
+
+
+@functools.lru_cache(maxsize=None)
+def _factored_kernel():
+    """The kernel's C entry point (``rmcl_intersect_factored``), built on first use."""
+    fn = _build.load_library("intersect_factored").rmcl_intersect_factored
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_factored(tri, o_blk, d_blk, alive, t_min, cand_bin, cand_count, cand_tnear,
+                    paired, order):
+    n_blk, G = d_blk.shape[0], d_blk.shape[1] if d_blk.dim() == 3 else -1
+    P = o_blk.shape[1] if o_blk.dim() == 3 else -1
+    cb = cand_bin.shape[1] if cand_bin.dim() == 2 else -1
+    expect = {
+        "tri": (tri, torch.float32, None),
+        "o_blk": (o_blk, torch.float32, (n_blk, G if paired else P, 3)),
+        "d_blk": (d_blk, torch.float32, (n_blk, G, 3)),
+        "alive": (alive, torch.float32, (n_blk,)),
+        "cand_bin": (cand_bin, torch.int32, (n_blk, cb)),
+        "cand_count": (cand_count, torch.int32, (n_blk,)),
+        "cand_tnear": (cand_tnear, torch.float32, (n_blk, cb)),
+    }
+    if order is not None:
+        expect["order"] = (order, torch.int32, (n_blk,))
+    for name, (x, dtype, shape) in expect.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if x.device != tri.device:
+            raise ValueError(f"{name} is on {x.device}, tri on {tri.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tri.dim() != 3 or tri.shape[1] != 14:
+        raise ValueError(f"tri must be (n_rows, 14, B), got {tuple(tri.shape)}")
+    B = tri.shape[2]
+    if B < 1 or B & (B - 1):
+        raise ValueError(f"bin size {B} must be a power of two (packed-key min)")
+    rays = G * (1 if paired else P)
+    if not 1 <= rays <= 1024:
+        raise ValueError(f"{rays} rays per block: must be in [1, 1024] (one thread per ray)")
+    if cb < 1:
+        raise ValueError("cand_bin must be (n_blk, cb) with cb >= 1")
+    if not t_min >= 0.0:
+        raise ValueError("t_min must be >= 0: degenerate triangles give t = 0, which only "
+                         "the strict t > t_min gate rejects")
+
+
+def intersect_factored(tri: Tensor, o_blk: Tensor, d_blk: Tensor, alive: Tensor,
+                       t_min: float, t_max: float, cand_bin: Tensor, cand_count: Tensor,
+                       cand_tnear: Tensor, paired: bool = False, order: Tensor | None = None):
+    """Closest hit per ray of factored blocks over each block's candidates.
+
+    Block b's rays are its P origins ``o_blk[b]`` x its G directions
+    ``d_blk[b]`` (ray g*P + p), or with ``paired`` origin g with direction
+    g (``o_blk (n_blk, G, 3)``). ``alive (n_blk,)`` f32 gates the blocks:
+    t_best starts at ``alive * t_max``. Candidates as K1's. ``order``
+    (int32, optional) is the launch order of the blocks and changes no
+    result. Returns ``t_best (n_blk, G, P_eff)`` f32 (the packed, rounded-up
+    t) and ``ref (n_blk, G, P_eff)`` int32 = bin * B + j, or -1.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`intersect_factored_reference`. ``intersect_factored.launches``
+    counts the kernel launches."""
+    t_min, t_max = float(t_min), float(t_max)
+    _check_factored(tri, o_blk, d_blk, alive, t_min, cand_bin, cand_count, cand_tnear,
+                    paired, order)
+    dev = tri.device
+    if dev.type == "cpu":
+        return intersect_factored_reference(tri, o_blk, d_blk, alive, t_min, t_max, cand_bin,
+                                            cand_count, cand_tnear, paired)
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_factored runs on cuda or cpu tensors, not {dev}")
+    n_blk, G = d_blk.shape[0], d_blk.shape[1]
+    P = o_blk.shape[1]
+    P_eff = 1 if paired else P
+    t_best = torch.empty((n_blk, G, P_eff), dtype=torch.float32, device=dev)
+    ref = torch.empty((n_blk, G, P_eff), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _factored_kernel()(
+            tri.data_ptr(), o_blk.data_ptr(), d_blk.data_ptr(), alive.data_ptr(),
+            cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(),
+            0 if order is None else order.data_ptr(), t_best.data_ptr(), ref.data_ptr(),
+            n_blk, G, P, int(paired), cand_bin.shape[1], tri.shape[2], t_min, t_max,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"intersect_factored kernel launch failed: cudaError {err}")
+    intersect_factored.launches += 1
+    return t_best, ref
+
+
+intersect_factored.launches = 0
+
+
+def plane_of(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z):
+    """Unnormalized plane (ng = e1 x e2, c0 = ng.v0) of triangles, with the
+    pair loop's operation order."""
+    ngx = e1y * e2z - e1z * e2y
+    ngy = e1z * e2x - e1x * e2z
+    ngz = e1x * e2y - e1y * e2x
+    return ngx, ngy, ngz, ngx * v0x + ngy * v0y + ngz * v0z
+
+
+def bw_rows(tw: Tensor):
+    """Per-triangle Baldwin-Weber rows from packed v0/e1/e2 ``tw (..., 9,
+    B)``: (ngx, ngy, ngz, c0, m1x, m1y, m1z, m2x, m2y, m2z, cu, cv), each
+    (..., B) — the unnormalized plane normal e1 x e2, its offset ng.v0, and
+    the barycentric rows m1 = e2 x ng / |ng|^2, m2 = ng x e1 / |ng|^2."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tw[..., :9, :].unbind(-2)
+    ngx, ngy, ngz, c0 = plane_of(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z)
+    nn = ngx * ngx + ngy * ngy + ngz * ngz
+    inv_nn = 1.0 / torch.clamp(nn, min=1e-30)
+    m1x = (e2y * ngz - e2z * ngy) * inv_nn
+    m1y = (e2z * ngx - e2x * ngz) * inv_nn
+    m1z = (e2x * ngy - e2y * ngx) * inv_nn
+    m2x = (ngy * e1z - ngz * e1y) * inv_nn
+    m2y = (ngz * e1x - ngx * e1z) * inv_nn
+    m2z = (ngx * e1y - ngy * e1x) * inv_nn
+    cu = v0x * m1x + v0y * m1y + v0z * m1z
+    cv = v0x * m2x + v0y * m2y + v0z * m2z
+    return ngx, ngy, ngz, c0, m1x, m1y, m1z, m2x, m2y, m2z, cu, cv
+
+
+def _bw_t(rows, o, d, t_min):
+    """Hit distance (3e38 where the ray misses) from the rows (broadcast
+    against the rays' components o, d); the kernel's arithmetic, term for
+    term. Direction terms are formed before the origin terms meet them, so
+    broadcasting over poses repeats identical values."""
+    ngx, ngy, ngz, c0, m1x, m1y, m1z, m2x, m2y, m2z, cu, cv = rows
+    ox, oy, oz = o
+    dx, dy, dz = d
+    Nd = ngx * dx + ngy * dy + ngz * dz
+    invNd = torch.where(torch.abs(Nd) > 1e-30, 1.0 / Nd, 0.0)
+    Bu = m1x * dx + m1y * dy + m1z * dz
+    Bv = m2x * dx + m2y * dy + m2z * dz
+    No = c0 - (ngx * ox + ngy * oy + ngz * oz)
+    Au = (m1x * ox + m1y * oy + m1z * oz) - cu
+    Av = (m2x * ox + m2y * oy + m2z * oz) - cv
+    t = No * invNd
+    u = Au + t * Bu
+    v = Av + t * Bv
+    ok = (torch.minimum(torch.minimum(u, v), _ONE_PLUS_EPS - (u + v)) >= -_EPS) & (t > t_min)
+    return torch.where(ok, t, _BIG)
+
+
+def factored_winner_t(tri: Tensor, o: Tensor, d: Tensor, t_min: float, ref: Tensor) -> Tensor:
+    """The t that :func:`intersect_factored` would record for the triangle
+    ``ref = bin * B + j`` names, per ray ``o, d (..., 3)``: its
+    Baldwin-Weber hit distance with the low log2(B) mantissa bits set;
+    3e38 where ``ref`` is -1 or the ray misses that triangle."""
+    B = tri.shape[2]
+    jmask = B - 1
+    r = ref.clamp(min=0).long()
+    rows = bw_rows(tri[r // B, :9, r % B][..., None])  # each (..., 1)
+    t = _bw_t([x[..., 0] for x in rows], o.unbind(-1), d.unbind(-1), t_min)
+    t = torch.where(ref >= 0, t, _BIG)
+    return ((t.view(torch.int32) & ~jmask) | jmask).view(torch.float32)
+
+
+# plain-version pair elements per step (blocks x B x G x P): bounds memory
+_REF_PAIRS_PER_STEP = 1 << 24
+
+
+def intersect_factored_reference(tri: Tensor, o_blk: Tensor, d_blk: Tensor, alive: Tensor,
+                                 t_min: float, t_max: float, cand_bin: Tensor,
+                                 cand_count: Tensor, cand_tnear: Tensor, paired: bool = False):
+    """The same function in plain PyTorch: one step per candidate slot over
+    (blocks, B, G, P) pair tensors, the same packed-key fold and the same
+    per-block nearest-first exit, in steps of blocks that bound memory.
+    Runs on any device."""
+    t_min, t_max = float(t_min), float(t_max)
+    n_blk, G = d_blk.shape[0], d_blk.shape[1]
+    B = tri.shape[2]
+    P_eff = 1 if paired else o_blk.shape[1]
+    step = max(1, _REF_PAIRS_PER_STEP // (B * G * P_eff))
+    # zero sentinel row for finished blocks: zero rows give Nd = 0 ->
+    # invNd = 0 -> t = 0, which fails the strict t > t_min gate
+    tri9 = torch.cat([tri[:, :9], tri.new_zeros((1, 9, B))], 0)
+    outs = [_factored_slice(tri9, o_blk[s:s + step], d_blk[s:s + step], alive[s:s + step],
+                            t_min, t_max, cand_bin[s:s + step], cand_count[s:s + step],
+                            cand_tnear[s:s + step], paired)
+            for s in range(0, n_blk, step)]
+    return torch.cat([x[0] for x in outs]), torch.cat([x[1] for x in outs])
+
+
+def _factored_slice(tri9, o_blk, d_blk, alive, t_min, t_max, cand_bin, cand_count, cand_tnear,
+                    paired):
+    n, G = d_blk.shape[0], d_blk.shape[1]
+    B = tri9.shape[2]
+    jmask = B - 1
+    sentinel = tri9.shape[0] - 1
+    P_eff = 1 if paired else o_blk.shape[1]
+    # rays: directions (n, 1, G, 1); origins (n, 1, 1, P), or (n, 1, G, 1) paired
+    d = [d_blk[:, None, :, None, k] for k in range(3)]
+    o = [o_blk[:, None, :, None, k] if paired else o_blk[:, None, None, :, k] for k in range(3)]
+    j_iota = torch.arange(B, dtype=torch.int32, device=tri9.device)[None, :, None, None]
+    t_best = (alive * t_max)[:, None, None].expand(n, G, P_eff).clone()
+    ref = torch.full((n, G, P_eff), -1, dtype=torch.int32, device=tri9.device)
+    running = torch.ones(n, dtype=torch.bool, device=tri9.device)
+    for c in range(cand_bin.shape[1]):
+        running = running & (c < cand_count) & (
+            cand_tnear[:, c] <= torch.amax(t_best, dim=(1, 2)))
+        if not bool(running.any()):
+            break
+        bid = torch.where(running, cand_bin[:, c], sentinel)
+        rows = [x[:, :, None, None] for x in bw_rows(tri9[bid])]  # (n, B, 1, 1)
+        t_cand = _bw_t(rows, o, d, t_min)  # (n, B, G, P)
+        key = (t_cand.view(torch.int32) & ~jmask) | j_iota
+        key_min = torch.amin(key, dim=1)  # (n, G, P)
+        t_bin = (key_min | jmask).view(torch.float32)
+        better = running[:, None, None] & (t_bin < t_best)
+        t_best = torch.where(better, t_bin, t_best)
+        ref = torch.where(better, bid[:, None, None] * B + (key_min & jmask), ref)
     return t_best, ref

@@ -150,3 +150,141 @@ def test_correct_once_on_card_matches_cpu(card):
         torch.testing.assert_close(g.rot.cpu() * sign, c.rot, rtol=0.0, atol=POSE_TOL)
     err = np.linalg.norm(poses[0][-1].trans.cpu().numpy() - np.float32(true_pose[:3]))
     assert err < 0.01
+
+
+# --- the block cull (K3) and the factored pair loop (K4) ---
+
+def _sweep_blocks(bins_dev, n_poses=48, width=120, seed=7, span=2.0):
+    """Pose-sweep blocks (16 poses x 8 directions) in the 5 m sphere."""
+    model = SphericalModel.vlp16(width=width)
+    dirs = model.rays(bins_dev)[1]
+    trans = np.random.default_rng(seed).uniform(-span, span, size=(n_poses, 3)).astype(np.float32)
+    sweep = trb.TiledSweep(trans, width, model.height, 16, 8, 1)
+    return sweep.factored_rays(torch.from_numpy(trans).to(bins_dev), dirs)
+
+
+def _sphere_bins(dev):
+    """The 5 m sphere in 128 bins of 64, 8 supers, 4 hypers."""
+    return build_bins(MESHES["sphere"](), bin_size=64, bins_per_super=16, supers_per_hyper=2,
+                      device=dev)
+
+
+def _cull_case(card, case):
+    """K3 inputs: the dense engine's chunk cull (no hyper level), or the
+    factored cull with the hyper level at 4 and at 128 (per-ray) cones."""
+    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_bounds,
+                                                   _pad_factored_blocks, _subblock_bounds)
+    if case == "dense_room":
+        bins = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
+        o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
+        blocks = trb._pad_rays(o, d, t_min, t_max, 128)
+        raw = lambda r: _subblock_bounds(*blocks, r)
+        return _cull_args(bins, raw, 4, *trb._resolve_budgets(bins, 24, 96), 0)
+    bins = _sphere_bins(card)
+    o_blk, d_blk = _sweep_blocks(card)
+    o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
+    R, margin = (4, 0.0) if case == "sweep_hyper" else (128, 0.03)
+    raw = _factored_bounds(o_p, d_p, alive, 0.0, 130.0, R, margin, 0.0)
+    return _cull_args(bins, raw, R, bins.n_super, 64, bins.n_hyper)
+
+
+@pytest.mark.parametrize("case", ["dense_room", "sweep_hyper", "sweep_per_ray_cones"])
+def test_cull_kernel_matches_plain_version(card, case):
+    from rmcl_tpu_torch.ops.cull_cuda import (cull_blocks, cull_blocks_reference,
+                                              cull_disagreements)
+    args = _cull_case(card, case)
+    before = cull_blocks.launches
+    k_out = cull_blocks(*args)
+    p_out = cull_blocks_reference(*args)
+    torch.cuda.synchronize()
+    assert cull_blocks.launches == before + 1  # the plain version is not counted
+    assert float(p_out[1].float().mean()) > 1  # the lists are not trivial
+    bad, _ = cull_disagreements(k_out, p_out)
+    assert bad == 0
+
+
+@pytest.mark.parametrize("layout", ["sweep", "tracking", "paired"])
+def test_factored_kernel_matches_plain_version(card, layout):
+    from rmcl_tpu_torch.ops.raycast_binned import _factored_block_candidates, _pad_factored_blocks
+    from rmcl_tpu_torch.ops.raycast_cuda import (factored_winner_t, intersect_factored,
+                                                 intersect_factored_reference)
+    bins = _sphere_bins(card)
+    paired = layout == "paired"
+    if layout == "sweep":
+        o_blk, d_blk = _sweep_blocks(card)
+    else:
+        model = SphericalModel.vlp16(width=240)
+        d = model.rays(card)[1].reshape(-1, 128, 3)
+        shift = torch.tensor([0.3, -0.2, 0.1], device=card)
+        o_blk = (shift.expand(d.shape[0], 1, 3) if layout == "tracking"
+                 else shift + 0.05 * torch.roll(d, 1, dims=1)).contiguous()
+        d_blk = d
+    o_p, d_p, alive, _, chunk, _ = _pad_factored_blocks(o_blk, d_blk, None, 512)
+    cand, count, tnear, _ = _factored_block_candidates(
+        bins, o_p, d_p, alive, chunk, 0.1, 130.0, 8, 64, 4, 4, 0.0)
+    args = (bins.tri, o_p, d_p, alive, 0.1, 130.0, cand, count, tnear)
+    before = intersect_factored.launches
+    kt, kref = intersect_factored(*args, paired=paired)
+    pt, pref = intersect_factored_reference(*args, paired=paired)
+    torch.cuda.synchronize()
+    assert intersect_factored.launches == before + 1
+    assert (pref[alive > 0] >= 0).float().mean() > 0.99  # padding blocks are dead
+    torch.testing.assert_close(kt, pt, rtol=T_RTOL, atol=0.0)
+    mis = kref != pref
+    P_eff = kt.shape[2]
+    o_r = (o_p[:, :, None] if paired else o_p[:, None]).expand(-1, kt.shape[1], P_eff, 3)
+    d_r = d_p[:, :, None].expand(-1, -1, P_eff, 3)
+    tie_t = factored_winner_t(bins.tri, o_r[mis], d_r[mis], 0.1, kref[mis])
+    torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
+
+
+def test_factored_cast_on_card_matches_cpu(card):
+    hits = []
+    for dev in (card, torch.device("cpu")):
+        bins = _sphere_bins(dev)
+        o_blk, d_blk = _sweep_blocks(dev)
+        hits.append(trb.cast_rays_binned_factored(bins, o_blk, d_blk, c_super=8, c_hyper=4,
+                                                  payload="index"))
+    g, c = hits
+    assert (g.hit.cpu() == c.hit).float().mean() >= HIT_MIN_AGREE
+    both = g.hit.cpu() & c.hit
+    torch.testing.assert_close(g.t.cpu()[both], c.t[both], rtol=T_TOL, atol=T_TOL)
+    assert (g.prim_id.cpu()[both] == c.prim_id[both]).float().mean() >= PRIM_MIN_AGREE
+
+
+def test_tracked_corrector_on_card_matches_cpu(card):
+    from rmcl_tpu_torch.micp.tracking import TrackedCorrector
+    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
+    mesh = MESHES["room"]()
+    model = SphericalModel.create(width=256, height=8, phi_min=-0.4, phi_max=0.3,
+                                  range_max=30.0)
+    true_pose = [0.5, -0.3, 1.0, 0.0, 0.0, 0.3]
+    cpu = torch.device("cpu")
+    cpu_bins = build_bins(mesh, bin_size=32, bins_per_super=8, device=cpu)
+    hits = simulate(cpu_bins, model, Transform.from_pose_tuple(true_pose, device=cpu))
+    poses = []
+    for dev in (card, cpu):
+        bins = build_bins(mesh, bin_size=32, bins_per_super=8, device=dev)
+        sensor = tp.MICPSensorData(
+            model=model, points=hits.point.to(dev), mask=hits.hit.to(dev),
+            tsb=Transform.identity(device=dev), config=tp.MICPSensorConfig.create(max_dist=2.0))
+        tbo = Transform.identity(device=dev)
+        tc = TrackedCorrector(bins, model, tp.MICPConfig())
+        before = (cull_blocks.launches, intersect_factored.launches)
+        state = tc.init(bins, Transform.from_pose_tuple([0.5, -0.3, 1.2, 0.0, 0.0, 0.35],
+                                                        device=dev), tbo, sensor.tsb)
+        trail = []
+        for _ in range(4):
+            state, _ = tc.step(bins, [sensor], state, tbo)
+            trail.append(state.tom)
+        launched = (cull_blocks.launches - before[0], intersect_factored.launches - before[1])
+        if dev.type == "cuda":
+            assert launched[0] == state.n_reculls and launched[1] == 4
+        else:
+            assert launched == (0, 0)
+        poses.append(trail)
+    for g, c in zip(*poses):
+        torch.testing.assert_close(g.trans.cpu(), c.trans, rtol=0.0, atol=POSE_TOL)
+    err = np.linalg.norm(poses[0][-1].trans.cpu().numpy() - np.float32(true_pose[:3]))
+    assert err < 0.01

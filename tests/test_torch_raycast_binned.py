@@ -126,9 +126,33 @@ def test_t_gates():
 
 
 @pytest.mark.parametrize("option", [dict(dir_groups=2), dict(sort_blocks=True),
-                                    dict(c_mid=16), dict(c_hyper=8),
+                                    dict(c_mid=16), dict(c_mid=8, c_hyper=8),
                                     dict(with_lossless=True)])
 def test_unported_options_raise(option):
     _, tb, o, d = _case("room")
     with pytest.raises(NotImplementedError):
         t_cast(tb, torch.from_numpy(o[:128]), torch.from_numpy(d[:128]), **option)
+
+
+def test_hyper_cull_matches_jax():
+    """The hyper level (c_hyper) against JAX's cast_rays_binned(c_hyper=16)
+    on a pose sweep, at budgets that cover the passing hypers: the same hits,
+    and the hits of the two-level cull."""
+    jb = build_bins(make_sphere(60, 60, radius=20.0), bin_size=16, bins_per_super=8,
+                    supers_per_hyper=4)
+    assert jb.hyper_aabb is not None
+    tb = _carry(jb)
+    poses = np.random.default_rng(3).uniform(-2.0, 2.0, size=(6, 1, 3)).astype(np.float32)
+    d1 = _scan(96, 4, el=(-0.4, 0.4))
+    d = np.ascontiguousarray(np.broadcast_to(d1, (6,) + d1.shape).reshape(-1, 3))
+    o = np.ascontiguousarray(np.broadcast_to(poses, (6,) + d1.shape).reshape(-1, 3))
+    kw = dict(block_size=8, c_super=40, c_bin=64, block_chunk=64)
+    jh = j_cast(jb, jnp.asarray(o), jnp.asarray(d), c_hyper=16, **kw)
+    th = t_cast(tb, torch.from_numpy(o), torch.from_numpy(d), c_hyper=16, **kw)
+    t0 = t_cast(tb, torch.from_numpy(o), torch.from_numpy(d), **kw)
+    j_hit = np.asarray(jh.hit)
+    assert j_hit.mean() > 0.99
+    np.testing.assert_array_equal(th.hit.numpy(), j_hit)
+    np.testing.assert_array_equal(th.hit.numpy(), t0.hit.numpy())
+    np.testing.assert_allclose(th.t.numpy()[j_hit], np.asarray(jh.t)[j_hit],
+                               rtol=T_TOL, atol=T_TOL)
