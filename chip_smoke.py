@@ -12,7 +12,8 @@ Phases (any failure ends the run with a nonzero exit code):
    block cull, K4 factored pair loop);
 3. K1 vs plain version: the intersection kernel against its plain PyTorch
    version on the same CUDA tensors, for 14,400 VLP-16 rays on the room
-   scene and on the ~1M-face sphere, with timings;
+   scene (128-ray blocks, and 100-ray blocks whose last warp is partly
+   idle) and on the ~1M-face sphere, with timings;
 4. main path: MICP-L on a ~480k-face building map — ten ``correct_once``
    calls from +0.2 m z / 0.05 rad yaw back to the true pose, counting the
    K1 and K3 launches; both kernels are then held against their plain
@@ -24,7 +25,9 @@ Phases (any failure ends the run with a nonzero exit code):
    cull (K3) and K1; the default 128-ray blocks are measured too;
 6. tracking: ``TrackedCorrector`` on phase 4's map, sensor and start pose,
    ten steps with candidate reuse (K3 on re-culls, K4 every step); K3 and
-   K4 held against their plain versions on the last step's inputs;
+   K4 held against their plain versions on the last step's inputs, K4 in
+   its tracking layout (one pose) and in its paired layout (one origin per
+   direction);
 7. the pose sweep at full width (``rmcl_tpu_torch.bench``: 1000 poses x
    VLP-16 on the ~1M-face sphere, 16-pose x 8-direction factored blocks,
    hypers -> supers -> bins, one reuse cull per 16-step chain): the
@@ -32,7 +35,8 @@ Phases (any failure ends the run with a nonzero exit code):
    corrections from +0.2 m z, and K3/K4 against their plain versions with
    timings and bounds.
 
-Prints one JSON line per kernel (``{"kernels": [...]}``) and, last,
+Prints one JSON line per kernel (``{"kernels": [...]}``, with each
+kernel's roofline share, bound_ms / ms) and, last,
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
 printing any result.
 """
@@ -385,15 +389,17 @@ def phase_kernel_vs_plain(sphere_bins):
 
     room = build_bins(make_room_scene(n_pillars=4, seed=3), bin_size=32, bins_per_super=8)
     results = {}
-    for name, bins, origin in (("room", room, (0.5, -0.3, 1.0)),
-                               ("sphere_1M", sphere_bins, (1.0, -2.0, 0.5))):
+    for name, bins, origin, Rb in (("room", room, (0.5, -0.3, 1.0), 128),
+                                   ("room_rb100", room, (0.5, -0.3, 1.0), 100),
+                                   ("sphere_1M", sphere_bins, (1.0, -2.0, 0.5), 128)):
         o, d, model = vlp16_rays(origin)
         n = o.shape[0]
         blocks = _pad_rays(o, d, torch.full((n,), model.range.min, device="cuda"),
-                           torch.full((n,), model.range.max, device="cuda"), 128)
+                           torch.full((n,), model.range.max, device="cuda"), Rb)
         inputs = blocks + _build_candidates(bins, *blocks, *_resolve_budgets(bins, 24, 96))
         r = compare_kernel(f"phase 3 {name}", bins.tri, inputs)
-        log(f"phase 3 kernel vs plain [{name}, {bins.n_bins * bins.bin_size} tris, {n} rays]: "
+        log(f"phase 3 kernel vs plain [{name}, {bins.n_bins * bins.bin_size} tris, {n} rays "
+            f"in blocks of {Rb}]: "
             f"max_abs_err {r['max_abs_err']:.3g}, ref mismatches {r['ref_mismatch']}, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -592,8 +598,9 @@ def phase_reference_cast(sphere_bins):
 def phase_tracking(main_r):
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.tracking import TrackedCorrector
-    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_bounds,
-                                                   _pad_factored_blocks, _resolve_budgets)
+    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_block_candidates,
+                                                   _factored_bounds, _pad_factored_blocks,
+                                                   _resolve_budgets)
 
     bins, model, sensor = main_r["bmap"].bins, main_r["model"], main_r["sensor"]
     true_pose, config = main_r["true_pose"], main_r["config"]
@@ -645,6 +652,20 @@ def phase_tracking(main_r):
         f"{r4['ref_mismatch']}, kernel {r4['ms']:.4f} ms, plain {r4['plain_ms']:.3f} ms, bound "
         f"{r4['bound_ms']:.4f} ms ({r4['bound_by']}; {r4['visits']:.0f} bin visits); the cast "
         f"through both lists agrees")
+
+    # K4's paired layout on the same blocks: each direction with its own
+    # origin, the block's pose moved 5 cm along the neighbouring ray, culled
+    # fresh (the cull bounds the block's origin set)
+    o_pair = (o_p + 0.05 * torch.roll(d_p, 1, dims=1)).contiguous()
+    pair_c = _factored_block_candidates(bins, o_pair, d_p, alive, o_p.shape[0], lay.t_min,
+                                        lay.t_max, cs, cb, 0, 4, 0.0, 0.0)
+    pair_in = (bins.tri, o_pair, d_p, alive, lay.t_min, lay.t_max) + tuple(
+        x.contiguous() for x in pair_c[:3])
+    _, r4p = check_factored("phase 6 K4 paired", pair_in, paired=True)
+    log(f"phase 6 K4 paired layout ({o_pair.shape[0]} blocks of {o_pair.shape[1]} rays): "
+        f"max_abs_err {r4p['max_abs_err']:.3g}, ref mismatches {r4p['ref_mismatch']}, hits "
+        f"{r4p['hit_frac']:.6f}; kernel {r4p['ms']:.4f} ms, plain {r4p['plain_ms']:.3f} ms, "
+        f"bound {r4p['bound_ms']:.4f} ms ({r4p['bound_by']}; {r4p['visits']:.0f} bin visits)")
     return dict(step_ms=statistics.median(times), err=err_t, reculls=state.n_reculls,
                 counts=counts, k3=r3, k4=r4)
 
@@ -793,7 +814,7 @@ def main():
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None}
+        "roofline": r["bound_ms"] / r["ms"], "library_ms": None}
     log(json.dumps({"kernels": [
         row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
             "rmcl_tpu/ops/raycast_pallas.py:35", main_r),

@@ -40,9 +40,31 @@ _EPS = 1e-7
 def _kernel():
     """The kernel's C entry point (``rmcl_intersect_bins``), built on first use."""
     fn = _build.load_library("intersect_bins").rmcl_intersect_bins
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def lane_split(n_rays: int, B: int) -> int:
+    """Lane groups S that share one ray's triangles in a kernel launch
+    (lane s tests j = s, s + S, ...): the largest power of two that leaves
+    each group a triangle (S <= B), adds at most one warp per 32 rays
+    (S <= n_rays / 32) and fits the CTA, ceil(n_rays / (32 / S)) warps, in
+    1024 threads; so S <= 4. Blocks of few rays come in large grids that
+    fill the card already, where a split only adds shuffles and barrier
+    waits: on an H100, K1 at 450,000 blocks of 32 rays runs fastest at
+    S = 1, and at 113 blocks of 128 rays as fast at S = 4 as at 8 and
+    2.2x slower at S = 1 (scripts/torch_k1_split_probe.py)."""
+    S = 1
+    while 2 * S <= B and 64 * S <= n_rays and -(-n_rays * 2 * S // 32) * 32 <= 1024:
+        S *= 2
+    return S
+
+
+def _check_aligned(tri):
+    if tri.data_ptr() % 16:
+        raise ValueError("tri must start on a 16-byte boundary (K4 stages bins with 16-byte "
+                         "cp.async copies): pass a fresh tensor, not an offset view")
 
 
 def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear):
@@ -73,7 +95,7 @@ def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnea
     if B < 1 or B & (B - 1):
         raise ValueError(f"bin size {B} must be a power of two (packed-key min)")
     if not 1 <= Rb <= 1024:
-        raise ValueError(f"block size {Rb} must be in [1, 1024] (one thread per ray)")
+        raise ValueError(f"block size {Rb} must be in [1, 1024] (one CTA, a lane or more a ray)")
     if cb < 1:
         raise ValueError("cand_bin must be (n_blk, cb) with cb >= 1")
 
@@ -103,7 +125,7 @@ def intersect_bins(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor,
             t_min_b.data_ptr(), t_max_b.data_ptr(),
             cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(),
             t_best.data_ptr(), ref.data_ptr(),
-            n_blk, Rb, cand_bin.shape[1], tri.shape[2],
+            n_blk, Rb, cand_bin.shape[1], tri.shape[2], lane_split(Rb, tri.shape[2]),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -202,10 +224,34 @@ _ONE_PLUS_EPS = 1.0 + _EPS
 def _factored_kernel():
     """The kernel's C entry point (``rmcl_intersect_factored``), built on first use."""
     fn = _build.load_library("intersect_factored").rmcl_intersect_factored
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# K4's tile layout: 2 poses x 2 directions a thread, 4 lane groups a tile,
+# at most 256 threads a CTA, and its shared memory (the float4 terms of
+# every (triangle, direction) and (triangle, pose), two staged bins) small
+# enough for two CTAs an SM
+_TILE_SPLIT = 4
+_TILE_MAX_THREADS = 256
+_TILE_MAX_SMEM = 100 * 1024
+
+
+def factored_layout(G: int, P: int, paired: bool, B: int):
+    """K4's launch layout for blocks of G directions x P poses: ``(True,
+    4)`` for the tile layout (a thread owns 2 poses x 2 directions and
+    reads the shared per-direction and per-pose terms as float4s), which
+    needs P >= 2 and G >= 2 and no pairing; else ``(False, S)``, one ray a
+    thread with S = :func:`lane_split` lane groups a ray."""
+    if not paired and P >= 2 and G >= 2:
+        n_tiles = -(-P // 2) * -(-G // 2)
+        threads = -(-n_tiles // 8) * 32
+        smem = 16 * (B * (G + P + 2) + G + P) + 72 * B
+        if threads <= _TILE_MAX_THREADS and smem <= _TILE_MAX_SMEM:
+            return True, _TILE_SPLIT
+    return False, lane_split(G * (1 if paired else P), B)
 
 
 def _check_factored(tri, o_blk, d_blk, alive, t_min, cand_bin, cand_count, cand_tnear,
@@ -240,7 +286,8 @@ def _check_factored(tri, o_blk, d_blk, alive, t_min, cand_bin, cand_count, cand_
         raise ValueError(f"bin size {B} must be a power of two (packed-key min)")
     rays = G * (1 if paired else P)
     if not 1 <= rays <= 1024:
-        raise ValueError(f"{rays} rays per block: must be in [1, 1024] (one thread per ray)")
+        raise ValueError(f"{rays} rays per block: must be in [1, 1024] "
+                         "(one CTA, a lane or more a ray)")
     if cb < 1:
         raise ValueError("cand_bin must be (n_blk, cb) with cb >= 1")
     if not t_min >= 0.0:
@@ -273,6 +320,7 @@ def intersect_factored(tri: Tensor, o_blk: Tensor, d_blk: Tensor, alive: Tensor,
                                             cand_count, cand_tnear, paired)
     if dev.type != "cuda":
         raise ValueError(f"intersect_factored runs on cuda or cpu tensors, not {dev}")
+    _check_aligned(tri)
     n_blk, G = d_blk.shape[0], d_blk.shape[1]
     P = o_blk.shape[1]
     P_eff = 1 if paired else P
@@ -283,7 +331,8 @@ def intersect_factored(tri: Tensor, o_blk: Tensor, d_blk: Tensor, alive: Tensor,
             tri.data_ptr(), o_blk.data_ptr(), d_blk.data_ptr(), alive.data_ptr(),
             cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(),
             0 if order is None else order.data_ptr(), t_best.data_ptr(), ref.data_ptr(),
-            n_blk, G, P, int(paired), cand_bin.shape[1], tri.shape[2], t_min, t_max,
+            n_blk, G, P, int(paired), cand_bin.shape[1], tri.shape[2],
+            *factored_layout(G, P, paired, tri.shape[2]), t_min, t_max,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:

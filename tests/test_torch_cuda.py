@@ -65,29 +65,93 @@ def _vlp16_rays(origin, device):
     return o, d, t_min, t_max
 
 
-@pytest.mark.parametrize("mesh,B,Rb", [
-    ("room", 8, 32),
-    ("room", 32, 100),  # the last warp of each block is partly idle
-    ("sphere", 64, 128),
-    ("sphere", 512, 256),  # the largest bin MeshMap builds
+def _edit_candidates(cand, count, tnear, case):
+    """Candidate lists at the kernels' edges (the inputs are edited in place):
+    "counts": block 0 has no candidate, the fullest block all cb slots
+    (its list repeated); "exit_last": every block with two or more
+    candidates exits at its last one (the prefetch edge: that slot's tile
+    was staged during the slot before)."""
+    if case == "counts":
+        count[0] = 0
+        b = int(torch.argmax(count))
+        n = int(count[b])
+        slots = torch.arange(cand.shape[1], device=cand.device) % n
+        cand[b] = cand[b, slots]
+        tnear[b] = torch.where(slots < torch.arange(cand.shape[1], device=cand.device),
+                               tnear[b, n - 1], tnear[b, slots])
+        count[b] = cand.shape[1]
+    elif case == "exit_last":
+        slot = torch.arange(cand.shape[1], device=cand.device)[None, :]
+        many = (count >= 2)[:, None]
+        tnear.copy_(torch.where(many & (slot < count[:, None] - 1), 0.0, tnear))
+        tnear.copy_(torch.where(many & (slot == count[:, None] - 1), 3.0e38, tnear))
+
+
+def _degenerate_half(tri):
+    """The map with the second half of every bin's triangles zeroed, as
+    padding triangles are: they give t = 0, which only t > t_min rejects."""
+    out = tri.clone()
+    out[:, :, tri.shape[2] // 2:] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("mesh,B,Rb,case", [
+    ("room", 8, 32, None),
+    ("room", 32, 100, None),  # the last warp of each block is partly idle
+    ("room", 32, 20, None),  # fewer rays than a warp
+    ("sphere", 32, 128, None),
+    ("sphere", 64, 128, None),
+    ("sphere", 128, 128, None),
+    ("sphere", 512, 256, None),  # the largest bin MeshMap builds
+    ("sphere", 64, 128, "counts"),  # count = 0 and count = cb
+    ("sphere", 64, 100, "exit_last"),
+    ("sphere", 64, 128, "dead"),  # blocks whose rays have t_max = 0
+    ("room", 32, 128, "t_min"),  # t_min > 0 against degenerate triangles
 ])
-def test_kernel_matches_plain_version(card, mesh, B, Rb):
+def test_kernel_matches_plain_version(card, mesh, B, Rb, case):
     bins = build_bins(MESHES[mesh](), bin_size=B, bins_per_super=8, device=card)
     rays = _vlp16_rays((0.5, -0.3, 1.0), card)
     inputs, _ = trb._kernel_inputs(bins, *rays, Rb, 24, 96, 256, 4)
+    tri = bins.tri
+    _edit_candidates(*inputs[4:], case)
+    if case == "dead":
+        inputs[3][::3] = 0.0
+    if case == "t_min":
+        tri = _degenerate_half(tri)
+        inputs[2].fill_(0.5)
     before = intersect_bins.launches
-    kt, kref = intersect_bins(bins.tri, *inputs)
-    pt, pref = intersect_bins_reference(bins.tri, *inputs)
+    kt, kref = intersect_bins(tri, *inputs)
+    pt, pref = intersect_bins_reference(tri, *inputs)
     torch.cuda.synchronize()
     assert intersect_bins.launches == before + 1  # the plain version is not counted
-    assert (pref >= 0).float().mean() > 0.9  # the rays really hit geometry
+    assert (pref >= 0).float().mean() > (0.5 if case else 0.9)  # the rays really hit geometry
     torch.testing.assert_close(kt, pt, rtol=T_RTOL, atol=0.0)
     # a winner may differ only at a near-tie: the plain version's t for the
     # triangle the kernel chose agrees with the plain version's t_best
     ob, db, t_min_b = inputs[:3]
     mis = kref != pref
-    tie_t = winner_t(bins.tri, ob[mis], db[mis], t_min_b[mis], kref[mis])
+    tie_t = winner_t(tri, ob[mis], db[mis], t_min_b[mis], kref[mis])
     torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
+
+
+def test_misaligned_tri(card):
+    """K4 stages bins with 16-byte copies: a view of tri that starts one
+    float into its storage is refused, not read. K1 copies 4-byte words and
+    takes it."""
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
+    bins = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
+    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96,
+                                   256, 4)
+    flat = torch.empty(bins.tri.numel() + 1, device=card)
+    tri = flat[1:].view(bins.tri.shape)
+    tri.copy_(bins.tri)
+    assert tri.is_contiguous() and tri.data_ptr() % 16
+    for a, b in zip(intersect_bins(tri, *inputs), intersect_bins_reference(tri, *inputs)):
+        assert torch.equal(a, b)
+    ob, db, _, _, cand, count, tnear = inputs
+    with pytest.raises(ValueError, match="16-byte"):
+        intersect_factored(tri, ob, db[:, :1].contiguous(), torch.ones(ob.shape[0], device=card),
+                           0.0, 100.0, cand, count, tnear)
 
 
 def test_kernel_rejects_mixed_devices(card):
@@ -203,8 +267,16 @@ def test_cull_kernel_matches_plain_version(card, case):
     assert bad == 0
 
 
-@pytest.mark.parametrize("layout", ["sweep", "tracking", "paired"])
-def test_factored_kernel_matches_plain_version(card, layout):
+@pytest.mark.parametrize("layout,case", [
+    ("sweep", None), ("tracking", None), ("paired", None),
+    ("sweep", "counts"), ("tracking", "counts"), ("paired", "counts"),
+    ("sweep", "exit_last"), ("tracking", "exit_last"), ("paired", "exit_last"),
+    ("sweep", "dead"), ("tracking", "dead"), ("paired", "dead"),
+    ("sweep", "t_min"), ("tracking", "t_min"), ("paired", "t_min"),
+    ("sweep", "order"), ("tracking", "order"), ("paired", "order"),
+    ("sweep_5x3", None),  # odd poses and directions: ragged 2 x 2 tiles
+])
+def test_factored_kernel_matches_plain_version(card, layout, case):
     from rmcl_tpu_torch.ops.raycast_binned import _factored_block_candidates, _pad_factored_blocks
     from rmcl_tpu_torch.ops.raycast_cuda import (factored_winner_t, intersect_factored,
                                                  intersect_factored_reference)
@@ -212,6 +284,9 @@ def test_factored_kernel_matches_plain_version(card, layout):
     paired = layout == "paired"
     if layout == "sweep":
         o_blk, d_blk = _sweep_blocks(card)
+    elif layout == "sweep_5x3":
+        o_blk, d_blk = _sweep_blocks(card)
+        o_blk, d_blk = o_blk[:, :5].contiguous(), d_blk[:, :3].contiguous()
     else:
         model = SphericalModel.vlp16(width=240)
         d = model.rays(card)[1].reshape(-1, 128, 3)
@@ -220,21 +295,32 @@ def test_factored_kernel_matches_plain_version(card, layout):
                  else shift + 0.05 * torch.roll(d, 1, dims=1)).contiguous()
         d_blk = d
     o_p, d_p, alive, _, chunk, _ = _pad_factored_blocks(o_blk, d_blk, None, 512)
+    sub_blocks = 4 if layout != "sweep_5x3" else 1
     cand, count, tnear, _ = _factored_block_candidates(
-        bins, o_p, d_p, alive, chunk, 0.1, 130.0, 8, 64, 4, 4, 0.0)
-    args = (bins.tri, o_p, d_p, alive, 0.1, 130.0, cand, count, tnear)
+        bins, o_p, d_p, alive, chunk, 0.1, 130.0, 8, 64, 4, sub_blocks, 0.0)
+    tri, t_min, order = bins.tri, 0.1, None
+    _edit_candidates(cand, count, tnear, case)
+    if case == "dead":
+        alive[::3] = 0.0
+    if case == "t_min":
+        tri, t_min = _degenerate_half(tri), 0.5
+    if case == "order":
+        gen = torch.Generator().manual_seed(5)
+        order = torch.randperm(o_p.shape[0], generator=gen).to(card, torch.int32)
+    args = (tri, o_p, d_p, alive, t_min, 130.0, cand, count, tnear)
     before = intersect_factored.launches
-    kt, kref = intersect_factored(*args, paired=paired)
+    kt, kref = intersect_factored(*args, paired=paired, order=order)
     pt, pref = intersect_factored_reference(*args, paired=paired)
     torch.cuda.synchronize()
     assert intersect_factored.launches == before + 1
-    assert (pref[alive > 0] >= 0).float().mean() > 0.99  # padding blocks are dead
+    hits = (pref[alive > 0] >= 0).float().mean()  # padding blocks are dead
+    assert hits > (0.4 if case else 0.99)
     torch.testing.assert_close(kt, pt, rtol=T_RTOL, atol=0.0)
     mis = kref != pref
     P_eff = kt.shape[2]
     o_r = (o_p[:, :, None] if paired else o_p[:, None]).expand(-1, kt.shape[1], P_eff, 3)
     d_r = d_p[:, :, None].expand(-1, -1, P_eff, 3)
-    tie_t = factored_winner_t(bins.tri, o_r[mis], d_r[mis], 0.1, kref[mis])
+    tie_t = factored_winner_t(tri, o_r[mis], d_r[mis], t_min, kref[mis])
     torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
 
 

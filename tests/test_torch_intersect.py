@@ -205,3 +205,51 @@ def test_intersect_bins_cpu_takes_plain_version():
     for a, b in zip(intersect_bins(*args), intersect_bins_reference(*args)):
         assert torch.equal(a, b)
     assert intersect_bins.launches == before  # no kernel launch on the CPU
+
+
+# --- the kernels' launch shapes (the rules live in the wrapper) ---
+
+@pytest.mark.parametrize("n_rays,B,S", [
+    (128, 64, 4),  # a scan's 128-ray blocks: 512 threads, 16 triangles a lane
+    (100, 32, 2),  # a partly idle last warp
+    (32, 64, 1),  # a 14.4M-ray cast's 32-ray blocks: one warp, no split
+    (256, 64, 4),  # 1,024 threads at most
+    (512, 64, 2),
+    (1024, 64, 1),
+    (20, 32, 1),
+    (128, 2, 2),  # no more lane groups than triangles
+])
+def test_lane_split(n_rays, B, S):
+    from rmcl_tpu_torch.ops.raycast_cuda import lane_split
+    assert lane_split(n_rays, B) == S
+
+
+def test_lane_split_always_fits_a_cta():
+    from rmcl_tpu_torch.ops.raycast_cuda import lane_split
+    for B in (1, 2, 4, 8, 64, 512):
+        for n_rays in range(1, 1025):
+            S = lane_split(n_rays, B)
+            assert S in (1, 2, 4, 8) and (S == 1 or S <= B)
+            assert -(-n_rays // (32 // S)) * 32 <= 1024
+
+
+@pytest.mark.parametrize("G,P,paired,B,layout", [
+    (8, 16, False, 64, (True, 4)),  # the pose sweep: 32 tiles of 2 x 2 rays, 128 threads
+    (3, 5, False, 64, (True, 4)),  # ragged tiles
+    (128, 1, False, 64, (False, 4)),  # tracking: one pose
+    (128, 128, True, 64, (False, 4)),  # paired: one origin per direction
+    (1, 3, False, 64, (False, 1)),  # one direction: nothing to tile
+    (32, 32, False, 64, (False, 1)),  # 256 tiles would need 1,024 threads
+    (8, 16, False, 512, (False, 4)),  # the terms of 512-triangle bins fill shared memory
+])
+def test_factored_layout(G, P, paired, B, layout):
+    from rmcl_tpu_torch.ops.raycast_cuda import factored_layout
+    assert factored_layout(G, P, paired, B) == layout
+
+
+def test_misaligned_tri_is_refused_before_a_launch():
+    from rmcl_tpu_torch.ops.raycast_cuda import _check_aligned
+    tri = torch.zeros((4, 14, 8))
+    _check_aligned(tri)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_aligned(torch.zeros(tri.numel() + 1)[1:].view(tri.shape))
