@@ -9,20 +9,21 @@ Phases (any failure ends the run with a nonzero exit code):
    matmul flags — the normal equations must not run in TF32;
 2. build: the port's three CUDA kernels, compiled by nvcc from
    ``rmcl_tpu_torch/csrc`` in parallel (K1 candidate-bin intersection, K3
-   block cull, K4 factored pair loop);
+   block cull with its bounds, K4 factored pair loop);
 3. K1 vs plain version: the intersection kernel against its plain PyTorch
    version on the same CUDA tensors, for 14,400 VLP-16 rays on the room
    scene (128-ray blocks, and 100-ray blocks whose last warp is partly
    idle) and on the ~1M-face sphere, with timings;
 4. main path: MICP-L on a ~480k-face building map — ten ``correct_once``
    calls from +0.2 m z / 0.05 rad yaw back to the true pose, counting the
-   K1 and K3 launches; both kernels are then held against their plain
-   versions on the main path's own inputs and timed beside their bounds,
-   and the cast is repeated with no candidate budget to measure the hits
-   the default budgets cost;
+   K1 and K3 launches (one K3 launch a cull); both kernels are then held
+   against their plain versions on the main path's own inputs and timed
+   beside their bounds, and the cast is repeated with no candidate budget
+   to measure the hits the default budgets cost;
 5. reference-size cast: 1000 poses x VLP-16 (14.4M rays) against the
    ~1M-face sphere through the dense engine, with the split between the
-   cull (K3) and K1; the default 128-ray blocks are measured too;
+   cull (K3, held against its plain version) and K1; the default 128-ray
+   blocks are measured too;
 6. tracking: ``TrackedCorrector`` on phase 4's map, sensor and start pose,
    ten steps with candidate reuse (K3 on re-culls, K4 every step); K3 and
    K4 held against their plain versions on the last step's inputs, K4 in
@@ -34,6 +35,11 @@ Phases (any failure ends the run with a nonzero exit code):
    dataset's hits, ms per correction over three chains, ten iterated
    corrections from +0.2 m z, and K3/K4 against their plain versions with
    timings and bounds.
+
+K3 is checked in its fused form (bounds and cull in one launch:
+``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
+the back end alone (``cull_blocks``); each phase times the cull end to end
+beside both and prints both bounds.
 
 Prints one JSON line per kernel (``{"kernels": [...]}``, with each
 kernel's roofline share, bound_ms / ms) and, last,
@@ -64,7 +70,7 @@ N_CORRECTIONS = 10
 # at most 29 candidates and saturate nowhere. The phase measures both.
 DEFAULT_BLOCK_SIZE = 128
 CAST_BLOCK_SIZE = 32
-CAST_BLOCK_CHUNK = 4096  # blocks per cull chunk in phase 5 (bounds memory, not results)
+CAST_BLOCK_CHUNK = 4096  # blocks per slice of K1's plain version in phase 5 (memory)
 TIMING_REPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s; float32 outside the
@@ -85,6 +91,21 @@ OPS_PER_PAIR = 47
 # 3 for the refined radius, 7 for the final min and max, canonical tn and
 # four compares, 1 for the min over cones: 89
 OPS_PER_TEST = 89
+# K3's bounds (the fused kernel's front end). Per ray of a bounds pass: |d|^2
+# 5, its clamp, square root and reciprocal 3, the unit direction 3, the live
+# compare 1, the reach t_max * |d| 1, the direction sums 3 (a tree over n
+# rays takes n - 1 adds a component), origin minima and maxima 6, the maxima
+# of |d| and of the reach 2, the cosine to the axis 5 and its minimum 1: 30.
+# Per cone: the axis (|s|^2 5, clamp, root, reciprocal 3, scale 3) 11, origin
+# centre and half extent 12, the margin 3, the cosine clamp 2, tan 5, the
+# widened tan 5, the scene's centre and half extent 12, the offset 3, three
+# norms 18 and their two adds, two cone records (per axis: |a| compare,
+# reciprocal, a^2, 1 - a^2, clamp, root; and t_hi * tan) 38, one cone-box
+# test against the scene box 89, the cap (scale, add, min) 3: 203. Per
+# factored origin: its minimum and maximum per axis, 6.
+OPS_PER_BOUND_RAY = 30
+OPS_PER_CONE = 203
+OPS_PER_ORIGIN = 6
 # K4: float instructions per pair (t, u, v: 5; u + v and 1 + eps - it: 2;
 # four compares), per (triangle, direction) term (Nd, Bu, Bv: 15; the gate
 # and the reciprocal: 2), per (triangle, pose) term (No, Au, Av: 18) and per
@@ -141,6 +162,28 @@ def cuda_ms(fn, reps=TIMING_REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel, reps=TIMING_REPS):
+    """Mean device time in ms of the launches of the kernels whose name
+    holds ``kernel`` over reps calls of fn (torch.profiler's CUDA trace,
+    after one warm-up call);
+    None when the trace holds no such kernel. Unlike cuda_ms, it leaves out
+    the host's time in the wrapper, which a grid of ~100 blocks does not
+    hide."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                for e in events)
+    count = sum(e.count for e in events)  # the trace may hold fewer launches than reps
+    return total / 1e3 / count if count and total else None
 
 
 def kernel_bound(inputs, t_best, B):
@@ -210,10 +253,13 @@ def compare_kernel(name, tri, inputs):
 
 
 def wrappers():
-    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks
+    """The kernels' wrappers by name: K3 fused on ray blocks (K3r) and on
+    factored blocks (K3f), and its back end alone (K3b)."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_factored, cull_rays
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored
 
-    return {"K1": intersect_bins, "K3": cull_blocks, "K4": intersect_factored}
+    return {"K1": intersect_bins, "K3r": cull_rays, "K3f": cull_factored, "K3b": cull_blocks,
+            "K4": intersect_factored}
 
 
 def reset_counts():
@@ -225,10 +271,17 @@ def read_counts():
     return {k: fn.launches for k, fn in wrappers().items()}
 
 
-def require_launches(name, counts, kernels):
+def require_launches(name, counts, kernels, culls=None):
+    """Fail unless the path launched each kernel, K3 once a cull (``culls``:
+    the path's culls; K3's back end alone never runs on a path)."""
     for k in kernels:
         if counts[k] < 1:
             fail(f"{name}: the path never launched {k}")
+    k3 = [k for k in kernels if k.startswith("K3")]
+    if culls is not None and sum(counts[k] for k in k3) != culls:
+        fail(f"{name}: {culls} culls launched K3 {sum(counts[k] for k in k3)} times")
+    if counts["K3b"]:
+        fail(f"{name}: the path ran K3's back end on its own")
 
 
 def bound_of(bytes_moved, ops):
@@ -253,29 +306,84 @@ def cull_bound(args):
     return bound_of(bytes_moved, tests * OPS_PER_TEST) + (tests,)
 
 
-def check_cull(name, args):
-    """K3 against its plain version on the same CUDA tensors; fails unless
-    every block's lists agree (ties at the budget cut allowed). Returns the
-    two results, the tie blocks, and the timings."""
-    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_blocks_reference, cull_disagreements
+def fused_bound(fn, args, back_args, tests):
+    """Least time for the fused K3's work on these inputs: the back end's
+    tests at OPS_PER_TEST, plus its bounds (OPS_PER_BOUND_RAY per ray of
+    each bounds pass, OPS_PER_CONE per cone, OPS_PER_ORIGIN per factored
+    origin), against reading the compact inputs and boxes once and writing
+    the lists."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_rays
 
-    launches = cull_blocks.launches
-    k = cull_blocks(*args)
-    p = cull_blocks_reference(*args)
+    bins, cb, ch = args[0], back_args[10], back_args[8]
+    Cb, R = back_args[0].shape[:2]
+    passes = 2 if ch and R > 1 else 1
+    if fn is cull_rays:
+        ob = args[1]
+        rays, origins, in_floats = ob.shape[1], 0, ob.shape[1] * 8
+    else:
+        o_c, d_c = args[1], args[2]
+        G, P = d_c.shape[1], o_c.shape[1]
+        rays = P * G if G % args[6] else G
+        origins, in_floats = P, (P + G) * 3 + 1
+    ops = (tests * OPS_PER_TEST + Cb * (passes * rays * OPS_PER_BOUND_RAY + origins * OPS_PER_ORIGIN
+                                        + (R + passes - 1) * OPS_PER_CONE))
+    boxes = bins.bin_aabb.numel() + bins.super_aabb.numel() + (bins.hyper_aabb.numel() if ch else 0)
+    bytes_moved = 4 * (Cb * in_floats + boxes + 6) + Cb * cb * 8 + Cb * 5
+    return bound_of(bytes_moved, ops)
+
+
+def check_cull(name, fn, plain, args, back_args, e2e=None):
+    """The fused K3 (``fn``: cull_rays or cull_factored) against its plain
+    version on the same CUDA tensors, and the back end alone
+    (``cull_blocks``) on the plain version's cones ``back_args``; fails
+    unless every block's lists agree (ties at the budget cut allowed).
+    Returns the fused and plain results, and the agreement (``bitwise``:
+    all four outputs equal), the timings and both bounds; ``e2e``, the
+    path's own cull call, is timed too."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_disagreements
+
+    launches = fn.launches
+    k = fn(*args)
+    p = plain(*args)
+    back = cull_blocks(*back_args)
     torch.cuda.synchronize()
-    if cull_blocks.launches != launches + 1:
+    if fn.launches != launches + 1:
         fail(f"{name}: K3 did not launch")
+    for label, x in (("fused", k), ("back end", back)):
+        bad, ties = cull_disagreements(x, p, TNEAR_RTOL)
+        if bad:
+            fail(f"{name}: K3 ({label}) and its plain version disagree on {bad} blocks")
     bad, ties = cull_disagreements(k, p, TNEAR_RTOL)
-    if bad:
-        fail(f"{name}: K3 and its plain version disagree on {bad} blocks")
     err = (k[2] - p[2]).abs()
-    out = dict(ties=ties, max_abs_err=float(err[k[0] >= 0].max()) if bool((k[0] >= 0).any()) else 0.0,
+    out = dict(ties=ties, bitwise=all(torch.equal(x, y) for x, y in zip(k, p)),
+               back_bitwise=all(torch.equal(x, y) for x, y in zip(back, p)),
+               max_abs_err=float(err[k[0] >= 0].max()) if bool((k[0] >= 0).any()) else 0.0,
                saturated=int(k[3].sum()), mean_count=float(k[1].float().mean()),
                max_count=int(k[1].max()))
-    out["ms"] = cuda_ms(lambda: cull_blocks(*args))
-    out["plain_ms"] = cuda_ms(lambda: cull_blocks_reference(*args), reps=1)
-    out["bound_ms"], out["bound_by"], out["tests"] = cull_bound(args)
+    # kernel times by the profiler's device trace (events around the call
+    # where it records none); the calls' own times by events
+    out["call_ms"] = cuda_ms(lambda: fn(*args))
+    out["back_call_ms"] = cuda_ms(lambda: cull_blocks(*back_args))
+    out["ms"] = device_ms(lambda: fn(*args), "cull_kernel") or out["call_ms"]
+    out["back_ms"] = device_ms(lambda: cull_blocks(*back_args), "cull_kernel") or out["back_call_ms"]
+    out["e2e_ms"] = cuda_ms(e2e, reps=3) if e2e else None
+    out["plain_ms"] = cuda_ms(lambda: plain(*args), reps=1)
+    out["back_bound_ms"], out["back_bound_by"], out["tests"] = cull_bound(back_args)
+    out["bound_ms"], out["bound_by"] = fused_bound(fn, args, back_args, out["tests"])
     return k, p, out
+
+
+def cull_line(name, r):
+    """One log line of check_cull's results."""
+    e2e = f"cull {r['e2e_ms']:.4f} ms end to end; " if r["e2e_ms"] is not None else ""
+    return (f"{name}: lists agree ({'bitwise' if r['bitwise'] else 'not bitwise'}; "
+            f"{r['ties']} tie blocks; back end {'bitwise' if r['back_bitwise'] else 'not bitwise'}); "
+            f"{e2e}fused kernel {r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a call (bound "
+            f"{r['bound_ms']:.4f} ms {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%}), back end "
+            f"{r['back_ms']:.4f} ms on the card, {r['back_call_ms']:.4f} ms a call (bound "
+            f"{r['back_bound_ms']:.4f} ms {r['back_bound_by']}, {r['back_bound_ms'] / r['back_ms']:.1%}; "
+            f"{r['tests']:.0f} tests), plain {r['plain_ms']:.3f} ms; candidates mean "
+            f"{r['mean_count']:.2f}, max {r['max_count']}, {r['saturated']} saturated")
 
 
 def factored_bound(inputs, t_best, paired):
@@ -413,9 +521,10 @@ def phase_main_path():
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.pipeline import (MICPConfig, MICPSensorConfig,
                                               MICPSensorData, correct_once)
-    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _flat_rays, _kernel_inputs,
-                                                   _pad_rays, _resolve_budgets, _subblock_bounds,
-                                                   cast_rays_binned)
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _subblock_bounds, cull_rays,
+                                              cull_rays_reference)
+    from rmcl_tpu_torch.ops.raycast_binned import (_flat_rays, _kernel_inputs, _pad_rays,
+                                                   _resolve_budgets, cast_rays_binned)
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins
     from rmcl_tpu_torch.sensors.models import SphericalModel
     from rmcl_tpu_torch.sensors.simulate import simulate
@@ -458,10 +567,10 @@ def phase_main_path():
         f"final |dt| {err_t:.2e} m, |<q, q_true>| {dq:.8f}, "
         f"matches {float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}, "
         f"progress {float(stats.convergence_progress):.4f}, launches K1 {counts['K1']}, "
-        f"K3 {counts['K3']}, K4 {counts['K4']}")
+        f"K3 {counts['K3r']}, K4 {counts['K4']}")
     if not err_t < 0.01:
         fail(f"main path did not converge: translation error {err_t} m")
-    require_launches("phase 4 main path", counts, ("K1", "K3"))
+    require_launches("phase 4 main path", counts, ("K1", "K3r"), culls=N_CORRECTIONS)
     if not bool(torch.isfinite(tom.rot).all() & torch.isfinite(tom.trans).all()):
         fail("non-finite pose")
 
@@ -470,10 +579,9 @@ def phase_main_path():
     o_s, d_s = model.rays("cuda")
     o, d, t_min_r, t_max_r, _ = _flat_rays(tsm.apply(o_s), tsm.rotate(d_s),
                                            model.range.min, model.range.max)
-    inputs, sat = _kernel_inputs(bmap.bins, o, d, t_min_r, t_max_r, 128, config.c_super,
-                                 config.c_bin, 256, 4)
-    cull_ms = cuda_ms(lambda: _kernel_inputs(bmap.bins, o, d, t_min_r, t_max_r, 128,
-                                             config.c_super, config.c_bin, 256, 4))
+    cull_in = (bmap.bins, o, d, t_min_r, t_max_r, 128, config.c_super, config.c_bin, 4)
+    inputs, sat = _kernel_inputs(*cull_in)
+    cull_ms = cuda_ms(lambda: _kernel_inputs(*cull_in))
     r = compare_kernel("phase 4 main path", bmap.bins.tri, inputs)
     r.update(launches=launches, launches_per_correction=launches / N_CORRECTIONS,
              cull_ms=cull_ms, correction_ms=statistics.median(times), saturated=int(sat.sum()))
@@ -486,23 +594,22 @@ def phase_main_path():
     # K3 on the same cast's inputs, and the cast through both lists
     blocks = _pad_rays(o, d, t_min_r, t_max_r, 128)
     cs, cb = _resolve_budgets(bmap.bins, config.c_super, config.c_bin)
-    args = _cull_args(bmap.bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
-    k, p, r3 = check_cull("phase 4 K3", args)
+    back_args = _cull_args(bmap.bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
+    k, p, r3 = check_cull("phase 4 K3", cull_rays, cull_rays_reference,
+                          (bmap.bins, *blocks, 4, cs, cb, 0), back_args,
+                          e2e=lambda: _kernel_inputs(*cull_in))
     same_cast("phase 4", intersect_bins(bmap.bins.tri, *blocks, *k[:3]),
               intersect_bins(bmap.bins.tri, *blocks, *p[:3]))
-    r3.update(launches=counts["K3"])
-    log(f"phase 4 K3 on the main path's inputs: lists agree ({r3['ties']} tie blocks), "
-        f"kernel {r3['ms']:.4f} ms, plain {r3['plain_ms']:.3f} ms, bound {r3['bound_ms']:.4f} ms "
-        f"({r3['bound_by']}; {r3['tests']:.0f} tests), mean {r3['mean_count']:.2f} / max "
-        f"{r3['max_count']} candidates, {r3['saturated']} saturated; the cast through both "
-        f"lists agrees")
+    r3.update(launches=counts["K3r"])
+    log(cull_line("phase 4 K3 on the main path's inputs", r3) + "; the cast through both "
+        "lists agrees")
     r["k3"] = r3
 
     # what the default budgets cost this cast: the same rays with no budget
     # (every super, every bin) truncate nowhere
     bins = bmap.bins
     free = (bins.n_super, bins.n_super * bins.bins_per_super)
-    _, free_sat = _kernel_inputs(bins, o, d, t_min_r, t_max_r, 128, *free, 256, 4)
+    _, free_sat = _kernel_inputs(bins, o, d, t_min_r, t_max_r, 128, *free, 4)
     capped = cast_rays_binned(bins, o, d, t_min_r, t_max_r, c_super=config.c_super,
                               c_bin=config.c_bin)
     full = cast_rays_binned(bins, o, d, t_min_r, t_max_r, c_super=free[0], c_bin=free[1])
@@ -524,7 +631,10 @@ def phase_main_path():
 
 def phase_reference_cast(sphere_bins):
     from rmcl_tpu_torch.math.se3 import Quaternion, Transform
-    from rmcl_tpu_torch.ops.raycast_binned import _flat_rays, _kernel_inputs
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _subblock_bounds, cull_rays,
+                                              cull_rays_reference)
+    from rmcl_tpu_torch.ops.raycast_binned import (_flat_rays, _kernel_inputs, _pad_rays,
+                                                   _resolve_budgets)
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_bins_reference
     from rmcl_tpu_torch.sensors.models import SphericalModel
     from rmcl_tpu_torch.sensors.simulate import simulate
@@ -533,7 +643,7 @@ def phase_reference_cast(sphere_bins):
     trans = np.random.default_rng(0).uniform(-5, 5, size=(N_POSES, 3)).astype(np.float32)
     tsm = Transform(rot=Quaternion.identity((N_POSES,), "cuda"),
                     trans=torch.from_numpy(trans).cuda())
-    kw = dict(block_size=CAST_BLOCK_SIZE, block_chunk=CAST_BLOCK_CHUNK)
+    kw = dict(block_size=CAST_BLOCK_SIZE)
     hits = simulate(sphere_bins, model, tsm, **kw)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
@@ -542,7 +652,7 @@ def phase_reference_cast(sphere_bins):
     torch.cuda.synchronize()
     sim_ms = (time.perf_counter() - t) * 1e3
     counts = read_counts()
-    require_launches("phase 5 cast", counts, ("K1", "K3"))
+    require_launches("phase 5 cast", counts, ("K1", "K3r"), culls=1)
     n = hits.hit.numel()
     hit_frac = float(hits.hit.float().mean())
 
@@ -554,16 +664,28 @@ def phase_reference_cast(sphere_bins):
 
     # the default 128-ray blocks, measured and not required to hit
     inputs, sat = _kernel_inputs(sphere_bins, o, d, t_min_r, t_max_r, DEFAULT_BLOCK_SIZE,
-                                 24, 96, CAST_BLOCK_CHUNK, 4)
+                                 24, 96, 4)
     _, kref = intersect_bins(sphere_bins.tri, *inputs)
     log(f"phase 5 default {DEFAULT_BLOCK_SIZE}-ray blocks: hits "
         f"{float((kref.reshape(-1)[:n] >= 0).float().mean()):.6f}, {int(sat.sum())} of "
         f"{inputs[0].shape[0]} blocks saturated, {int(inputs[5].sum())} candidates")
     del inputs, sat, kref
 
-    args = (sphere_bins, o, d, t_min_r, t_max_r, CAST_BLOCK_SIZE, 24, 96, CAST_BLOCK_CHUNK, 4)
+    args = (sphere_bins, o, d, t_min_r, t_max_r, CAST_BLOCK_SIZE, 24, 96, 4)
     inputs, sat = _kernel_inputs(*args)
     cull_ms = cuda_ms(lambda: _kernel_inputs(*args), reps=3)
+    # K3 on the cast's own blocks, and the cast through both lists
+    blocks = inputs[:4]
+    cs, cb = _resolve_budgets(sphere_bins, 24, 96)
+    back_args = _cull_args(sphere_bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
+    k, p, r3 = check_cull("phase 5 K3", cull_rays, cull_rays_reference,
+                          (sphere_bins, *blocks, 4, cs, cb, 0), back_args)
+    r3.update(launches=counts["K3r"], e2e_ms=cull_ms)
+    same_cast("phase 5", intersect_bins(sphere_bins.tri, *blocks, *k[:3]),
+              intersect_bins(sphere_bins.tri, *blocks, *p[:3]))
+    log(cull_line("phase 5 K3 on the cast's inputs", r3) + "; the cast through both lists "
+        "agrees")
+    del k, p, back_args
     launches = intersect_bins.launches
     kt, kref = intersect_bins(sphere_bins.tri, *inputs)
     kernel_ms = cuda_ms(lambda: intersect_bins(sphere_bins.tri, *inputs))
@@ -588,19 +710,20 @@ def phase_reference_cast(sphere_bins):
         f"(plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms {bound_by}, {visits:.0f} bin visits), "
         f"max_abs_err {max_abs_err:.3g}, ref mismatches {ref_mismatch}, "
         f"{saturated} of {inputs[0].shape[0]} blocks of {CAST_BLOCK_SIZE} rays saturated; "
-        f"launches in the cast K1 {counts['K1']}, K3 {counts['K3']}")
+        f"launches in the cast K1 {counts['K1']}, K3 {counts['K3r']}")
     if not hit_frac >= 0.999:
         fail(f"phase 5: only {hit_frac:.6f} of rays hit the sphere")
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                cull_ms=cull_ms, simulate_ms=sim_ms, hit_frac=hit_frac)
+                cull_ms=cull_ms, simulate_ms=sim_ms, hit_frac=hit_frac, k3=r3)
 
 
 def phase_tracking(main_r):
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.tracking import TrackedCorrector
-    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_block_candidates,
-                                                   _factored_bounds, _pad_factored_blocks,
-                                                   _resolve_budgets)
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _factored_bounds, cull_factored,
+                                              cull_factored_reference)
+    from rmcl_tpu_torch.ops.raycast_binned import (_factored_block_candidates,
+                                                   _pad_factored_blocks, _resolve_budgets)
 
     bins, model, sensor = main_r["bmap"].bins, main_r["model"], main_r["sensor"]
     true_pose, config = main_r["true_pose"], main_r["config"]
@@ -627,10 +750,10 @@ def phase_tracking(main_r):
     log(f"phase 6 tracking: {TRACK_STEPS} steps x {model.n_rays} rays, median "
         f"{statistics.median(times):.3f} ms/step (min {min(times):.3f}), final |dt| "
         f"{err_t:.2e} m, re-culls {state.n_reculls} (init included), launches K3 "
-        f"{counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}")
+        f"{counts['K3f']}, K4 {counts['K4']}, K1 {counts['K1']}")
     if not err_t < 0.01:
         fail(f"phase 6: tracking did not converge: translation error {err_t} m")
-    require_launches("phase 6 tracking", counts, ("K3", "K4"))
+    require_launches("phase 6 tracking", counts, ("K3f", "K4"), culls=state.n_reculls)
 
     # K3 and K4 on the last step's inputs: its blocks, a cull there, and
     # the lists the step cast through
@@ -639,16 +762,20 @@ def phase_tracking(main_r):
     o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
     cs, cb = _resolve_budgets(bins, config.c_super, config.c_bin)
     raw = _factored_bounds(o_p, d_p, alive, lay.t_min, lay.t_max, 4, 0.05, 0.01)
-    k, p, r3 = check_cull("phase 6 K3", _cull_args(bins, raw, 4, cs, cb, 0))
+    tsm_last = (last_tom @ tbo) @ sensor.tsb
+    k, p, r3 = check_cull("phase 6 K3", cull_factored, cull_factored_reference,
+                          (bins, o_p, d_p, alive, lay.t_min, lay.t_max, 4, cs, cb, 0, 0.05, 0.01),
+                          _cull_args(bins, raw, 4, cs, cb, 0),
+                          e2e=lambda: tc._cull(bins, lay, tsm_last))
+    r3.update(launches=counts["K3f"])
     inputs = (bins.tri, o_p, d_p, alive, lay.t_min, lay.t_max) + tuple(
         x.contiguous() for x in state.candidates[0])
     _, r4 = check_factored("phase 6 K4", inputs, paired=False)
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
     same_cast("phase 6", intersect_factored(*inputs[:6], *k[:3]),
               intersect_factored(*inputs[:6], *p[:3]))
-    log(f"phase 6 K3 on the last step's inputs: lists agree ({r3['ties']} tie blocks), kernel "
-        f"{r3['ms']:.4f} ms, plain {r3['plain_ms']:.3f} ms, bound {r3['bound_ms']:.4f} ms "
-        f"({r3['bound_by']}); K4: max_abs_err {r4['max_abs_err']:.3g}, ref mismatches "
+    log(cull_line("phase 6 K3 on the last step's inputs", r3))
+    log(f"phase 6 K4: max_abs_err {r4['max_abs_err']:.3g}, ref mismatches "
         f"{r4['ref_mismatch']}, kernel {r4['ms']:.4f} ms, plain {r4['plain_ms']:.3f} ms, bound "
         f"{r4['bound_ms']:.4f} ms ({r4['bound_by']}; {r4['visits']:.0f} bin visits); the cast "
         f"through both lists agrees")
@@ -657,8 +784,8 @@ def phase_tracking(main_r):
     # origin, the block's pose moved 5 cm along the neighbouring ray, culled
     # fresh (the cull bounds the block's origin set)
     o_pair = (o_p + 0.05 * torch.roll(d_p, 1, dims=1)).contiguous()
-    pair_c = _factored_block_candidates(bins, o_pair, d_p, alive, o_p.shape[0], lay.t_min,
-                                        lay.t_max, cs, cb, 0, 4, 0.0, 0.0)
+    pair_c = _factored_block_candidates(bins, o_pair, d_p, alive, lay.t_min, lay.t_max, cs, cb,
+                                        0, 4, 0.0, 0.0)
     pair_in = (bins.tri, o_pair, d_p, alive, lay.t_min, lay.t_max) + tuple(
         x.contiguous() for x in pair_c[:3])
     _, r4p = check_factored("phase 6 K4 paired", pair_in, paired=True)
@@ -672,9 +799,10 @@ def phase_tracking(main_r):
 
 def phase_sweep():
     from rmcl_tpu_torch.bench import JITTER, SweepBench, settings_from_env
-    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_block_candidates,
-                                                   _factored_bounds, _pad_factored_blocks,
-                                                   _resolve_budgets)
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _factored_bounds, cull_factored,
+                                              cull_factored_reference)
+    from rmcl_tpu_torch.ops.raycast_binned import (_factored_block_candidates, _hyper_budget,
+                                                   _pad_factored_blocks, _resolve_budgets)
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
 
     cfg, run = settings_from_env({})  # the JAX bench's defaults at 1M faces
@@ -711,14 +839,14 @@ def phase_sweep():
         torch.cuda.synchronize()
         chain_ms.append((time.perf_counter() - t) * 1e3 / k)
     counts = read_counts()
-    require_launches("phase 7 sweep", counts, ("K3", "K4"))
+    require_launches("phase 7 sweep", counts, ("K3f", "K4"), culls=1 + SWEEP_CHAINS)
     hit_frac = float(data_mask.float().mean())
     ms = statistics.median(chain_ms)
     rays_per_s = bench.n_rays / (ms * 1e-3)
     log(f"phase 7 sweep: dataset cast {dataset_ms:.2f} ms, hits {hit_frac:.6f}; "
         f"{SWEEP_CHAINS} chains of {k} corrections (one reuse cull each, margin "
         f"{bench.margin} m): median {ms:.3f} ms/correction ({', '.join(f'{x:.3f}' for x in chain_ms)}), "
-        f"{rays_per_s:.4g} corr-rays/s; launches K3 {counts['K3']}, K4 {counts['K4']}, "
+        f"{rays_per_s:.4g} corr-rays/s; launches K3 {counts['K3f']}, K4 {counts['K4']}, "
         f"K1 {counts['K1']}")
     if not hit_frac >= 0.999:
         fail(f"phase 7: only {hit_frac:.6f} of the dataset's rays hit the sphere")
@@ -731,24 +859,24 @@ def phase_sweep():
         return _pad_factored_blocks(*bench.sweep.factored_rays(tr, bench.dirs), None,
                                     cfg["block_chunk"])
 
-    o_p, d_p, alive, n_blk, chunk, _ = padded(trans)
+    o_p, d_p, alive, n_blk, _, _ = padded(trans)
     t_min, t_max = 0.0, float(3.0e38)
-    fresh = _factored_block_candidates(bins, o_p, d_p, alive, chunk, t_min, t_max, cs, cb,
+    fresh = _factored_block_candidates(bins, o_p, d_p, alive, t_min, t_max, cs, cb,
                                        cfg["c_hyper"], R, 0.0)
-    o_p, d_p, alive, n_blk, chunk, _ = padded(est0)
-    reuse_ms = cuda_ms(lambda: bench.candidates(est0), reps=3)
+    o_p, d_p, alive, n_blk, _, _ = padded(est0)
 
     # K3 on the reuse cull's inputs at the chain's base estimate
-    args = _cull_args(bins, _factored_bounds(o_p, d_p, alive, t_min, t_max, R, bench.margin,
-                                             0.0), R, cs, cb, cfg["c_hyper"])
-    kl, pl, r3 = check_cull("phase 7 K3", args)
-    r3.update(launches=counts["K3"], reuse_cull_ms=reuse_ms)
-    log(f"phase 7 K3 (reuse cull, {n_blk} blocks, {R} cones each): lists agree ({r3['ties']} "
-        f"tie blocks); reuse cull {reuse_ms:.3f} ms end to end; kernel {r3['ms']:.3f} ms, plain "
-        f"{r3['plain_ms']:.1f} ms, bound {r3['bound_ms']:.3f} ms ({r3['bound_by']}; "
-        f"{r3['tests']:.4g} tests); candidates mean {r3['mean_count']:.2f}, max "
-        f"{r3['max_count']}; saturated blocks: {r3['saturated']} (reuse), "
-        f"{int(fresh[3].sum())} (dataset cast) of {o_p.shape[0]}")
+    ch = _hyper_budget(bins, cfg["c_hyper"])
+    back_args = _cull_args(bins, _factored_bounds(o_p, d_p, alive, t_min, t_max, R, bench.margin,
+                                                  0.0), R, cs, cb, ch)
+    kl, pl, r3 = check_cull("phase 7 K3", cull_factored, cull_factored_reference,
+                            (bins, o_p, d_p, alive, t_min, t_max, R, cs, cb, ch, bench.margin,
+                             0.0), back_args, e2e=lambda: bench.candidates(est0))
+    del back_args
+    reuse_ms = r3["e2e_ms"]
+    r3.update(launches=counts["K3f"])
+    log(cull_line(f"phase 7 K3 (reuse cull, {n_blk} blocks, {R} cones each)", r3)
+        + f"; saturated blocks: {int(fresh[3].sum())} (dataset cast) of {o_p.shape[0]}")
 
     # K4 on a correction's cast: the reuse lists at the chain's base estimate
     order = torch.argsort(kl[1], descending=True, stable=True).to(torch.int32)
@@ -809,17 +937,21 @@ def main():
     phase_tracking(main_r)
     sweep_r = phase_sweep()
 
-    k3, k4 = sweep_r["k3"], sweep_r["k4"]
+    k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "roofline": r["bound_ms"] / r["ms"], "library_ms": None}
+    k3_row = lambda name, replaces, r: dict(
+        row(name, "rmcl_tpu_torch/csrc/cull_blocks.cu", replaces, r), bitwise=r["bitwise"],
+        call_ms=r["call_ms"], cull_e2e_ms=r["e2e_ms"], back_end_ms=r["back_ms"],
+        back_end_bound_ms=r["back_bound_ms"])
     log(json.dumps({"kernels": [
         row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
             "rmcl_tpu/ops/raycast_pallas.py:35", main_r),
-        row("cull_blocks", "rmcl_tpu_torch/csrc/cull_blocks.cu",
-            "rmcl_tpu/ops/raycast_binned.py:751", k3),
+        k3_row("cull_rays", "rmcl_tpu/ops/raycast_binned.py:751", main_r["k3"]),
+        k3_row("cull_factored", "rmcl_tpu/ops/raycast_binned.py:1370", sweep_r["k3"]),
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),
     ]}))

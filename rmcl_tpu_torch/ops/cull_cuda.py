@@ -1,32 +1,47 @@
 """Block cull: the hand-written CUDA kernel and its plain PyTorch version.
 
-``cull_blocks`` is the port of the block cull that the JAX package runs as
-XLA device code inside its casts: the box tests and nearest-first
-selections of ``rmcl_tpu/ops/raycast_binned.py`` — ``_chunk_level0``
-(level 0 over all supers, or its ``c_hyper`` branch: hypers, then the
-selected hypers' supers), ``_group_box_tests``, ``_chunk_cull_tests``,
-``_chunk_select`` and ``_chunk_candidates``. The kernel source is
+The port of the block cull that the JAX package runs as XLA device code
+inside its casts (``rmcl_tpu/ops/raycast_binned.py``): the per-sub-block
+cone bounds of ``_block_bounds`` / ``_subblock_bounds`` and the factored
+cull's ``fact_bounds`` / ``margin_sb_bounds`` with the scene-exit cap, then
+the box tests and nearest-first selections of ``_chunk_level0`` (level 0
+over all supers, or its ``c_hyper`` branch: hypers, then the selected
+hypers' supers), ``_group_box_tests``, ``_chunk_cull_tests``,
+``_chunk_select`` and ``_chunk_candidates``. One kernel does all of it,
 ``rmcl_tpu_torch/csrc/cull_blocks.cu``; its header says what bounds it on
-the card and what the design does about that.
+the card and what the design does about that. Three wrappers launch it:
 
-The per-sub-block bounds (O(rays) work) stay shared PyTorch code in
-``ops/raycast_binned.py``; both versions here take them packed.
+* :func:`cull_rays`: blocks of rays ``(Cb, Rb, 3)`` with per-ray gates,
+  split into R contiguous sub-blocks (the dense engine);
+* :func:`cull_factored`: blocks of P pose origins x G shared directions
+  (ray g*P + p), with the reuse margins (the factored engine);
+* :func:`cull_blocks`: the back end alone, on cones computed beforehand.
 
-Contract: ``cones (Cb, R, 11)`` per block R sub-block cones ``[oc(3),
-oh(3), axis(3), tan_th, t_hi]``; ``fat (Cb, 11)`` one block cone for the
-coarse levels (used only when ``ch > 0``); ``n_hi (Cb,)`` the blocks'
-direction-length scale; boxes ``bin_aabb (n_bins, 6)``, ``super_aabb
-(n_super, 6)``, ``hyper_aabb (n_hyper, 6)`` with ``S`` bins per super and
-``H`` supers per hyper; budgets ``ch`` (0: no hyper level), ``cs``, ``cb``.
-Returns ``cand_bin (Cb, cb)`` int32 (-1 padding, nearest first),
-``cand_count (Cb,)`` int32, ``cand_tnear (Cb, cb)`` f32 (3e38 padding) and
-``sat (Cb,)`` bool, True where a budget truncated the block's set.
+Each has a plain version in this module (``*_reference``) that the CPU
+takes: the bounds in plain tensor ops, then :func:`cull_blocks_reference`.
+The bounds sum in one fixed order that the kernel repeats — three
+components left to right (:func:`_dot3`), sums over rays as a halving tree
+over a zero-padded power of two (:func:`_tree_sum`), ``1 / sqrt`` in place
+of ``rsqrt`` — so the kernel, built without FMA contraction, agrees with
+them bitwise.
+
+Back-end contract (:func:`cull_blocks`): ``cones (Cb, R, 11)`` per block R
+sub-block cones ``[oc(3), oh(3), axis(3), tan_th, t_hi]``; ``fat (Cb,
+11)`` one block cone for the coarse levels (used only when ``ch > 0``);
+``n_hi (Cb,)`` the blocks' direction-length scale; boxes ``bin_aabb
+(n_bins, 6)``, ``super_aabb (n_super, 6)``, ``hyper_aabb (n_hyper, 6)``
+with ``S`` bins per super and ``H`` supers per hyper; budgets ``ch`` (0: no
+hyper level), ``cs``, ``cb``. Every wrapper returns ``cand_bin (Cb, cb)``
+int32 (-1 padding, nearest first), ``cand_count (Cb,)`` int32,
+``cand_tnear (Cb, cb)`` f32 (3e38 padding) and ``sat (Cb,)`` bool, True
+where a budget truncated the block's set.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -40,10 +55,30 @@ _SENTINEL_KEY = 0x7FFFFFF0
 CONE_WIDTH = 11  # oc(3), oh(3), axis(3), tan_th, t_hi
 
 
-def _norm(x: Tensor) -> Tensor:
-    """Euclidean norm over the last axis of 3, summed in a fixed order (the
+def _dot3(x: Tensor, y: Tensor) -> Tensor:
+    """Dot product over the last axis of 3, summed in a fixed order (the
     kernel's), so that CPU and card round alike."""
-    return torch.sqrt((x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2])
+    return (x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1]) + x[..., 2] * y[..., 2]
+
+
+def _norm(x: Tensor) -> Tensor:
+    """Euclidean norm over the last axis of 3 (the kernel's order)."""
+    return torch.sqrt(_dot3(x, x))
+
+
+def _tree_sum(x: Tensor, dim: int) -> Tensor:
+    """Sum over ``dim`` in the kernel's order: zero-padded to a power of
+    two, then halved pairwise (element j adds element j + w)."""
+    n = x.shape[dim]
+    p2 = 1 << max(0, (n - 1).bit_length())
+    if p2 > n:
+        pad = list(x.shape)
+        pad[dim] = p2 - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while p2 > 1:
+        p2 //= 2
+        x = x.narrow(dim, 0, p2) + x.narrow(dim, p2, p2)
+    return x.squeeze(dim)
 
 
 def _top_k_desc(score: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -99,6 +134,171 @@ def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
 def pack_cones(oc, oh, axis, tan_th, t_hi) -> Tensor:
     """Cone bounds (L..., 3) x 3 and (L...,) x 2 as one (L..., 11) tensor."""
     return torch.cat([oc, oh, axis, tan_th[..., None], t_hi[..., None]], dim=-1).contiguous()
+
+
+# --- the cone bounds: plain versions of the kernel's front ends ---
+
+# plain-version rays per step of blocks: bounds the bounds' intermediates
+# (every block is culled on its own, so steps change no result)
+_REF_RAYS_PER_STEP = 1 << 21
+
+
+def _unit(v: Tensor) -> Tensor:
+    """v / |v| over the last axis of 3, as the kernel forms it."""
+    return v * (1.0 / torch.sqrt(torch.clamp(_dot3(v, v), min=1e-30)))[..., None]
+
+
+def _unit_dirs(d: Tensor) -> Tuple[Tensor, Tensor]:
+    """(|d|, d / |d|) of directions (..., 3), as the kernel forms them."""
+    nrm = torch.sqrt(torch.clamp(_dot3(d, d), min=1e-30))
+    return nrm, d * (1.0 / nrm)[..., None]
+
+
+def _tan_of(ca: Tensor) -> Tensor:
+    """tan of the half-angle whose cosine is ca; a degenerate spread (>=
+    ~87 deg) gives a huge tan, a conservative pass-all."""
+    ca = torch.clamp(ca, 0.05, 1.0)
+    return torch.sqrt(torch.clamp(1.0 - ca * ca, min=0.0)) / ca
+
+
+def _block_bounds(ob, db, t_min_b, t_max_b):
+    """Per-block cone/box bounds from rays (n_blk, Rb, 3).
+
+    Returns oc, oh, axis, tan_th, t_hi, n_hi, dead. Rays with
+    t_max <= t_min are inert and excluded from the bounds."""
+    live = (t_max_b > t_min_b)[..., None]
+    any_live = torch.any(live[..., 0], dim=1)
+    o_lo = torch.amin(torch.where(live, ob, _BIG), dim=1)
+    o_hi = torch.amax(torch.where(live, ob, -_BIG), dim=1)
+    o_lo = torch.where(any_live[:, None], o_lo, 0.0)
+    o_hi = torch.where(any_live[:, None], o_hi, 0.0)
+    oc = 0.5 * (o_lo + o_hi)
+    oh = 0.5 * (o_hi - o_lo)
+    # unit mean direction; rays need not be normalized — normalize locally
+    nrm, dn = _unit_dirs(db)
+    a = _unit(_tree_sum(torch.where(live, dn, 0.0), 1))
+    tan_th = _tan_of(torch.amin(torch.where(live[..., 0], _dot3(dn, a[:, None, :]), 1.0), dim=1))
+    # parametric t reaches geometric distance t*|d|: bound the reach by
+    # max(t_max*|d|)
+    n_hi = torch.amax(torch.where(live[..., 0], nrm, 1e-30), dim=1)
+    t_hi = torch.amax(torch.where(live[..., 0], t_max_b * nrm, 0.0), dim=1)
+    return oc, oh, a, tan_th, t_hi, n_hi, ~any_live
+
+
+def _subblock_bounds(ob, db, t_min_b, t_max_b, sub_blocks):
+    """Per-sub-block cone/box bounds: rays (n_blk, Rb, 3) split into
+    ``sub_blocks`` contiguous groups; outputs lead with (n_blk, R)."""
+    n_blk, Rb, _ = ob.shape
+    R = sub_blocks
+    rs = lambda x: x.reshape((n_blk * R, Rb // R) + tuple(x.shape[2:]))
+    out = _block_bounds(rs(ob), rs(db), rs(t_min_b), rs(t_max_b))
+    return tuple(x.reshape((n_blk, R) + tuple(x.shape[1:])) for x in out)
+
+
+def _factored_bounds(o_c, d_c, alive_c, t_min_s, t_max_s, sub_blocks, origin_margin,
+                     dir_margin):
+    """The raw sub-block bounds function ``r -> (oc, oh, axis, tan_th, t_hi,
+    n_hi, dead)`` of factored blocks (Cb, P, 3) x (Cb, G, 3) (ray g*P + p),
+    with the margins applied."""
+    Cb, P, _ = o_c.shape
+    G = d_c.shape[1]
+    Rb = P * G
+    tan_dm = math.tan(dir_margin) if dir_margin else 0.0
+
+    def widen_cone(tan_th):
+        """tan(theta + dir_margin), conservatively pass-all past ~89 deg."""
+        if not tan_dm:
+            return tan_th
+        den = 1.0 - tan_th * tan_dm
+        return torch.where(den > 1e-4, (tan_th + tan_dm) / torch.clamp(den, min=1e-4), 1e4)
+
+    def fact_bounds(r):
+        """Sub-block bounds straight from the factored structure (sub-block
+        r = directions [r*G/R, ...) x all origins)."""
+        live = alive_c > 0.0
+        o_lo = torch.where(live[:, None], torch.amin(o_c, dim=1), 0.0)
+        o_hi = torch.where(live[:, None], torch.amax(o_c, dim=1), 0.0)
+        oc1 = 0.5 * (o_lo + o_hi)
+        oh1 = 0.5 * (o_hi - o_lo)
+        if origin_margin:
+            oh1 = oh1 + torch.where(live[:, None], origin_margin, 0.0)
+        oc = oc1[:, None].expand(Cb, r, 3)
+        oh = oh1[:, None].expand(Cb, r, 3)
+        nrm, dn = _unit_dirs(d_c.reshape(Cb, r, G // r, 3))
+        a = _unit(_tree_sum(dn, 2))
+        tan_th = widen_cone(_tan_of(torch.amin(_dot3(dn, a[:, :, None, :]), dim=2)))
+        n_hi = torch.amax(nrm, dim=2)
+        t_hi = torch.where(live, t_max_s, 0.0)[:, None] * n_hi
+        dead = (~live)[:, None].expand(Cb, r)
+        return oc, oh, a, tan_th, t_hi, n_hi, dead
+
+    def margin_sb_bounds(r):
+        """_subblock_bounds on the expanded rays, then the margins."""
+        ob = o_c[:, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
+        db = d_c[:, :, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
+        tmin_b = o_c.new_full((Cb, Rb), t_min_s)
+        tmax_b = (alive_c * t_max_s)[:, None].expand(Cb, Rb)
+        oc, oh, a, tan_th, t_hi, n_hi, dead = _subblock_bounds(ob, db, tmin_b, tmax_b, r)
+        oh = oh + torch.where(dead[..., None], 0.0, origin_margin)
+        return oc, oh, a, widen_cone(tan_th), t_hi, n_hi, dead
+
+    return fact_bounds if G % sub_blocks == 0 else margin_sb_bounds
+
+
+def _dead_axis(axis, dead):
+    x_axis = axis.new_tensor([1.0, 0.0, 0.0])
+    return torch.where(dead[..., None], x_axis, axis)
+
+
+def _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi):
+    """Cap each block's reach at its conservative exit from the scene box.
+    Bounds have a leading batch shape L; returns t_hi (L)."""
+    scene_c = 0.5 * (bins.aabb_min + bins.aabb_max)
+    scene_h = 0.5 * (bins.aabb_max - bins.aabb_min)
+    t_cap = _norm(oc - scene_c) + _norm(scene_h) + _norm(oh)
+    lead = (1,) * oc.dim()
+    _, _, scene_far = _cone_box_test(
+        oc[..., None, :], oh[..., None, :], axis[..., None, :],
+        tan_th[..., None], t_cap[..., None],
+        bins.aabb_min.reshape(lead[:-1] + (1, 3)),
+        bins.aabb_max.reshape(lead[:-1] + (1, 3)),
+    )
+    return torch.minimum(t_hi, scene_far[..., 0] * 1.0001 + 1e-3)
+
+
+def _capped_bounds(bins, raw):
+    """Sub-block bounds ``raw = (oc, oh, axis, tan_th, t_hi, n_hi, dead)``
+    (Cb, r, ...) with dead sub-blocks parked and every reach capped at the
+    scene's exit: (cones (Cb, r, 11), n_hi (Cb, r))."""
+    oc, oh, axis, tan_th, t_hi, n_hi, dead = raw
+    axis = _dead_axis(axis, dead)
+    t_hi = torch.where(dead, 0.0, t_hi)
+    t_hi = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
+    return pack_cones(oc, oh, axis, tan_th, t_hi), n_hi
+
+
+def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, ch):
+    """The arguments of :func:`cull_blocks` for bounds from
+    ``raw_bounds(r)`` (r cones per block). With the hyper level (ch > 0),
+    the coarse levels use ONE fat block cone (r = 1) and the sub-block cones
+    stay for the bin tests, as in the JAX package."""
+    cones, n_hi = _capped_bounds(bins, raw_bounds(sub_blocks))
+    fat = None
+    if ch:
+        fat = (_capped_bounds(bins, raw_bounds(1))[0] if sub_blocks > 1 else cones)[:, 0]
+        fat = fat.contiguous()
+    return (cones, fat, torch.amax(n_hi, dim=1).contiguous(), bins.bin_aabb, bins.super_aabb,
+            bins.hyper_aabb, bins.bins_per_super, bins.supers_per_hyper, ch, cs, cb)
+
+
+def _by_blocks(fn, step, *blocked):
+    """``fn(*blocked)`` over steps of ``step`` blocks of the leading axis,
+    concatenated."""
+    n_blk = blocked[0].shape[0]
+    if n_blk <= step:
+        return fn(*blocked)
+    parts = [fn(*(x[s:s + step] for x in blocked)) for s in range(0, n_blk, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def _group_box_tests(cones: Tensor, boxes: Tensor) -> Tuple[Tensor, Tensor]:
@@ -190,87 +390,239 @@ def cull_tests(cones: Tensor, fat: Optional[Tensor], bin_aabb: Tensor, super_aab
     return tests + n_hyper + torch.sum(torch.where(hyp_sel >= 0, sups_of, 0), dim=1)
 
 
-def _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
-    if cones.dim() != 3 or cones.shape[2] != CONE_WIDTH:
-        raise ValueError(f"cones must be (Cb, R, {CONE_WIDTH}), got {tuple(cones.shape)}")
-    Cb = cones.shape[0]
-    n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
-    expect = {"cones": (cones, None), "n_hi": (n_hi, (Cb,)),
-              "bin_aabb": (bin_aabb, (n_bins, 6)), "super_aabb": (super_aabb, (n_super, 6))}
-    if ch:
-        if hyper_aabb is None or fat is None:
-            raise ValueError("the hyper level (ch > 0) needs hyper_aabb and fat")
-        expect["fat"] = (fat, (Cb, CONE_WIDTH))
-        expect["hyper_aabb"] = (hyper_aabb, (hyper_aabb.shape[0], 6))
-        if not 1 <= ch <= hyper_aabb.shape[0]:
-            raise ValueError(f"ch={ch} must be in [1, n_hyper={hyper_aabb.shape[0]}]")
-        if cs > ch * H:
-            raise ValueError(f"cs={cs} exceeds the ch*H={ch * H} supers of the hypers kept")
-    for name, (x, shape) in expect.items():
+def _check_tensors(dev, **named):
+    """Each ``name=(tensor, shape)`` float32, contiguous, on ``dev`` and of
+    that shape (any shape for None)."""
+    for name, (x, shape) in named.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if shape is not None and tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if x.device != cones.device:
-            raise ValueError(f"{name} is on {x.device}, cones on {cones.device}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_boxes(dev, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
+    n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
+    boxes = {"bin_aabb": (bin_aabb, (n_bins, 6)), "super_aabb": (super_aabb, (n_super, 6))}
+    if ch:
+        if hyper_aabb is None:
+            raise ValueError("the hyper level (ch > 0) needs hyper_aabb")
+        boxes["hyper_aabb"] = (hyper_aabb, (hyper_aabb.shape[0], 6))
+        if not 1 <= ch <= hyper_aabb.shape[0]:
+            raise ValueError(f"ch={ch} must be in [1, n_hyper={hyper_aabb.shape[0]}]")
+        if cs > ch * H:
+            raise ValueError(f"cs={cs} exceeds the ch*H={ch * H} supers of the hypers kept")
+    _check_tensors(dev, **boxes)
     if not (1 <= cs <= n_super and 1 <= cb <= min(n_bins, cs * S)):
         raise ValueError(f"budgets cs={cs}, cb={cb} out of range")
     if n_super * S < n_bins:
         raise ValueError("S bins per super do not cover the bins")
 
 
+def _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
+    if cones.dim() != 3 or cones.shape[2] != CONE_WIDTH:
+        raise ValueError(f"cones must be (Cb, R, {CONE_WIDTH}), got {tuple(cones.shape)}")
+    Cb = cones.shape[0]
+    if ch and fat is None:
+        raise ValueError("the hyper level (ch > 0) needs fat")
+    extra = {"fat": (fat, (Cb, CONE_WIDTH))} if ch else {}
+    _check_tensors(cones.device, cones=(cones, None), n_hi=(n_hi, (Cb,)), **extra)
+    _check_boxes(cones.device, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb)
+
+
+def _bins_boxes(bins, ch, cs, cb):
+    """The back end's box arguments from TriangleBins."""
+    return (bins.bin_aabb, bins.super_aabb, bins.hyper_aabb, bins.bins_per_super,
+            bins.supers_per_hyper, ch, cs, cb)
+
+
+def _check_scene(dev, bins):
+    _check_tensors(dev, aabb_min=(bins.aabb_min, (3,)), aabb_max=(bins.aabb_max, (3,)))
+
+
+# --- the kernel ---
+
+_PTRS = ("cones", "fat", "n_hi", "o", "d", "t_min", "t_max", "alive", "scene_min", "scene_max",
+         "bin_aabb", "super_aabb", "hyper_aabb", "cand_bin", "cand_count", "cand_tnear", "sat")
+_INTS = ("mode", "Cb", "R", "Rb", "P", "G", "n_bins", "n_super", "n_hyper", "S", "H", "ch",
+         "cs", "cb")
+_UINTS = ("idm_hyp", "idm_sup", "idm_bin")
+_FLAGS = ("hyp_packed", "sup_packed", "bin_packed")
+_FLOATS = ("t_min_s", "t_max_s", "origin_margin", "tan_dm")
+# the kernel's front ends
+_MODES = {"cones": 0, "rays": 1, "expanded": 2, "factored": 3}
+# cones a block the kernel holds in registers (4 a lane)
+MAX_CONES = 128
+
+
+class _CullArgs(ctypes.Structure):
+    """The kernel's argument struct (``CullArgs`` in the source), field for
+    field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+                + [(n, ctypes.c_uint) for n in _UINTS] + [(n, ctypes.c_int) for n in _FLAGS]
+                + [(n, ctypes.c_float) for n in _FLOATS])
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """The kernel's C entry point (``rmcl_cull_blocks``), built on first use."""
-    fn = _build.load_library("cull_blocks").rmcl_cull_blocks
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    """The kernel's C entry point (``rmcl_cull``), built on first use."""
+    fn = _build.load_library("cull_blocks").rmcl_cull
+    fn.argtypes = [ctypes.POINTER(_CullArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _idm(n: int) -> int:
+    return (1 << max(1, (n - 1).bit_length())) - 1
+
+
+def _launch(mode, Cb, R, boxes, tensors, **scalars):
+    """One launch of the kernel on the boxes' card with front end ``mode``;
+    ``tensors`` name its inputs, ``scalars`` its other fields. Returns
+    (cand_bin, cand_count, cand_tnear, sat)."""
+    bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb = boxes
+    dev = bin_aabb.device
+    if dev.type != "cuda":
+        raise ValueError(f"the cull runs on cuda or cpu tensors, not {dev}")
+    if R > MAX_CONES:
+        raise ValueError(f"the kernel takes at most {MAX_CONES} sub-blocks a block, not {R}")
+    n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
+    n_hyper = hyper_aabb.shape[0] if ch else 0
+    outs = dict(cand_bin=torch.empty((Cb, cb), dtype=torch.int32, device=dev),
+                cand_count=torch.empty((Cb,), dtype=torch.int32, device=dev),
+                cand_tnear=torch.empty((Cb, cb), dtype=torch.float32, device=dev),
+                sat=torch.empty((Cb,), dtype=torch.bool, device=dev))
+    args = _CullArgs(mode=_MODES[mode], Cb=Cb, R=R, n_bins=n_bins, n_super=n_super,
+                     n_hyper=n_hyper, S=S, H=H, ch=ch, cs=cs, cb=cb,
+                     idm_hyp=_idm(max(n_hyper, 1)), idm_sup=_idm(n_super), idm_bin=_idm(n_bins),
+                     hyp_packed=int(_packs(max(n_hyper, 1))), sup_packed=int(_packs(n_super)),
+                     bin_packed=int(_packs(n_bins)), **scalars)
+    ptrs = dict(tensors, bin_aabb=bin_aabb, super_aabb=super_aabb,
+                hyper_aabb=hyper_aabb if ch else None, **outs)
+    for name, x in ptrs.items():
+        setattr(args, name, None if x is None else x.data_ptr())
+    with torch.cuda.device(dev):
+        err = _kernel()(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"cull kernel launch failed: cudaError {err}")
+    return outs["cand_bin"], outs["cand_count"], outs["cand_tnear"], outs["sat"]
 
 
 def cull_blocks(cones: Tensor, fat: Optional[Tensor], n_hi: Tensor, bin_aabb: Tensor,
                 super_aabb: Tensor, hyper_aabb: Optional[Tensor], S: int, H: int, ch: int,
                 cs: int, cb: int):
-    """Nearest-first candidate bins per block (the module's contract).
+    """Nearest-first candidate bins per block from cones computed
+    beforehand (the back end alone; the module's contract).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`cull_blocks_reference`. ``cull_blocks.launches`` counts the
     kernel launches."""
     _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb)
-    dev = cones.device
-    if dev.type == "cpu":
+    if cones.device.type == "cpu":
         return cull_blocks_reference(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb,
                                      S, H, ch, cs, cb)
-    if dev.type != "cuda":
-        raise ValueError(f"cull_blocks runs on cuda or cpu tensors, not {dev}")
-    Cb, R, _ = cones.shape
-    n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
-    n_hyper = hyper_aabb.shape[0] if ch else 0
-    idm = lambda n: (1 << max(1, (n - 1).bit_length())) - 1
-    cand_bin = torch.empty((Cb, cb), dtype=torch.int32, device=dev)
-    cand_count = torch.empty((Cb,), dtype=torch.int32, device=dev)
-    cand_tnear = torch.empty((Cb, cb), dtype=torch.float32, device=dev)
-    sat = torch.empty((Cb,), dtype=torch.bool, device=dev)
-    ptr = lambda x: 0 if x is None else x.data_ptr()
-    with torch.cuda.device(dev):
-        err = _kernel()(
-            cones.data_ptr(), ptr(fat if ch else None), n_hi.data_ptr(),
-            bin_aabb.data_ptr(), super_aabb.data_ptr(), ptr(hyper_aabb if ch else None),
-            cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(), sat.data_ptr(),
-            Cb, R, n_bins, n_super, n_hyper, S, H, ch, cs, cb,
-            idm(max(n_hyper, 1)), idm(n_super), idm(n_bins),
-            int(_packs(max(n_hyper, 1))), int(_packs(n_super)) | (int(_packs(n_bins)) << 1),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"cull_blocks kernel launch failed: cudaError {err}")
+    out = _launch("cones", cones.shape[0], cones.shape[1],
+                  (bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb),
+                  dict(cones=cones, fat=fat if ch else None, n_hi=n_hi))
     cull_blocks.launches += 1
-    return cand_bin, cand_count, cand_tnear, sat
+    return out
 
 
 cull_blocks.launches = 0
+
+
+def cull_rays(bins, ob: Tensor, db: Tensor, t_min_b: Tensor, t_max_b: Tensor,
+              sub_blocks: int, cs: int, cb: int, ch: int = 0):
+    """Nearest-first candidate bins of ray blocks ``(Cb, Rb, 3)`` with gates
+    ``(Cb, Rb)`` (rays with t_max <= t_min are inert), each split into
+    ``sub_blocks`` contiguous sub-blocks, on ``bins`` (TriangleBins): the
+    bounds and the cull in one launch.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`cull_rays_reference`. ``cull_rays.launches`` counts the kernel
+    launches."""
+    Cb, Rb, _ = ob.shape
+    if sub_blocks < 1 or Rb % sub_blocks:
+        raise ValueError(f"{Rb} rays a block do not split into {sub_blocks} sub-blocks")
+    dev = ob.device
+    _check_tensors(dev, ob=(ob, (Cb, Rb, 3)), db=(db, (Cb, Rb, 3)), t_min_b=(t_min_b, (Cb, Rb)),
+                   t_max_b=(t_max_b, (Cb, Rb)))
+    _check_scene(dev, bins)
+    boxes = _bins_boxes(bins, ch, cs, cb)
+    _check_boxes(dev, *boxes)
+    if dev.type == "cpu":
+        return cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch)
+    out = _launch("rays", Cb, sub_blocks, boxes,
+                  dict(o=ob, d=db, t_min=t_min_b, t_max=t_max_b, scene_min=bins.aabb_min,
+                       scene_max=bins.aabb_max), Rb=Rb)
+    cull_rays.launches += 1
+    return out
+
+
+cull_rays.launches = 0
+
+
+def cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch=0):
+    """:func:`cull_rays` in plain PyTorch tensor ops: the sub-block bounds,
+    the scene cap, then :func:`cull_blocks_reference`. Runs on any device."""
+    def one(ob, db, t_min_b, t_max_b):
+        raw = lambda r: _subblock_bounds(ob, db, t_min_b, t_max_b, r)
+        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch))
+    step = max(1, _REF_RAYS_PER_STEP // ob.shape[1])
+    return _by_blocks(one, step, ob, db, t_min_b, t_max_b)
+
+
+def cull_factored(bins, o_c: Tensor, d_c: Tensor, alive: Tensor, t_min: float, t_max: float,
+                  sub_blocks: int, cs: int, cb: int, ch: int = 0, origin_margin: float = 0.0,
+                  dir_margin: float = 0.0):
+    """Nearest-first candidate bins of factored blocks: P pose origins
+    ``o_c (Cb, P, 3)`` x G shared directions ``d_c (Cb, G, 3)`` (ray g*P +
+    p), ``alive (Cb,)`` (0: a dead block), scalar gates, split into
+    ``sub_blocks`` sub-blocks; ``origin_margin`` (per axis) and
+    ``dir_margin`` (radians) widen every cone for candidate reuse.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`cull_factored_reference`. ``cull_factored.launches`` counts the
+    kernel launches."""
+    Cb, P, _ = o_c.shape
+    G = d_c.shape[1]
+    if sub_blocks < 1 or (G % sub_blocks and (P * G) % sub_blocks):
+        raise ValueError(f"{P} x {G} rays a block do not split into {sub_blocks} sub-blocks")
+    dev = o_c.device
+    _check_tensors(dev, o_c=(o_c, (Cb, P, 3)), d_c=(d_c, (Cb, G, 3)), alive=(alive, (Cb,)))
+    _check_scene(dev, bins)
+    boxes = _bins_boxes(bins, ch, cs, cb)
+    _check_boxes(dev, *boxes)
+    if dev.type == "cpu":
+        return cull_factored_reference(bins, o_c, d_c, alive, t_min, t_max, sub_blocks, cs, cb,
+                                       ch, origin_margin, dir_margin)
+    out = _launch("factored" if G % sub_blocks == 0 else "expanded", Cb, sub_blocks, boxes,
+                  dict(o=o_c, d=d_c, alive=alive, scene_min=bins.aabb_min,
+                       scene_max=bins.aabb_max),
+                  Rb=P * G, P=P, G=G, t_min_s=t_min, t_max_s=t_max, origin_margin=origin_margin,
+                  tan_dm=math.tan(dir_margin) if dir_margin else 0.0)
+    cull_factored.launches += 1
+    return out
+
+
+cull_factored.launches = 0
+
+
+def cull_factored_reference(bins, o_c, d_c, alive, t_min, t_max, sub_blocks, cs, cb, ch=0,
+                            origin_margin=0.0, dir_margin=0.0):
+    """:func:`cull_factored` in plain PyTorch tensor ops: the factored
+    bounds with their margins, the scene cap, then
+    :func:`cull_blocks_reference`. Runs on any device."""
+    def one(o_c, d_c, alive):
+        raw = _factored_bounds(o_c, d_c, alive, t_min, t_max, sub_blocks, origin_margin,
+                               dir_margin)
+        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch))
+    step = max(1, _REF_RAYS_PER_STEP // (o_c.shape[1] * d_c.shape[1]))
+    return _by_blocks(one, step, o_c, d_c, alive)
+
 
 # plain-version blocks per step: bounds the (blocks, cones, boxes) test tensors
 _REF_TESTS_PER_STEP = 1 << 23

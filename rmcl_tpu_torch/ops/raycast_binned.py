@@ -17,9 +17,10 @@ Two engines share the cull:
   (K4); candidate lists from :func:`factored_candidates` can be reused
   across casts whose poses moved less than the cull's margins.
 
-The cull's per-sub-block cone bounds are plain PyTorch tensor code; the box
-tests and nearest-first selections run in the hand-written kernel
-:func:`rmcl_tpu_torch.ops.cull_cuda.cull_blocks` (K3).
+The cull — each block's sub-block cone bounds, then its box tests and
+nearest-first selections — is one launch of the hand-written kernel K3:
+:func:`rmcl_tpu_torch.ops.cull_cuda.cull_rays` for ray blocks,
+:func:`~rmcl_tpu_torch.ops.cull_cuda.cull_factored` for factored blocks.
 
 Budgets truncate candidate lists nearest-first: a block needing more than
 ``c_hyper`` hypers, ``c_super`` supers or ``c_bin`` bins may miss geometry
@@ -30,7 +31,6 @@ are not ported yet.
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import numpy as np
@@ -39,64 +39,11 @@ import torch
 from rmcl_tpu_torch._device import resolve_device
 from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.builder import morton_codes_3d
-from rmcl_tpu_torch.ops.cull_cuda import _BIG, _cone_box_test, _norm, cull_blocks, pack_cones
+from rmcl_tpu_torch.ops.cull_cuda import _BIG, cull_factored, cull_rays
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits
 from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, plane_of
 
 Tensor = torch.Tensor
-
-
-def _block_bounds(ob, db, t_min_b, t_max_b):
-    """Per-block cone/box bounds from rays (n_blk, Rb, 3).
-
-    Returns oc, oh, axis, tan_th, t_hi, n_hi, dead. Rays with
-    t_max <= t_min are inert and excluded from the bounds."""
-    live = (t_max_b > t_min_b)[..., None]
-    any_live = torch.any(live[..., 0], dim=1)
-    o_lo = torch.amin(torch.where(live, ob, _BIG), dim=1)
-    o_hi = torch.amax(torch.where(live, ob, -_BIG), dim=1)
-    o_lo = torch.where(any_live[:, None], o_lo, 0.0)
-    o_hi = torch.where(any_live[:, None], o_hi, 0.0)
-    oc = 0.5 * (o_lo + o_hi)
-    oh = 0.5 * (o_hi - o_lo)
-
-    # unit mean direction; rays need not be normalized — normalize locally
-    dn = db * torch.rsqrt(torch.clamp(torch.sum(db * db, -1, keepdim=True), min=1e-30))
-    dsum = torch.sum(torch.where(live, dn, 0.0), dim=1)
-    a = dsum * torch.rsqrt(torch.clamp(torch.sum(dsum * dsum, -1, keepdim=True), min=1e-30))
-    ca = torch.amin(
-        torch.where(live[..., 0], torch.sum(dn * a[:, None, :], -1), 1.0), dim=1
-    )
-    # degenerate spread (>= ~87 deg): huge tan -> conservative pass-all
-    ca = torch.clamp(ca, 0.05, 1.0)
-    tan_th = torch.sqrt(torch.clamp(1.0 - ca * ca, min=0.0)) / ca
-    # parametric t reaches geometric distance t*|d|: bound the reach by
-    # max(t_max*|d|)
-    nrm = torch.sqrt(torch.clamp(torch.sum(db * db, -1), min=1e-30))
-    n_hi = torch.amax(torch.where(live[..., 0], nrm, 1e-30), dim=1)
-    t_hi = torch.amax(torch.where(live[..., 0], t_max_b * nrm, 0.0), dim=1)
-    return oc, oh, a, tan_th, t_hi, n_hi, ~any_live
-
-
-def _dead_axis(axis, dead):
-    x_axis = axis.new_tensor([1.0, 0.0, 0.0])
-    return torch.where(dead[..., None], x_axis, axis)
-
-
-def _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi):
-    """Cap each block's reach at its conservative exit from the scene box.
-    Bounds have a leading batch shape L; returns t_hi (L)."""
-    scene_c = 0.5 * (bins.aabb_min + bins.aabb_max)
-    scene_h = 0.5 * (bins.aabb_max - bins.aabb_min)
-    t_cap = _norm(oc - scene_c) + _norm(scene_h) + _norm(oh)
-    lead = (1,) * oc.dim()
-    _, _, scene_far = _cone_box_test(
-        oc[..., None, :], oh[..., None, :], axis[..., None, :],
-        tan_th[..., None], t_cap[..., None],
-        bins.aabb_min.reshape(lead[:-1] + (1, 3)),
-        bins.aabb_max.reshape(lead[:-1] + (1, 3)),
-    )
-    return torch.minimum(t_hi, scene_far[..., 0] * 1.0001 + 1e-3)
 
 
 def _build_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb):
@@ -157,69 +104,28 @@ def candidate_stats(bins: TriangleBins, orig: Tensor, dirs: Tensor,
     return cand_count
 
 
-def _subblock_bounds(ob, db, t_min_b, t_max_b, sub_blocks):
-    """Per-sub-block cone/box bounds: rays (n_blk, Rb, 3) split into
-    ``sub_blocks`` contiguous groups; outputs lead with (n_blk, R)."""
-    n_blk, Rb, _ = ob.shape
-    R = sub_blocks
-    rs = lambda x: x.reshape((n_blk * R, Rb // R) + tuple(x.shape[2:]))
-    out = _block_bounds(rs(ob), rs(db), rs(t_min_b), rs(t_max_b))
-    return tuple(x.reshape((n_blk, R) + tuple(x.shape[1:])) for x in out)
-
-
-def _capped_bounds(bins, raw):
-    """Sub-block bounds ``raw = (oc, oh, axis, tan_th, t_hi, n_hi, dead)``
-    (Cb, r, ...) with dead sub-blocks parked and every reach capped at the
-    scene's exit: (cones (Cb, r, 11) for the cull kernel, n_hi (Cb, r))."""
-    oc, oh, axis, tan_th, t_hi, n_hi, dead = raw
-    axis = _dead_axis(axis, dead)
-    t_hi = torch.where(dead, 0.0, t_hi)
-    t_hi = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
-    return pack_cones(oc, oh, axis, tan_th, t_hi), n_hi
-
-
 def _hyper_budget(bins, c_hyper):
     """The hyper budget in force: 0 unless asked for and the bins have the
     level."""
     return min(c_hyper, bins.n_hyper) if c_hyper and bins.hyper_aabb is not None else 0
 
 
-def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, c_hyper):
-    """The arguments of :func:`cull_blocks` for bounds from
-    ``raw_bounds(r)`` (r cones per block). With the hyper level, the coarse
-    levels use ONE fat block cone (r = 1) and the sub-block cones stay for
-    the bin tests, as in the JAX package."""
-    cones, n_hi = _capped_bounds(bins, raw_bounds(sub_blocks))
-    ch = _hyper_budget(bins, c_hyper)
-    fat = None
-    if ch:
-        fat = (_capped_bounds(bins, raw_bounds(1))[0] if sub_blocks > 1 else cones)[:, 0]
-        fat = fat.contiguous()
-    return (cones, fat, torch.amax(n_hi, dim=1).contiguous(), bins.bin_aabb, bins.super_aabb,
-            bins.hyper_aabb, bins.bins_per_super, bins.supers_per_hyper, ch, cs, cb)
-
-
-def _cull(bins, raw_bounds, sub_blocks, cs, cb, c_hyper):
-    """Bounds, then the box tests and selections (:func:`cull_blocks`)."""
-    return cull_blocks(*_cull_args(bins, raw_bounds, sub_blocks, cs, cb, c_hyper))
-
-
 def _chunk_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, c_mid=0,
-                      c_hyper=0, bounds_fn=None):
+                      c_hyper=0):
     """Per-sub-block chunk cull: a union of R = ``sub_blocks`` narrow cones
-    per block (``bounds_fn(r)`` replaces the bounds from the rays).
+    per block.
 
     Returns (cand_bin (Cb, cb), cand_count (Cb,), cand_tnear (Cb, cb), sat
     (Cb,) bool — True when a budget level truncated this block's candidate
     set)."""
     if c_mid:
         raise NotImplementedError("c_mid (the three-level cull) is not ported yet")
-    raw = bounds_fn or (lambda r: _subblock_bounds(ob, db, t_min_b, t_max_b, r))
-    return _cull(bins, raw, sub_blocks, cs, cb, c_hyper)
+    rays = (x.contiguous() for x in (ob, db, t_min_b, t_max_b))
+    return cull_rays(bins, *rays, sub_blocks, cs, cb, _hyper_budget(bins, c_hyper))
 
 
-def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                   block_chunk, sub_blocks, c_hyper=0):
+def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin, sub_blocks,
+                   c_hyper=0):
     """Blocked rays and their candidate lists: exactly what
     :func:`cast_rays_binned` hands :func:`intersect_bins`.
 
@@ -234,17 +140,8 @@ def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
         raise ValueError("bin_size must be a power of two (packed-key min)")
     cs, cb = _resolve_budgets(bins, c_super, c_bin)
     ob, db, t_min_b, t_max_b = _pad_rays(o, d, t_min_r, t_max_r, Rb)
-    n_blk = ob.shape[0]
-    dev = ob.device
-    cand_bin = torch.empty((n_blk, cb), dtype=torch.int32, device=dev)
-    cand_count = torch.empty((n_blk,), dtype=torch.int32, device=dev)
-    cand_tnear = torch.empty((n_blk, cb), dtype=torch.float32, device=dev)
-    sat = torch.empty((n_blk,), dtype=torch.bool, device=dev)
-    for s in range(0, n_blk, block_chunk):
-        sl = slice(s, s + block_chunk)
-        cand_bin[sl], cand_count[sl], cand_tnear[sl], sat[sl] = _chunk_candidates(
-            bins, ob[sl], db[sl], t_min_b[sl], t_max_b[sl], cs, cb, sub_blocks,
-            c_hyper=c_hyper)
+    cand_bin, cand_count, cand_tnear, sat = _chunk_candidates(
+        bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, c_hyper=c_hyper)
     return (ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear), sat
 
 
@@ -272,7 +169,8 @@ def cast_rays_binned(
     ``payload``: True/"select" and "index" give the same outputs (the
     winner's triangle row is gathered once per ray after the kernel);
     False/"none" is the occlusion query (t only, the packed-key t).
-    ``block_chunk`` bounds the cull's intermediates and changes no result.
+    ``block_chunk`` (the JAX package's cull chunk) changes nothing here:
+    the port culls every block in one launch.
     ``c_hyper`` > 0 (with bins built with a hyper level) routes the super
     selection through the ``c_hyper`` nearest hyper boxes.
     Rays should come in a spatially coherent order (scan grids are)."""
@@ -286,7 +184,7 @@ def cast_rays_binned(
     o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
     n = o.shape[0]
     inputs, _ = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                               block_chunk, sub_blocks, c_hyper)
+                               sub_blocks, c_hyper)
     t_best_b, ref_b = intersect_bins(bins.tri, *inputs)
     t_best = t_best_b.reshape(-1)[:n]
     hit = (t_best < t_max_r) & (t_best < _BIG)
@@ -332,11 +230,6 @@ def cast_rays_binned(
 
 # --- the factored engine: (P pose origins x G shared directions) blocks ---
 
-# rays per step of the factored cull's bounds (changes no result: every
-# block is culled on its own)
-_CULL_RAYS_PER_STEP = 1 << 21
-
-
 def _pad_factored_blocks(o_blk, d_blk, alive, block_chunk):
     """Pad the blocks to whole chunks; padding blocks are dead (alive = 0:
     t_max = 0, no hits). Returns (o_blk, d_blk, alive_f, n_blk, chunk,
@@ -356,10 +249,11 @@ def _pad_factored_blocks(o_blk, d_blk, alive, block_chunk):
     return o_blk, d_blk, alive_f.contiguous(), n_blk, chunk, (n_blk + blk_pad) // chunk
 
 
-def _factored_block_candidates(bins, o_blk, d_blk, alive_f, chunk, t_min_s, t_max_s, cs, cb,
+def _factored_block_candidates(bins, o_blk, d_blk, alive_f, t_min_s, t_max_s, cs, cb,
                                c_hyper, sub_blocks, origin_margin, dir_margin=0.0):
     """Cull phase of the factored cast: nearest-first candidate bins of
-    (P pose origins x G shared directions) blocks.
+    (P pose origins x G shared directions) blocks, one launch of
+    :func:`cull_factored`.
 
     ``origin_margin`` > 0 inflates every block's origin box by +/- margin
     per axis, so the lists (and their tnear lower bounds) hold for ANY
@@ -370,80 +264,8 @@ def _factored_block_candidates(bins, o_blk, d_blk, alive_f, chunk, t_min_s, t_ma
 
     Returns (cand (n_blk, cb), count (n_blk,), tnear (n_blk, cb), sat
     (n_blk,)) for the padded blocks."""
-    n_blk_p, P, _ = o_blk.shape
-    Rb = P * d_blk.shape[1]
-    step = chunk * max(1, _CULL_RAYS_PER_STEP // (chunk * Rb))
-    parts = [_cull(bins, _factored_bounds(o_blk[s:s + step], d_blk[s:s + step],
-                                          alive_f[s:s + step], t_min_s, t_max_s, sub_blocks,
-                                          origin_margin, dir_margin),
-                   sub_blocks, cs, cb, c_hyper)
-             for s in range(0, n_blk_p, step)]
-    return tuple(torch.cat(p) for p in zip(*parts))
-
-
-def _factored_bounds(o_c, d_c, alive_c, t_min_s, t_max_s, sub_blocks, origin_margin,
-                     dir_margin):
-    """The raw sub-block bounds function ``r -> (oc, oh, axis, tan_th, t_hi,
-    n_hi, dead)`` of factored blocks (Cb, P, 3) x (Cb, G, 3), with the
-    margins applied."""
-    Cb, P, _ = o_c.shape
-    G = d_c.shape[1]
-    Rb = P * G
-    tan_dm = math.tan(dir_margin) if dir_margin else 0.0
-
-    def widen_cone(tan_th):
-        """tan(theta + dir_margin), conservatively pass-all past ~89 deg."""
-        if not tan_dm:
-            return tan_th
-        den = 1.0 - tan_th * tan_dm
-        return torch.where(den > 1e-4, (tan_th + tan_dm) / torch.clamp(den, min=1e-4), 1e4)
-
-    def expand_rays():
-        """Compact (Cb, P, 3) x (Cb, G, 3) -> rays (Cb, Rb, ...), ray g*P + p."""
-        ob = o_c[:, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
-        db = d_c[:, :, None].expand(Cb, G, P, 3).reshape(Cb, Rb, 3)
-        tmin_b = o_c.new_full((Cb, Rb), t_min_s)
-        tmax_b = (alive_c * t_max_s)[:, None].expand(Cb, Rb)
-        return ob, db, tmin_b, tmax_b
-
-    def fact_bounds(r):
-        """Sub-block bounds straight from the factored structure (ray g*P +
-        p, so sub-block r = directions [r*G/R, ...) x all origins), equal to
-        _subblock_bounds on the expanded rays."""
-        live = alive_c > 0.0
-        o_lo = torch.where(live[:, None], torch.amin(o_c, dim=1), 0.0)
-        o_hi = torch.where(live[:, None], torch.amax(o_c, dim=1), 0.0)
-        oc1 = 0.5 * (o_lo + o_hi)
-        oh1 = 0.5 * (o_hi - o_lo)
-        if origin_margin:
-            oh1 = oh1 + torch.where(live[:, None], origin_margin, 0.0)
-        oc = oc1[:, None].expand(Cb, r, 3)
-        oh = oh1[:, None].expand(Cb, r, 3)
-        dg = d_c.reshape(Cb, r, G // r, 3)
-        dn = dg * torch.rsqrt(torch.clamp(torch.sum(dg * dg, -1, keepdim=True), min=1e-30))
-        dsum = torch.sum(dn, dim=2)
-        a = dsum * torch.rsqrt(torch.clamp(torch.sum(dsum * dsum, -1, keepdim=True),
-                                           min=1e-30))
-        ca = torch.amin(torch.sum(dn * a[:, :, None, :], -1), dim=2)
-        ca = torch.clamp(ca, 0.05, 1.0)
-        tan_th = widen_cone(torch.sqrt(torch.clamp(1.0 - ca * ca, min=0.0)) / ca)
-        nrm = torch.sqrt(torch.clamp(torch.sum(dg * dg, -1), min=1e-30))
-        n_hi = torch.amax(nrm, dim=2)
-        t_hi = torch.where(live, t_max_s, 0.0)[:, None] * n_hi
-        dead = (~live)[:, None].expand(Cb, r)
-        return oc, oh, a, tan_th, t_hi, n_hi, dead
-
-    def margin_sb_bounds(r):
-        oc, oh, a, tan_th, t_hi, n_hi, dead = _subblock_bounds(*expand_rays(), r)
-        oh = oh + torch.where(dead[..., None], 0.0, origin_margin)
-        return oc, oh, a, widen_cone(tan_th), t_hi, n_hi, dead
-
-    if G % sub_blocks == 0:
-        return fact_bounds
-    if origin_margin or dir_margin:
-        return margin_sb_bounds
-    rays = expand_rays()
-    return lambda r: _subblock_bounds(*rays, r)
+    return cull_factored(bins, o_blk, d_blk, alive_f, t_min_s, t_max_s, sub_blocks, cs, cb,
+                         _hyper_budget(bins, c_hyper), origin_margin, dir_margin)
 
 
 def factored_candidates(
@@ -474,10 +296,10 @@ def factored_candidates(
     Returns (cand (n_blk_padded, cb) int32 with -1 padding, count
     (n_blk_padded,) int32, tnear (n_blk_padded, cb) f32)."""
     cs, cb = _resolve_budgets(bins, c_super, c_bin, c_mid)
-    o_p, d_p, alive_f, _, chunk, _ = _pad_factored_blocks(o_blk, d_blk, alive, block_chunk)
+    o_p, d_p, alive_f, *_ = _pad_factored_blocks(o_blk, d_blk, alive, block_chunk)
     return _factored_block_candidates(
-        bins, o_p, d_p, alive_f, chunk, float(t_min), float(t_max), cs, cb, c_hyper,
-        sub_blocks, float(origin_margin), float(dir_margin))[:3]
+        bins, o_p, d_p, alive_f, float(t_min), float(t_max), cs, cb, c_hyper, sub_blocks,
+        float(origin_margin), float(dir_margin))[:3]
 
 
 def cast_rays_binned_factored(
@@ -549,7 +371,7 @@ def cast_rays_binned_factored(
                              "them with factored_candidates at the same blocks and budgets")
     else:
         cand, count, tnear, _ = _factored_block_candidates(
-            bins, o_p, d_p, alive_f, chunk, t_min_s, t_max_s, cs, cb, c_hyper, sub_blocks,
+            bins, o_p, d_p, alive_f, t_min_s, t_max_s, cs, cb, c_hyper, sub_blocks,
             float(origin_margin), float(dir_margin))
     order = None
     if sort_blocks:

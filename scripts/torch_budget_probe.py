@@ -92,7 +92,7 @@ def probe(name, block_sizes, unbudgeted):
             j_hit = np.asarray(jrb.cast_rays_binned(
                 jb, jo, jd, t_min, t_max, block_size=Rb, c_super=cs, c_bin=cb).hit)
             inputs, t_sat = trb._kernel_inputs(
-                tb, o, d, torch.full((n,), t_min), torch.full((n,), t_max), Rb, cs, cb, 256, 4)
+                tb, o, d, torch.full((n,), t_min), torch.full((n,), t_max), Rb, cs, cb, 4)
             t_count, t_sat = inputs[5].numpy(), t_sat.numpy()
             t_hit = trb.cast_rays_binned(tb, o, d, t_min, t_max, block_size=Rb, c_super=cs,
                                          c_bin=cb).hit.numpy()

@@ -78,7 +78,7 @@ def main():
     tsm = Transform.from_pose_tuple([9.0, 3.0, 1.5, 0.0, 0.0, 0.3])
     o_s, d_s = model.rays("cuda")
     rays = _flat_rays(tsm.apply(o_s), tsm.rotate(d_s), model.range.min, model.range.max)[:4]
-    inputs, _ = _kernel_inputs(bmap.bins, *rays, chip_smoke.DEFAULT_BLOCK_SIZE, 24, 96, 256, 4)
+    inputs, _ = _kernel_inputs(bmap.bins, *rays, chip_smoke.DEFAULT_BLOCK_SIZE, 24, 96, 4)
     probe("phase 4", bmap.bins.tri, inputs, card)
     del bmap, inputs
 
@@ -89,8 +89,7 @@ def main():
     tsm = Transform(rot=Quaternion.identity((n,), "cuda"), trans=torch.from_numpy(trans).cuda())
     tsm = tsm.expand_dims(-1)
     rays = _flat_rays(tsm.apply(o_s), tsm.rotate(d_s), model.range.min, model.range.max)[:4]
-    inputs, _ = _kernel_inputs(sphere, *rays, chip_smoke.CAST_BLOCK_SIZE, 24, 96,
-                               chip_smoke.CAST_BLOCK_CHUNK, 4)
+    inputs, _ = _kernel_inputs(sphere, *rays, chip_smoke.CAST_BLOCK_SIZE, 24, 96, 4)
     probe("phase 5", sphere.tri, inputs, card)
 
 

@@ -1,6 +1,6 @@
-"""The port on the card: the intersection kernel against its plain PyTorch
-version on the same CUDA tensors, and the main path on the card against
-the same path on the CPU.
+"""The port on the card: each kernel against its plain PyTorch version on
+the same CUDA tensors, and the main paths on the card against the same
+paths on the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -9,6 +9,8 @@ imports JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -m cuda -q
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -111,7 +113,7 @@ def _degenerate_half(tri):
 def test_kernel_matches_plain_version(card, mesh, B, Rb, case):
     bins = build_bins(MESHES[mesh](), bin_size=B, bins_per_super=8, device=card)
     rays = _vlp16_rays((0.5, -0.3, 1.0), card)
-    inputs, _ = trb._kernel_inputs(bins, *rays, Rb, 24, 96, 256, 4)
+    inputs, _ = trb._kernel_inputs(bins, *rays, Rb, 24, 96, 4)
     tri = bins.tri
     _edit_candidates(*inputs[4:], case)
     if case == "dead":
@@ -140,8 +142,7 @@ def test_misaligned_tri(card):
     takes it."""
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
     bins = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
-    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96,
-                                   256, 4)
+    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96, 4)
     flat = torch.empty(bins.tri.numel() + 1, device=card)
     tri = flat[1:].view(bins.tri.shape)
     tri.copy_(bins.tri)
@@ -156,8 +157,7 @@ def test_misaligned_tri(card):
 
 def test_kernel_rejects_mixed_devices(card):
     bins = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
-    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96,
-                                   256, 4)
+    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96, 4)
     with pytest.raises(ValueError):
         intersect_bins(bins.tri, inputs[0].cpu(), *inputs[1:])
 
@@ -236,8 +236,8 @@ def _sphere_bins(dev):
 def _cull_case(card, case):
     """K3 inputs: the dense engine's chunk cull (no hyper level), or the
     factored cull with the hyper level at 4 and at 128 (per-ray) cones."""
-    from rmcl_tpu_torch.ops.raycast_binned import (_cull_args, _factored_bounds,
-                                                   _pad_factored_blocks, _subblock_bounds)
+    from rmcl_tpu_torch.ops.cull_cuda import _cull_args, _factored_bounds, _subblock_bounds
+    from rmcl_tpu_torch.ops.raycast_binned import _pad_factored_blocks
     if case == "dense_room":
         bins = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
         o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
@@ -294,10 +294,10 @@ def test_factored_kernel_matches_plain_version(card, layout, case):
         o_blk = (shift.expand(d.shape[0], 1, 3) if layout == "tracking"
                  else shift + 0.05 * torch.roll(d, 1, dims=1)).contiguous()
         d_blk = d
-    o_p, d_p, alive, _, chunk, _ = _pad_factored_blocks(o_blk, d_blk, None, 512)
+    o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
     sub_blocks = 4 if layout != "sweep_5x3" else 1
     cand, count, tnear, _ = _factored_block_candidates(
-        bins, o_p, d_p, alive, chunk, 0.1, 130.0, 8, 64, 4, sub_blocks, 0.0)
+        bins, o_p, d_p, alive, 0.1, 130.0, 8, 64, 4, sub_blocks, 0.0)
     tri, t_min, order = bins.tri, 0.1, None
     _edit_candidates(cand, count, tnear, case)
     if case == "dead":
@@ -340,7 +340,7 @@ def test_factored_cast_on_card_matches_cpu(card):
 
 def test_tracked_corrector_on_card_matches_cpu(card):
     from rmcl_tpu_torch.micp.tracking import TrackedCorrector
-    from rmcl_tpu_torch.ops.cull_cuda import cull_blocks
+    from rmcl_tpu_torch.ops.cull_cuda import cull_factored
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_factored
     mesh = MESHES["room"]()
     model = SphericalModel.create(width=256, height=8, phi_min=-0.4, phi_max=0.3,
@@ -357,14 +357,15 @@ def test_tracked_corrector_on_card_matches_cpu(card):
             tsb=Transform.identity(device=dev), config=tp.MICPSensorConfig.create(max_dist=2.0))
         tbo = Transform.identity(device=dev)
         tc = TrackedCorrector(bins, model, tp.MICPConfig())
-        before = (cull_blocks.launches, intersect_factored.launches)
+        before = (cull_factored.launches, intersect_factored.launches)
         state = tc.init(bins, Transform.from_pose_tuple([0.5, -0.3, 1.2, 0.0, 0.0, 0.35],
                                                         device=dev), tbo, sensor.tsb)
         trail = []
         for _ in range(4):
             state, _ = tc.step(bins, [sensor], state, tbo)
             trail.append(state.tom)
-        launched = (cull_blocks.launches - before[0], intersect_factored.launches - before[1])
+        launched = (cull_factored.launches - before[0],
+                    intersect_factored.launches - before[1])
         if dev.type == "cuda":
             assert launched[0] == state.n_reculls and launched[1] == 4
         else:
@@ -374,3 +375,86 @@ def test_tracked_corrector_on_card_matches_cpu(card):
         torch.testing.assert_close(g.trans.cpu(), c.trans, rtol=0.0, atol=POSE_TOL)
     err = np.linalg.norm(poses[0][-1].trans.cpu().numpy() - np.float32(true_pose[:3]))
     assert err < 0.01
+
+
+# --- the fused cull (K3 with its bounds) ---
+
+def _fused_case(card, case):
+    """(wrapper, plain version, arguments) of the fused cull for one case."""
+    from rmcl_tpu_torch.ops import cull_cuda as cc
+    from rmcl_tpu_torch.ops.raycast_binned import _pad_factored_blocks
+    if case.startswith("dense") or case.startswith("sphere_b"):
+        # <map>_<Rb>_r<R>[_dead]: a VLP-16 scan in Rb-ray blocks, R sub-blocks
+        Rb, R = (int(x) for x in re.search(r"_(\d+)_r(\d+)", case).groups())
+        if case.startswith("sphere_b"):  # bins of B, cs * S bins at level 1
+            B, S = (8, 64) if case.startswith("sphere_b8_") else (512, 4)
+            bins = build_bins(make_sphere(80, 80, radius=5.0), bin_size=B, bins_per_super=S,
+                              device=card)
+        else:
+            bins = build_bins(MESHES["room"](), bin_size=8, bins_per_super=4, device=card)
+        cs, cb = trb._resolve_budgets(bins, 24, 96)
+        blocks = trb._pad_rays(*_vlp16_rays((0.5, -0.3, 1.0), card), Rb)
+        if case.endswith("_dead"):  # dead blocks, and blocks with some inert rays
+            blocks[3][::3] = 0.0
+            blocks[3][1::3, ::2] = 0.0
+        return cc.cull_rays, cc.cull_rays_reference, (bins, *blocks, R, cs, cb, 0)
+    bins = _sphere_bins(card)
+    if case.startswith("tracking"):  # one pose, 128 directions a block
+        d = SphericalModel.vlp16(width=240).rays(card)[1].reshape(-1, 128, 3).contiguous()
+        o = torch.tensor([0.3, -0.2, 0.1], device=card).expand(d.shape[0], 1, 3).contiguous()
+        R, margins = 4, (0.05, 0.01)
+    else:
+        o, d = _sweep_blocks(card)
+        R, margins = (128, (0.03, 0.0)) if case.startswith("per_ray") else (4, (0.05, 0.01))
+    o_p, d_p, alive, *_ = _pad_factored_blocks(o, d, None, 512)
+    if case.endswith("_dead"):
+        alive[::3] = 0.0
+    return cc.cull_factored, cc.cull_factored_reference, (
+        bins, o_p, d_p, alive, 0.0, 130.0, R, min(8, bins.n_super), 64, bins.n_hyper, *margins)
+
+
+@pytest.mark.parametrize("case", [
+    "dense_128_r4", "dense_100_r4", "dense_32_r4",  # 100: 25-ray sub-blocks, padded trees
+    "dense_128_r1", "dense_100_r1", "dense_32_r1",
+    "dense_128_r4_dead",
+    "sphere_b8_128_r4",  # cs x S = 24 x 64 = 1,536 bins at level 1 (2,048 keys)
+    "sphere_b512_1024_r1",  # a 1,024-ray tree: over 48 KB of shared memory
+    "tracking_r4",  # factored, G % R == 0, both margins
+    "sweep_r4", "sweep_r4_dead",  # factored 16 x 8 with the hyper level, both margins
+    "per_ray_r128", "per_ray_r128_dead",  # R = 128 > G = 8: expanded order, margin 0.03
+])
+def test_fused_cull_matches_plain_version(card, case):
+    from rmcl_tpu_torch.ops.cull_cuda import cull_disagreements
+    fn, plain, args = _fused_case(card, case)
+    before = fn.launches
+    k_out = fn(*args)
+    p_out = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1  # one launch a cull; the plain version is not counted
+    assert float(p_out[1].float().mean()) > 1  # the lists are not trivial
+    bad, _ = cull_disagreements(k_out, p_out)
+    assert bad == 0
+
+
+def test_card_casts_run_no_torch_bounds(card, monkeypatch):
+    """On the card the bounds are the kernel's: both engines cast with the
+    plain bounds functions made to raise, one cull launch a cast."""
+    from rmcl_tpu_torch.ops import cull_cuda as cc
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a torch bounds function ran on the card")
+
+    for name in ("_block_bounds", "_subblock_bounds", "_factored_bounds", "_capped_bounds"):
+        monkeypatch.setattr(cc, name, refuse)
+    room = build_bins(MESHES["room"](), bin_size=32, bins_per_super=8, device=card)
+    o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
+    before = cc.cull_rays.launches
+    hits = trb.cast_rays_binned(room, o, d, t_min=t_min, t_max=t_max)
+    assert cc.cull_rays.launches == before + 1 and hits.hit.float().mean() > 0.9
+    bins = _sphere_bins(card)
+    o_blk, d_blk = _sweep_blocks(card)
+    for R, margin in ((4, 0.0), (128, 0.03)):
+        before = cc.cull_factored.launches
+        hits = trb.cast_rays_binned_factored(bins, o_blk, d_blk, c_super=8, c_hyper=4,
+                                             sub_blocks=R, origin_margin=margin)
+        assert cc.cull_factored.launches == before + 1 and hits.hit.float().mean() > 0.99

@@ -256,9 +256,9 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     jb, tb, *_, trans, _, _ = _world()
     _, (to, td) = _blocks(trans)
     k3, k4 = cull_blocks.launches, intersect_factored.launches
-    o_p, d_p, alive, _, chunk, _ = trb._pad_factored_blocks(to, td, None, 512)
+    o_p, d_p, alive, *_ = trb._pad_factored_blocks(to, td, None, 512)
     cand, count, tnear, _ = trb._factored_block_candidates(
-        tb, o_p, d_p, alive, chunk, 0.0, 100.0, 12, 64, 3, 4, 0.0)
+        tb, o_p, d_p, alive, 0.0, 100.0, 12, 64, 3, 4, 0.0)
     args = (tb.tri, o_p, d_p, alive, 0.0, 100.0, cand, count, tnear)
     for a, b in zip(intersect_factored(*args), intersect_factored_reference(*args)):
         assert torch.equal(a, b)

@@ -184,7 +184,7 @@ def test_winner_t_recomputes_the_recorded_t(name):
     jb, tb, origin = _scene(name)
     o, d, tmin, tmax = map(torch.from_numpy, _scan_blocks(origin, 64))
     inputs, _ = trb._kernel_inputs(tb, o.reshape(-1, 3), d.reshape(-1, 3), tmin.reshape(-1),
-                                   tmax.reshape(-1), 64, 24, 96, 256, 4)
+                                   tmax.reshape(-1), 64, 24, 96, 4)
     t_best, ref = intersect_bins(tb.tri, *inputs)
     hit = ref >= 0
     assert hit.float().mean() > 0.9
