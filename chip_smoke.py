@@ -7,9 +7,10 @@ Phases (any failure ends the run with a nonzero exit code):
 
 1. device: the card's name and power limit (nvidia-smi) and the float32
    matmul flags — the normal equations must not run in TF32;
-2. build: the port's three CUDA kernels, compiled by nvcc from
+2. build: the port's six CUDA kernels, compiled by nvcc from
    ``rmcl_tpu_torch/csrc`` in parallel (K1 candidate-bin intersection, K3
-   block cull with its bounds, K4 factored pair loop);
+   block cull with its bounds, K4 factored pair loop, K5 BVH traversal, K6
+   closest point over the BVH, K6b closest point over candidate bins);
 3. K1 vs plain version: the intersection kernel against its plain PyTorch
    version on the same CUDA tensors, for 14,400 VLP-16 rays on the room
    scene (128-ray blocks, and 100-ray blocks whose last warp is partly
@@ -34,7 +35,20 @@ Phases (any failure ends the run with a nonzero exit code):
    hypers -> supers -> bins, one reuse cull per 16-step chain): the
    dataset's hits, ms per correction over three chains, ten iterated
    corrections from +0.2 m z, and K3/K4 against their plain versions with
-   timings and bounds.
+   timings and bounds;
+8. MICP-L on the exact engine and with closest-point correspondences:
+   phase 4's map (now with its BVH), sensor and start pose, ten
+   ``correct_once`` each with CP correspondences on the bins (K6b), RC on
+   the BVH (K5) and CP on the BVH (K6), each held to the JAX package's final
+   error and to one launch a correction; K5, K6 and K6b against their plain
+   versions on the last corrections' inputs (bitwise), and the exact
+   engine's hits against the unbudgeted dense engine's;
+9. the exact engine at the reference benchmark's size: the ~1M-face
+   sphere's BVH, phase 5's 14.4M rays through ``cast_rays`` (K5; t against
+   the dense cast), the noisy hit points' closest points through both
+   engines (K6b, K6; they must agree), ``occluded`` on 1000 particle moves,
+   and each kernel against its plain version on a 262,144-ray or -query
+   slice.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -137,6 +151,47 @@ TRACK_STEPS = 10
 SWEEP_ITERS = 10
 SWEEP_ITER_ERR_MAX = 0.155
 SWEEP_CHAINS = 3
+
+# phase 8: MICP-L on the exact engine and with closest-point correspondences,
+# from phase 4's start pose, max_dist 2.0 m. Each variant is held to the JAX
+# package's own final translation error after ten corrections at the same
+# inputs (scripts/torch_exact_probe.py on the CPU; the port there ends at
+# the same figures), with 0.1 mm of room for the card's other summation order
+EXACT_START = [9.0, 3.0, 1.7, 0.0, 0.0, 0.35]
+EXACT_MAX_DIST = 2.0
+EXACT_ERR_JAX = {"cp_bins": 6.299754286810527e-04, "rc_bvh": 1.1920928955078125e-07,
+                 "cp_bvh": 2.384185791015625e-07}
+EXACT_ERR_SLACK = 1e-4
+# phase 9: the exact engine at the reference benchmark's size; kernel vs
+# plain version on a slice of this many rays or queries
+EXACT_SLICE = 262144
+QUERY_SEED = 9
+QUERY_NOISE = 0.05  # m, N(0, sigma) on each coordinate of a hit point
+QUERY_MAX_DIST = 0.5
+QUERY_BLOCK_CHUNK = 1024  # query blocks per step of the binned engine's candidate cull
+# binned vs exact distances: 1e-5 relative, or 2e-5 m (five float32 spacings
+# at the sphere's 50 m radius, where each engine rounds its own point)
+QUERY_DIST_RTOL = 1e-5
+QUERY_DIST_ATOL = 2e-5
+# K5: float instructions per ray (three guarded reciprocals, 3 each; the
+# entry compare), per internal visit (the slab test: 6 differences, 6
+# products, 3 minima and 3 maxima of the pairs, 2 + 2 for t_near and t_far, 3
+# compares) and per leaf visit (Moller-Trumbore: 9 + 5 for p and det, 2 for
+# its gate, 1 reciprocal, 3 + 6 for u, 9 + 6 for v, 6 for t, 6 for the five
+# tests and u + v)
+OPS_PER_TRAVERSE_RAY = 10
+OPS_PER_SLAB_VISIT = 25
+OPS_PER_MT_VISIT = 53
+# K6: per internal visit (the clamp 6, differences 3, squares and sums 5, a
+# compare) and per leaf visit (Ericson 89: the six dot products 39, va vb vc
+# 9, the face denominator 3 and quotients 2, the edge operands 5 and guarded
+# quotients 9, three clamps 6, the region tests 15, 1 - t; then the point 12,
+# q - p 3, |q - p|^2 5, a compare). K6b: per pair Ericson 89, q - p by
+# differences 15, |.|^2 5; per triangle and visit the padding test 12
+OPS_PER_BOX_VISIT = 15
+OPS_PER_CP_VISIT = 110
+OPS_PER_CP_PAIR = 109
+OPS_PER_CP_TRI = 12
 
 
 def log(msg):
@@ -254,12 +309,17 @@ def compare_kernel(name, tri, inputs):
 
 def wrappers():
     """The kernels' wrappers by name: K3 fused on ray blocks (K3r) and on
-    factored blocks (K3f), and its back end alone (K3b)."""
+    factored blocks (K3f), and its back end alone (K3b); the exact engine's
+    traversal (K5) and closest-point walk (K6), and the binned closest-point
+    loop (K6b)."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh
     from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_factored, cull_rays
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
 
     return {"K1": intersect_bins, "K3r": cull_rays, "K3f": cull_factored, "K3b": cull_blocks,
-            "K4": intersect_factored}
+            "K4": intersect_factored, "K5": traverse_rays, "K6": closest_bvh,
+            "K6b": closest_bins}
 
 
 def reset_counts():
@@ -915,6 +975,383 @@ def phase_sweep():
                 counts=counts)
 
 
+def traverse_bound(visits, n_rays, slots_read):
+    """Least time for K5's work on these inputs: OPS_PER_TRAVERSE_RAY per
+    ray, OPS_PER_SLAB_VISIT per internal visit and OPS_PER_MT_VISIT per leaf
+    visit, against reading the rays and the slots the walk needs (64 bytes
+    each) once and writing t and the slot."""
+    internal, leaf = (float(x) for x in visits.double().sum(0))
+    ops = n_rays * OPS_PER_TRAVERSE_RAY + internal * OPS_PER_SLAB_VISIT + leaf * OPS_PER_MT_VISIT
+    return bound_of(n_rays * (32 + 8) + 64 * slots_read, ops) + (internal + leaf,)
+
+
+def closest_bvh_bound(visits, n_queries, slots_read):
+    """Least time for K6's work: OPS_PER_BOX_VISIT per internal visit and
+    OPS_PER_CP_VISIT per leaf visit, against reading the queries and the
+    slots the walk needs once and writing d2, the point and the slot."""
+    internal, leaf = (float(x) for x in visits.double().sum(0))
+    ops = internal * OPS_PER_BOX_VISIT + leaf * OPS_PER_CP_VISIT
+    return bound_of(n_queries * (16 + 20) + 64 * slots_read, ops) + (internal + leaf,)
+
+
+def closest_bins_bound(inputs, best_key, B):
+    """Least time for K6b's work: per visited candidate (slot < count and
+    dlb <= the block's final worst key), its Rq x B pairs at
+    OPS_PER_CP_PAIR and its B triangles at OPS_PER_CP_TRI, against its
+    triangles' bytes, the queries and the keys."""
+    qb, d2b, cand, count, dlb = inputs
+    jmask = B - 1
+    worst = ((best_key.amax(dim=1) | jmask).view(torch.float32))[:, None]
+    slot = torch.arange(cand.shape[1], device=cand.device)[None, :]
+    visits = float(((slot < count[:, None]) & (dlb <= worst)).sum())
+    Rq = qb.shape[1]
+    ops = visits * B * (Rq * OPS_PER_CP_PAIR + OPS_PER_CP_TRI)
+    bytes_moved = visits * (9 * B * 4 + 8) + qb.shape[0] * Rq * (16 + 8) + count.numel() * 4
+    return bound_of(bytes_moved, ops) + (visits,)
+
+
+def check_traverse(name, bvh, rays, bound_rays=None):
+    """K5 against its plain version on the same CUDA tensors (t_best, slot
+    and each ray's visits bitwise), with timings and the bound; the bound
+    counts the slots the plain version read."""
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, traverse_rays_reference
+
+    launches = traverse_rays.launches
+    k = traverse_rays(bvh.nodes, bvh.root_link, *rays, visits=True)
+    seen = torch.zeros(bvh.n_slots, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = traverse_rays_reference(bvh.nodes, bvh.root_link, *rays, visits=True, seen=seen)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if traverse_rays.launches != launches + 1:
+        fail(f"{name}: K5 did not launch")
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        bad = int((k[1] != p[1]).sum()) + int((k[0] != p[0]).sum())
+        fail(f"{name}: K5 and its plain version disagree ({bad} t or slot differences)")
+    out = dict(max_abs_err=float((k[0] - p[0]).abs().max()), bitwise=True,
+               hit_frac=float((k[1] >= 0).float().mean()), plain_ms=plain_ms,
+               slots_read=int(seen.sum()))
+    out["ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, *rays), reps=3)
+    out["bound_ms"], out["bound_by"], out["visits"] = traverse_bound(k[2], rays[0].shape[0],
+                                                                     out["slots_read"])
+    return out
+
+
+def check_closest_bvh(name, bvh, q, max_d2):
+    """K6 against its plain version (best d2, point, slot and visits
+    bitwise), with timings and the bound."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference
+
+    launches = closest_bvh.launches
+    k = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+    seen = torch.zeros(bvh.n_slots, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True, seen=seen)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if closest_bvh.launches != launches + 1:
+        fail(f"{name}: K6 did not launch")
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        fail(f"{name}: K6 and its plain version disagree "
+             f"({int((k[2] != p[2]).sum())} slots, {int((k[0] != p[0]).sum())} distances)")
+    out = dict(max_abs_err=float((k[0] - p[0]).abs().max()), bitwise=True, plain_ms=plain_ms,
+               found_frac=float((k[2] >= 0).float().mean()), slots_read=int(seen.sum()))
+    out["ms"] = cuda_ms(lambda: closest_bvh(bvh.nodes, bvh.root_link, q, max_d2), reps=3)
+    out["bound_ms"], out["bound_by"], out["visits"] = closest_bvh_bound(k[3], q.shape[0],
+                                                                        out["slots_read"])
+    return out
+
+
+def check_closest_bins(name, tri, inputs, plain_blocks=None):
+    """K6b against its plain version (keys and bins bitwise) on the first
+    ``plain_blocks`` blocks (all by default); the kernel is timed on all
+    of them, with the bound."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bins_reference
+
+    part = inputs if plain_blocks is None else tuple(x[:plain_blocks] for x in inputs)
+    launches = closest_bins.launches
+    k = closest_bins(tri, *part)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = closest_bins_reference(tri, *part)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if closest_bins.launches != launches + 1:
+        fail(f"{name}: K6b did not launch")
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        fail(f"{name}: K6b and its plain version disagree ({int((k[0] != p[0]).sum())} keys, "
+             f"{int((k[1] != p[1]).sum())} bins)")
+    key = k[0] if plain_blocks is None else closest_bins(tri, *inputs)[0]
+    out = dict(max_abs_err=0.0, bitwise=True, plain_ms=plain_ms,
+               plain_queries=part[0].shape[0] * part[0].shape[1])
+    out["ms"] = cuda_ms(lambda: closest_bins(tri, *inputs), reps=3)
+    out["bound_ms"], out["bound_by"], out["visits"] = closest_bins_bound(inputs, key,
+                                                                         tri.shape[2])
+    return out
+
+
+def exact_line(name, r, what):
+    return (f"{name}: kernel = plain version bitwise; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.1f} ms (one run{', ' + what if what else ''}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['visits']:.0f} visits), roofline "
+            f"{r['bound_ms'] / r['ms']:.2%}")
+
+
+def cp_budget_need(bins, q, max_dist, Rq=128, chunk=2048):
+    """Per query block of the binned closest-point engine (cluster order,
+    blocks of Rq): how many supers and bins lie within max_dist of its box,
+    i.e. the c_super and c_bin a block needs for its list to be complete.
+    Returns the two per-block counts."""
+    from rmcl_tpu_torch.ops.closest_point import _box_box_d2
+    from rmcl_tpu_torch.ops.order import cluster_order
+
+    order, _ = cluster_order(q, None)
+    qs = q[order.long()]
+    pad = (-qs.shape[0]) % Rq
+    qb = torch.cat([qs, qs.new_zeros((pad, 3))]).reshape(-1, Rq, 3)  # padded as the engine pads
+    qlo, qhi = qb.amin(dim=1), qb.amax(dim=1)
+    cap = float(np.float32(max_dist) * np.float32(max_dist))
+    need = [[], []]
+    for s in range(0, qb.shape[0], chunk):
+        lo, hi = qlo[s:s + chunk, None], qhi[s:s + chunk, None]
+        for k, boxes in enumerate((bins.super_aabb, bins.bin_aabb)):
+            need[k].append((_box_box_d2(lo, hi, boxes[None, :, :3], boxes[None, :, 3:]) <= cap)
+                           .sum(dim=1))
+    return torch.cat(need[0]), torch.cat(need[1])
+
+
+def phase_exact_main_path(main_r):
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.micp.pipeline import MICPSensorConfig, correct_once
+    from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
+    from rmcl_tpu_torch.ops.order import cluster_order
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+    from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+
+    bmap, model, sensor = main_r["bmap"], main_r["model"], main_r["sensor"]
+    true_pose, config = main_r["true_pose"], main_r["config"]
+    tbo = Transform.identity()
+    variants = (("cp_bins", "CP on the bins", bmap.bins, "CP", "K6b"),
+                ("rc_bvh", "RC on the BVH", bmap.bvh, "RC", "K5"),
+                ("cp_bvh", "CP on the BVH", bmap.bvh, "CP", "K6"))
+    runs = {}
+    for key, label, structure, corr, kernel in variants:
+        s = dataclasses.replace(sensor, config=MICPSensorConfig.create(max_dist=EXACT_MAX_DIST,
+                                                                       corr_type=corr))
+        correct_once(structure, [s], true_pose, tbo, 0.0, config)  # warm-up, not counted
+        torch.cuda.synchronize()
+        tom = Transform.from_pose_tuple(EXACT_START)
+        progress = torch.zeros((), device="cuda")
+        times = []
+        reset_counts()
+        for _ in range(N_CORRECTIONS):
+            t = time.perf_counter()
+            tom, stats = correct_once(structure, [s], tom, tbo, progress, config)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            progress = stats.convergence_progress
+        counts = read_counts()
+        err = float(torch.linalg.vector_norm(tom.trans - true_pose.trans))
+        log(f"phase 8 {label}: {N_CORRECTIONS} corrections x {model.n_rays} rays, median "
+            f"{statistics.median(times):.3f} ms/correction (min {min(times):.3f}), final |dt| "
+            f"{err:.3e} m (JAX on the CPU: {EXACT_ERR_JAX[key]:.3e} m), matches "
+            f"{float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}; launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        if not (err <= EXACT_ERR_JAX[key] + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
+            fail(f"phase 8 {label}: final translation error {err} m, JAX's {EXACT_ERR_JAX[key]} m")
+        if counts[kernel] != N_CORRECTIONS:
+            fail(f"phase 8 {label}: {kernel} launched {counts[kernel]} times in "
+                 f"{N_CORRECTIONS} corrections (one a correction expected)")
+        runs[key] = dict(tom=tom, ms=statistics.median(times), err=err, launches=counts[kernel],
+                         sensor=s)
+
+    # K5 on the last RC correction's rays
+    o_s, d_s = model.rays("cuda")
+    n = o_s.shape[0]
+    lim = (torch.full((n,), model.range.min, device="cuda"),
+           torch.full((n,), model.range.max, device="cuda"))
+    tsm = (runs["rc_bvh"]["tom"] @ tbo) @ sensor.tsb
+    r5 = check_traverse("phase 8 K5", bmap.bvh, (tsm.apply(o_s), tsm.rotate(d_s), *lim))
+    log(exact_line("phase 8 K5 on the last RC correction's rays", r5,
+                   f"{r5['slots_read']} of {bmap.bvh.n_slots} slots read"))
+    # K6 on the last CP correction's queries (find_cpc's map-frame points)
+    tsm = (runs["cp_bvh"]["tom"] @ tbo) @ sensor.tsb
+    q = tsm.apply(sensor.points).contiguous()
+    r6 = check_closest_bvh("phase 8 K6", bmap.bvh, q, _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda"))
+    log(exact_line("phase 8 K6 on the last CP correction's queries", r6,
+                   f"{r6['slots_read']} slots read"))
+    # K6b on the last CP-on-bins correction's query blocks (cluster order)
+    tsm = (runs["cp_bins"]["tom"] @ tbo) @ sensor.tsb
+    q = tsm.apply(sensor.points)
+    order, _ = cluster_order(q, None)
+    inputs = binned_inputs(bmap.bins, q[order.long()],
+                           _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19),
+                           c_super=config.c_super, c_bin=config.c_bin)
+    r6b = check_closest_bins("phase 8 K6b", bmap.bins.tri, inputs)
+    log(exact_line(f"phase 8 K6b on the last CP-on-bins correction's {inputs[0].shape[0]} "
+                   "blocks", r6b, ""))
+
+    # the exact engine recovers what the dense engine's budgets drop
+    o, d = true_pose.apply(o_s), true_pose.rotate(d_s)
+    exact = cast_rays(bmap.bvh, o, d, t_min=lim[0], t_max=lim[1])
+    bins = bmap.bins
+    free = cast_rays_binned(bins, o, d, lim[0], lim[1], c_super=bins.n_super,
+                            c_bin=bins.n_super * bins.bins_per_super)
+    capped = cast_rays_binned(bins, o, d, lim[0], lim[1], c_super=config.c_super,
+                              c_bin=config.c_bin)
+    hit, hit_free = float(exact.hit.float().mean()), float(free.hit.float().mean())
+    log(f"phase 8 hits at the true pose: exact (K5) {hit:.6f}, dense with no budget "
+        f"{hit_free:.6f}, dense at the default budgets {float(capped.hit.float().mean()):.6f}; "
+        f"{int((exact.hit != free.hit).sum())} rays differ between exact and unbudgeted")
+    if not abs(hit - hit_free) <= 0.001:
+        fail(f"phase 8: the exact engine hits {hit:.6f}, the unbudgeted dense engine {hit_free:.6f}")
+    for key, r in (("rc_bvh", r5), ("cp_bvh", r6), ("cp_bins", r6b)):
+        r.update(launches=runs[key]["launches"], correction_ms=runs[key]["ms"],
+                 err=runs[key]["err"])
+    return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit, hit_frac_unbudgeted=hit_free,
+                runs={k: dict(ms=v["ms"], err=v["err"]) for k, v in runs.items()})
+
+
+def phase_exact_reference_size(sphere_mesh, sphere_bins):
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.math.se3 import Quaternion, Transform
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh
+    from rmcl_tpu_torch.ops.closest_point import (_max_d2, binned_inputs, closest_points,
+                                                  closest_points_binned)
+    from rmcl_tpu_torch.ops.order import cluster_order
+    from rmcl_tpu_torch.ops.raycast import cast_rays, occluded
+    from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+
+    t0 = time.perf_counter()
+    bvh = build_bvh(sphere_mesh)
+    torch.cuda.synchronize()
+    log(f"phase 9 map: sphere BVH {bvh.n_slots} slots, {bvh.nbytes() / 1e6:.1f} MB, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model = SphericalModel.vlp16()
+    trans = np.random.default_rng(0).uniform(-5, 5, size=(N_POSES, 3)).astype(np.float32)
+    tsm = Transform(rot=Quaternion.identity((N_POSES,), "cuda"),
+                    trans=torch.from_numpy(trans).cuda()).expand_dims(-1)
+    o_s, d_s = model.rays("cuda")
+    o = tsm.apply(o_s).reshape(-1, 3).contiguous()
+    d = tsm.rotate(d_s).reshape(-1, 3).contiguous()
+    n = o.shape[0]
+    lim = dict(t_min=model.range.min, t_max=model.range.max)
+    cast_rays(bvh, o[:1024], d[:1024], **lim)  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # the main drive: the cast, then the noisy hit points' closest points
+    reset_counts()
+    t = time.perf_counter()
+    hits = cast_rays(bvh, o, d, **lim)
+    torch.cuda.synchronize()
+    cast_ms = (time.perf_counter() - t) * 1e3
+    hit_frac = float(hits.hit.float().mean())
+    pts = hits.point[hits.hit]
+    noise = np.random.default_rng(QUERY_SEED).normal(0.0, QUERY_NOISE, size=tuple(pts.shape))
+    q = (pts + torch.from_numpy(noise.astype(np.float32)).cuda()).contiguous()
+    # budgets under which no query block's candidate list is cut: a cut list
+    # may give a farther point (the binned engine's budget contract), which
+    # the comparison with the exact engine below would count as a fault
+    need_s, need_b = cp_budget_need(sphere_bins, q, QUERY_MAX_DIST)
+    c_super, c_bin = int(need_s.max()), int(need_b.max())
+    log(f"phase 9 closest-point budgets: blocks need at most {c_super} supers and {c_bin} bins "
+        f"(mean {float(need_s.float().mean()):.2f}, {float(need_b.float().mean()):.2f}); at the "
+        f"defaults 24 and 96, {int(((need_s > 24) | (need_b > 96)).sum())} of {need_s.numel()} "
+        f"blocks would be cut")
+    t = time.perf_counter()
+    cp_bins = closest_points_binned(sphere_bins, q, max_dist=QUERY_MAX_DIST, c_super=c_super,
+                                    c_bin=c_bin, block_chunk=QUERY_BLOCK_CHUNK)
+    torch.cuda.synchronize()
+    bins_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    cp_exact = closest_points(bvh, q, max_dist=QUERY_MAX_DIST)
+    torch.cuda.synchronize()
+    exact_ms = (time.perf_counter() - t) * 1e3
+    # occlusion of 1000 particle moves: from each pose, 0-70 m in a random
+    # direction; a segment that ends outside the sphere crosses it
+    rng = np.random.default_rng(QUERY_SEED + 1)
+    step = rng.normal(size=(N_POSES, 3))
+    step *= rng.uniform(0.0, 70.0, (N_POSES, 1)) / np.linalg.norm(step, axis=1, keepdims=True)
+    ends = torch.from_numpy((trans + step).astype(np.float32)).cuda()
+    blocked = occluded(bvh, torch.from_numpy(trans).cuda(), ends)
+    torch.cuda.synchronize()
+    counts = read_counts()
+
+    log(f"phase 9 exact cast: {n} rays ({N_POSES} poses x VLP-16) on {int(bvh.n_tris)} tris in "
+        f"{cast_ms:.2f} ms, hits {hit_frac:.6f}; closest points of {q.shape[0]} noisy hit points "
+        f"(sigma {QUERY_NOISE} m, max_dist {QUERY_MAX_DIST} m): binned {bins_ms:.2f} ms, exact "
+        f"{exact_ms:.2f} ms; launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if not hit_frac >= 0.999:
+        fail(f"phase 9: only {hit_frac:.6f} of rays hit the sphere")
+    for k, want in (("K5", 2), ("K6b", 1), ("K6", 1)):  # K5: the cast and occluded
+        if counts[k] != want:
+            fail(f"phase 9: {k} launched {counts[k]} times ({want} expected)")
+
+    # the dense engine on the same rays: t agrees where both hit
+    dense = cast_rays_binned(sphere_bins, o, d, block_size=CAST_BLOCK_SIZE, **lim)
+    both = hits.hit & dense.hit
+    rel = ((hits.t[both] - dense.t[both]).abs() / dense.t[both]).max()
+    log(f"phase 9 exact vs dense: t max relative difference {float(rel):.3g} on {int(both.sum())} "
+        f"rays both hit; the dense engine hits {float(dense.hit.float().mean()):.6f}")
+    if not float(rel) <= 1e-4:
+        fail(f"phase 9: exact and dense t differ by {float(rel)} relative")
+    del dense, both
+    # the two closest-point engines agree
+    f_b, f_e = cp_bins.found, cp_exact.found
+    found = f_b & f_e
+    diff = (cp_bins.dist[found] - cp_exact.dist[found]).abs()
+    tol = QUERY_DIST_RTOL * cp_exact.dist[found] + QUERY_DIST_ATOL
+    log(f"phase 9 binned vs exact closest points: found {float(f_e.float().mean()):.6f} (exact), "
+        f"{int((f_b != f_e).sum())} found flags differ, dist max difference "
+        f"{float(diff.max()):.3g} m, {int((diff > tol).sum())} beyond {QUERY_DIST_RTOL} relative "
+        f"+ {QUERY_DIST_ATOL} m")
+    if not torch.equal(f_b, f_e) or bool((diff > tol).any()):
+        fail("phase 9: the binned and exact closest points disagree")
+    r_end = torch.linalg.vector_norm(ends, dim=1)
+    outside, inside = r_end > 50.5, r_end < 49.5
+    log(f"phase 9 occluded: {int(blocked.sum())} of {N_POSES} moves blocked; {int(outside.sum())} "
+        f"end outside the sphere, {int(inside.sum())} inside")
+    if not (bool(blocked[outside].all()) and not bool(blocked[inside].any())):
+        fail("phase 9: occluded disagrees with the sphere's geometry")
+    del cp_bins, cp_exact, hits
+
+    # each kernel against its plain version on a slice; timed on all
+    S = EXACT_SLICE
+    t_lo = torch.full((n,), model.range.min, device="cuda")
+    t_hi = torch.full((n,), model.range.max, device="cuda")
+    r5 = check_traverse("phase 9 K5", bvh, (o[:S], d[:S], t_lo[:S], t_hi[:S]))
+    _, _, visits = traverse_rays(bvh.nodes, bvh.root_link, o, d, t_lo, t_hi, visits=True)
+    r5["ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, o, d, t_lo, t_hi), reps=3)
+    # the slots the slice's walks read: a floor for the whole cast's
+    r5["bound_ms"], r5["bound_by"], r5["visits"] = traverse_bound(visits, n, r5["slots_read"])
+    log(exact_line(f"phase 9 K5 ({n} rays; plain version on the first {S})", r5,
+                   f"{S} rays"))
+    max_d2 = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda")
+    r6 = check_closest_bvh("phase 9 K6", bvh, q[:S].contiguous(), max_d2[:S])
+    _, _, _, cvis = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+    r6["ms"] = cuda_ms(lambda: closest_bvh(bvh.nodes, bvh.root_link, q, max_d2), reps=3)
+    r6["bound_ms"], r6["bound_by"], r6["visits"] = closest_bvh_bound(cvis, q.shape[0],
+                                                                      r6["slots_read"])
+    log(exact_line(f"phase 9 K6 ({q.shape[0]} queries; plain version on the first {S})", r6,
+                   f"{S} queries"))
+    order, _ = cluster_order(q, None)
+    inputs = binned_inputs(sphere_bins, q[order.long()],
+                           _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19),
+                           c_super=c_super, c_bin=c_bin, block_chunk=QUERY_BLOCK_CHUNK)
+    r6b = check_closest_bins("phase 9 K6b", sphere_bins.tri, inputs,
+                             plain_blocks=S // inputs[0].shape[1])
+    log(exact_line(f"phase 9 K6b ({inputs[0].shape[0]} blocks; plain version on the first "
+                   f"{r6b['plain_queries']} queries)", r6b, f"{r6b['plain_queries']} queries"))
+    return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit_frac, cast_ms=cast_ms, bins_ms=bins_ms,
+                exact_ms=exact_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test drives the port on the card")
@@ -925,7 +1362,8 @@ def main():
     from rmcl_tpu_torch.geom.mesh import make_sphere
 
     t0 = time.perf_counter()
-    sphere = build_bins(make_sphere(SPHERE_LAT_LON, SPHERE_LAT_LON, radius=50.0), bin_size=64)
+    sphere_mesh = make_sphere(SPHERE_LAT_LON, SPHERE_LAT_LON, radius=50.0)
+    sphere = build_bins(sphere_mesh, bin_size=64)
     torch.cuda.synchronize()
     log(f"sphere map: {sphere.n_bins} bins of {sphere.bin_size}, "
         f"{sphere.tri.numel() * 4 / 1e6:.1f} MB packed, built in {time.perf_counter() - t0:.2f} s")
@@ -933,9 +1371,10 @@ def main():
     phase_kernel_vs_plain(sphere)
     main_r = phase_main_path()
     phase_reference_cast(sphere)
-    del sphere
     phase_tracking(main_r)
     sweep_r = phase_sweep()
+    exact_r = phase_exact_main_path(main_r)
+    phase_exact_reference_size(sphere_mesh, sphere)
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -954,6 +1393,12 @@ def main():
         k3_row("cull_factored", "rmcl_tpu/ops/raycast_binned.py:1370", sweep_r["k3"]),
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),
+        dict(row("traverse_rays", "rmcl_tpu_torch/csrc/traverse_bvh.cu",
+                 "rmcl_tpu/ops/raycast.py:73", exact_r["k5"]), bitwise=True),
+        dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
+                 "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True),
+        dict(row("closest_bins", "rmcl_tpu_torch/csrc/closest_bins.cu",
+                 "rmcl_tpu/ops/closest_point.py:445", exact_r["k6b"]), bitwise=True),
     ]}))
     log(f"card: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

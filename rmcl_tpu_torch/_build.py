@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/rmcl_tpu_torch/<name>-<hash>.so``
 next to the package, and loaded with ctypes. The file name carries a hash
-of the source and the flags, so an edited source is never served a stale
-library. Nothing is built at import: the first launch on a CUDA tensor
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is never served a stale library. Nothing is built at import: the first launch on a CUDA tensor
 builds.
 """
 
@@ -44,7 +44,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the shared headers too: an edited header must not be served a stale library
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,4 +1,4 @@
-"""Carry state across from arrays: the map's bins and poses.
+"""Carry state across from arrays: the map's bins, its BVH and poses.
 
 The system has no weights; its state is the map. These helpers build the
 port's objects from plain numpy arrays — for example the fields of another
@@ -15,6 +15,8 @@ import torch
 
 from rmcl_tpu_torch._device import resolve_device
 from rmcl_tpu_torch.bvh.bins import TriangleBins
+from rmcl_tpu_torch.bvh.builder import bvh_on_device
+from rmcl_tpu_torch.bvh.types import BVH
 from rmcl_tpu_torch.math.se3 import Transform
 
 _BIN_FIELDS = ("tri", "bin_aabb", "super_aabb", "aabb_min", "aabb_max",
@@ -38,6 +40,21 @@ def bins_from_arrays(arrays: Dict[str, Optional[np.ndarray]], *, bins_per_super:
         bins_per_mid=int(bins_per_mid),
         supers_per_hyper=int(supers_per_hyper),
     )
+
+
+def bvh_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> BVH:
+    """``BVH`` from its fields as numpy arrays (``nodes``, ``root_link``,
+    ``aabb_min``, ``aabb_max``, ``n_tris``). The slot table's bits are
+    copied as they are: its link and id words are int32 patterns that a
+    float conversion could alter."""
+    unknown = set(arrays) - {"nodes", "root_link", "aabb_min", "aabb_max", "n_tris"}
+    if unknown:
+        raise ValueError(f"unknown BVH fields {sorted(unknown)}")
+    nodes = np.asarray(arrays["nodes"])
+    if nodes.dtype != np.float32 or nodes.ndim != 2 or nodes.shape[1] != 16:
+        raise ValueError(f"nodes must be (N, 16) float32, got {nodes.shape} {nodes.dtype}")
+    return bvh_on_device(nodes, arrays["root_link"], arrays["aabb_min"], arrays["aabb_max"],
+                         arrays["n_tris"], device=device)
 
 
 def transform_from_arrays(rot: np.ndarray, trans: np.ndarray, device="cuda") -> Transform:

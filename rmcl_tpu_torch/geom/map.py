@@ -1,8 +1,10 @@
 """Map container: mesh + acceleration structures under one handle.
 
-Counterpart of ``rmcl_tpu.geom.map.MeshMap``. Only the triangle bins of the
-dense binned engine are built: the exact BVH engine is not ported yet, so
-``bvh`` stays ``None``.
+Counterpart of ``rmcl_tpu.geom.map.MeshMap``. One map carries both device
+structures, so a pipeline picks the engine per query type:
+
+  * ``bvh``  — threaded BVH for exact traversal and closest-point queries
+  * ``bins`` — triangle bins for the dense binned engine
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import dataclasses
 from typing import Optional
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins, build_bins
+from rmcl_tpu_torch.bvh.builder import build_bvh
+from rmcl_tpu_torch.bvh.types import BVH
 from rmcl_tpu_torch.geom.mesh import TriangleMesh, load_mesh
 
 
@@ -19,7 +23,7 @@ class MeshMap:
     """A loaded map: host mesh + device acceleration structures."""
 
     mesh: TriangleMesh
-    bvh: None
+    bvh: BVH
     bins: TriangleBins
     name: str = "map"
 
@@ -43,7 +47,7 @@ class MeshMap:
                 f //= 2
         return MeshMap(
             mesh=mesh,
-            bvh=None,
+            bvh=build_bvh(mesh, device=device),
             bins=build_bins(mesh, bin_size=bin_size,
                             bins_per_super=bins_per_super,
                             supers_per_hyper=supers_per_hyper,

@@ -6,10 +6,12 @@ Gauss-Newton (or Umeyama) iterations over the pre-transformed statistics,
 with adaptive max-dist annealing from the convergence progress and a NaN
 guard on the new pose (reference micp_localization.cpp:856-1016).
 
-The normal-equation and covariance sums are broadcast products summed over
-the points, so they stay in full float32 on the card (the JAX package asks
-for ``Precision.HIGHEST``). Closest-point correspondences and the sharded
-reduction are not ported yet.
+Correspondences are ray-cast (``corr_type="RC"``) or closest-point
+(``"CP"``), found on a ``BVH`` (the exact engine) or on ``TriangleBins``
+(the dense binned engine). The normal-equation and covariance sums are
+broadcast products summed over the points, so they stay in full float32 on
+the card (the JAX package asks for ``Precision.HIGHEST``). The sharded
+reduction is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ import numpy as np
 import torch
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins
+from rmcl_tpu_torch.bvh.types import BVH
 from rmcl_tpu_torch.math.gaussian import CrossStatistics
 from rmcl_tpu_torch.math.se3 import Quaternion, Transform
 from rmcl_tpu_torch.math.stats import umeyama_transform
-from rmcl_tpu_torch.micp.correspondences import Correspondences, find_rcc
+from rmcl_tpu_torch.micp.correspondences import Correspondences, find_cpc, find_rcc
 from rmcl_tpu_torch.sensors.models import SensorModel
 
 Tensor = torch.Tensor
@@ -142,24 +145,31 @@ def _annealed_max_dist(cfg: MICPSensorConfig, progress: Tensor, enabled: bool):
     return cfg.max_dist * (1.0 - progress) + cfg.adaptive_max_dist_min * progress
 
 
-def find_correspondences(bins: TriangleBins, sensors: Sequence[MICPSensorData],
-                         tbm: Transform, c_super: int = 24,
+def find_correspondences(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
+                         tbm: Transform, chunk_size: int = 262144, c_super: int = 24,
                          c_bin: int = 96) -> Tuple[Correspondences, ...]:
-    """One ray-cast correspondence search per sensor from the pose estimate."""
+    """One correspondence search per sensor from the pose estimate: closest
+    points for a ``"CP"`` sensor (gated at its ``max_dist``), a ray cast
+    otherwise."""
     out = []
     for s in sensors:
-        if s.config.corr_type != "RC":
-            raise NotImplementedError(
-                f"correspondence type {s.config.corr_type!r} is not ported yet")
-        out.append(find_rcc(bins, s.model, tbm @ s.tsb, c_super=c_super, c_bin=c_bin))
+        tsm = tbm @ s.tsb
+        if s.config.corr_type == "CP":
+            out.append(find_cpc(bvh, s.points, s.mask, tsm, s.config.max_dist,
+                                chunk_size=chunk_size, c_super=c_super, c_bin=c_bin))
+        else:
+            out.append(find_rcc(bvh, s.model, tsm, chunk_size=chunk_size, c_super=c_super,
+                                c_bin=c_bin))
     return tuple(out)
 
 
-def correct_once(bins: TriangleBins, sensors: Sequence[MICPSensorData],
+def correct_once(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
                  tom: Transform, tbo: Transform, convergence_progress,
-                 config: MICPConfig = MICPConfig()) -> Tuple[Transform, MICPStats]:
-    """One full correction: ray cast → K solver iterations → new Tom."""
-    corrs = find_correspondences(bins, sensors, tom @ tbo,
+                 config: MICPConfig = MICPConfig(),
+                 chunk_size: int = 262144) -> Tuple[Transform, MICPStats]:
+    """One full correction: correspondences → K solver iterations → new Tom.
+    ``bvh`` is the map's ``BVH`` or its ``TriangleBins``."""
+    corrs = find_correspondences(bvh, sensors, tom @ tbo, chunk_size=chunk_size,
                                  c_super=config.c_super, c_bin=config.c_bin)
     return correct_from_correspondences(sensors, corrs, tom, tbo,
                                         convergence_progress, config)

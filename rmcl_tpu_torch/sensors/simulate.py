@@ -1,34 +1,44 @@
-"""Sensor simulation: pose x sensor model x triangle bins → simulated hits.
+"""Sensor simulation: pose x sensor model x map → simulated hits.
 
-Counterpart of ``rmcl_tpu.sensors.simulate.simulate`` on the dense binned
-engine. Results are returned in the **sensor frame**, like rmagine's
-simulators. The exact BVH engine is not ported yet.
+Counterpart of ``rmcl_tpu.sensors.simulate``. The acceleration structure
+picks the engine: a ``BVH`` takes the exact traversal
+(:func:`rmcl_tpu_torch.ops.raycast.cast_rays`), ``TriangleBins`` the dense
+binned engine. Results are returned in the **sensor frame**, like
+rmagine's simulators.
 """
 
 from __future__ import annotations
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins
+from rmcl_tpu_torch.bvh.types import BVH
 from rmcl_tpu_torch.math.se3 import Transform
-from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits
+from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, cast_rays
 from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
 from rmcl_tpu_torch.sensors.models import SensorModel
 
 
-def simulate(bins: TriangleBins, model: SensorModel, tsm: Transform,
-             **binned_kw) -> RayHits:
+def simulate(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
+             chunk_size: int = 262144, **binned_kw) -> RayHits:
     """Simulate the sensor at pose(s) ``tsm`` (sensor→map).
 
     ``tsm`` may be batched: batch shape P gives hits of shape (P..., n_rays).
     Points and normals come back in the sensor frame. ``binned_kw`` goes to
-    :func:`cast_rays_binned` (``c_super``, ``c_bin``, ``block_chunk``, ...)."""
-    if not isinstance(bins, TriangleBins):
-        raise NotImplementedError("only the binned engine (TriangleBins) is ported yet")
-    o_s, d_s = model.rays(bins.device)  # (N, 3) sensor frame
+    :func:`cast_rays_binned` (``c_super``, ``c_bin``, ``block_chunk``, ...)
+    when ``bvh`` is bins; ``chunk_size`` to :func:`cast_rays` when it is a
+    BVH."""
+    if not isinstance(bvh, (BVH, TriangleBins)):
+        raise TypeError(f"simulate needs a BVH or TriangleBins, got {type(bvh).__name__}")
+    dev = bvh.device
+    o_s, d_s = model.rays(dev)  # (N, 3) sensor frame
     tsm_b = tsm.expand_dims(-1) if tsm.batch_shape else tsm
     o_m = tsm_b.apply(o_s)
     d_m = tsm_b.rotate(d_s)
-    hits = cast_rays_binned(bins, o_m, d_m, t_min=model.range.min,
-                            t_max=min(model.range.max, NO_HIT_T), **binned_kw)
+    t_max = min(model.range.max, NO_HIT_T)
+    if isinstance(bvh, TriangleBins):
+        hits = cast_rays_binned(bvh, o_m, d_m, t_min=model.range.min, t_max=t_max, **binned_kw)
+    else:
+        hits = cast_rays(bvh, o_m, d_m, t_min=model.range.min, t_max=t_max,
+                         chunk_size=chunk_size)
     # fold back into the sensor frame
     inv = tsm_b.inverse()
     hit3 = hits.hit[..., None]
@@ -40,3 +50,10 @@ def simulate(bins: TriangleBins, model: SensorModel, tsm: Transform,
         point=inv.apply(hits.point).where(hit3, 0.0),
         normal=inv.rotate(hits.normal).where(hit3, 0.0),
     )
+
+
+def simulate_ranges(bvh: BVH, model: SensorModel, tsm: Transform, miss_value: float = 0.0,
+                    chunk_size: int = 262144):
+    """Range image only; misses mapped to ``miss_value`` (differentiable)."""
+    hits = simulate(bvh, model, tsm, chunk_size=chunk_size)
+    return hits.t.where(hits.hit, miss_value)

@@ -17,6 +17,7 @@ from rmcl_tpu.bvh.bins import build_bins as j_build_bins
 from rmcl_tpu.geom import mesh as jm
 from rmcl_tpu.sensors import models as jmodels
 from rmcl_tpu_torch.bvh.bins import build_bins as t_build_bins
+from rmcl_tpu_torch.bvh.builder import validate_bvh
 from rmcl_tpu_torch.geom import mesh as tm
 from rmcl_tpu_torch.geom.map import MeshMap
 from rmcl_tpu_torch.sensors import models as tmodels
@@ -86,7 +87,11 @@ def test_build_bins_bitwise(numpy_bin_order, scene, bin_size, bps):
 def test_mesh_map_bins_and_device_rule(monkeypatch):
     mesh = tm.make_room_scene(n_pillars=2, seed=1)
     mm = MeshMap.from_mesh(mesh, device="cpu")
-    assert mm.bvh is None and mm.name == "room"
+    assert mm.name == "room"
+    # the map carries the exact engine's BVH too: every face a leaf
+    assert mm.bvh.n_slots == 2 * mesh.n_faces - 1 and int(mm.bvh.n_tris) == mesh.n_faces
+    assert mm.bvh.nodes.device.type == "cpu"
+    assert validate_bvh(mm.bvh)["n_leaves"] == mesh.n_faces
     assert mm.bins.bin_size == 64 and mm.bins.tri.device.type == "cpu"
     # with no card, the default device raises instead of falling to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

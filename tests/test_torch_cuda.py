@@ -458,3 +458,184 @@ def test_card_casts_run_no_torch_bounds(card, monkeypatch):
         hits = trb.cast_rays_binned_factored(bins, o_blk, d_blk, c_super=8, c_hyper=4,
                                              sub_blocks=R, origin_margin=margin)
         assert cc.cull_factored.launches == before + 1 and hits.hit.float().mean() > 0.99
+
+
+# --- the exact engine: BVH traversal (K5), closest point over the BVH (K6)
+# and over candidate bins (K6b) ---
+
+
+def _exact_mesh(name):
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+
+    return make_building_scene(subdiv=4) if name == "building" else MESHES[name]()
+
+
+def _points_in(mesh, dev, n, seed, grow):
+    """n points uniform in the mesh's AABB scaled about its centre by
+    1 + grow (negative: shrunk)."""
+    lo, hi = mesh.aabb()
+    c, h = (lo + hi) / 2, (hi - lo) / 2 * (1.0 + grow)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(c - h, c + h, (n, 3)).astype(np.float32)).to(dev)
+
+
+def _scattered_rays(mesh, dev, n=4096, seed=5):
+    o = _points_in(mesh, dev, n, seed, -0.2)
+    rng = np.random.default_rng(seed + 1)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::97, 0] = -1e-25  # tiny negative components take the +1e20 reciprocal
+    return o, torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("mesh,case", [
+    ("room", "scan"),
+    ("room", "scattered"),
+    ("sphere", "scan"),
+    ("building", "scattered"),
+    ("room", "entry"),  # t_max <= t_min on every third ray: nothing visited
+    ("building", "t_min"),  # t_min > 0 starts behind near surfaces
+])
+def test_traverse_kernel_matches_plain_version(card, mesh, case):
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, traverse_rays_reference
+
+    m = _exact_mesh(mesh)
+    bvh = build_bvh(m, device=card)
+    if case == "scan":
+        o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
+    else:
+        o, d = _scattered_rays(m, card)
+        t_min = torch.zeros(o.shape[0], device=card)
+        t_max = torch.full((o.shape[0],), 3.0e38, device=card)
+    if case == "entry":
+        t_max[::3] = t_min[::3]
+    if case == "t_min":
+        t_min.fill_(0.75)
+    before = traverse_rays.launches
+    k = traverse_rays(bvh.nodes, bvh.root_link, o, d, t_min, t_max, visits=True)
+    p = traverse_rays_reference(bvh.nodes, bvh.root_link, o, d, t_min, t_max, visits=True)
+    torch.cuda.synchronize()
+    assert traverse_rays.launches == before + 1  # the plain version is not counted
+    assert (p[1] >= 0).float().mean() > 0.5  # the rays really hit geometry
+    for a, b in zip(k, p):  # t_best, slot, visits: bitwise
+        assert torch.equal(a, b)
+    if case == "entry":
+        assert int(k[2][::3].sum()) == 0
+
+
+@pytest.mark.parametrize("mesh,max_dist", [
+    ("room", 3.0e38),
+    ("room", 0.25),
+    ("sphere", 1.0),
+    ("building", 0.5),
+])
+def test_closest_bvh_kernel_matches_plain_version(card, mesh, max_dist):
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference
+
+    m = _exact_mesh(mesh)
+    bvh = build_bvh(m, device=card)
+    q = _points_in(m, card, 3000, 9, 0.1)
+    md = torch.tensor(max_dist, dtype=torch.float32, device=card)
+    max_d2 = (md * md).expand(q.shape[0]).contiguous()
+    before = closest_bvh.launches
+    k = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+    torch.cuda.synchronize()
+    assert closest_bvh.launches == before + 1
+    assert (p[2] >= 0).float().mean() > 0.2
+    for a, b in zip(k, p):  # best_d2, point, slot, visits: bitwise
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mesh,B,Rq,max_dist", [
+    ("room", 8, 128, 3.0e38),
+    ("sphere", 32, 128, 0.5),
+    ("sphere", 64, 100, 1.0),  # the last warp of each block is partly idle
+    ("building", 64, 128, 0.5),
+    ("sphere", 512, 128, 2.0),  # the largest bin MeshMap builds
+])
+def test_closest_bins_kernel_matches_plain_version(card, mesh, B, Rq, max_dist):
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bins_reference
+    from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
+
+    m = _exact_mesh(mesh)
+    bins = build_bins(m, bin_size=B, bins_per_super=8, device=card)
+    q = _points_in(m, card, 3000, 9, 0.1)
+    inputs = binned_inputs(bins, q, _max_d2(max_dist, q.shape[:1], card, cap=1.7e19), Rq,
+                           c_super=8, c_bin=64)
+    before = closest_bins.launches
+    k = closest_bins(bins.tri, *inputs)
+    p = closest_bins_reference(bins.tri, *inputs)
+    torch.cuda.synchronize()
+    assert closest_bins.launches == before + 1
+    assert (p[1] >= 0).float().mean() > 0.05  # some queries lie within max_dist
+    for a, b in zip(k, p):  # best_key, best_bin: bitwise
+        assert torch.equal(a, b)
+
+
+def test_exact_kernels_refuse_misaligned_nodes(card):
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    bvh = build_bvh(_exact_mesh("room"), device=card)
+    flat = torch.empty(bvh.nodes.numel() + 1, device=card)
+    nodes = flat[1:].view(bvh.nodes.shape)
+    nodes.copy_(bvh.nodes)
+    o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
+    with pytest.raises(ValueError, match="16-byte"):
+        traverse_rays(nodes, bvh.root_link, o, d, t_min, t_max)
+
+
+def test_exact_paths_on_card_match_cpu(card):
+    """cast_rays, closest_points (exact, binned, seeded) and CP/RC
+    corrections on a BVH: the card's results equal the CPU's (the kernels
+    and the plain versions round alike), one launch of each kernel a call."""
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.ops import closest_cuda, traverse_cuda
+    from rmcl_tpu_torch.ops.closest_point import closest_points_seeded
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+
+    mesh = MESHES["room"]()
+    true_pose = [0.5, -0.3, 1.0, 0.0, 0.0, 0.3]
+    start = [0.5, -0.3, 1.2, 0.0, 0.0, 0.35]
+    model = SphericalModel.create(width=180, height=8, phi_min=-0.4, phi_max=0.3,
+                                  range_max=30.0)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        mm = MeshMap.from_mesh(mesh, bin_size=32, device=dev)
+        o, d = _scattered_rays(mesh, dev)
+        counts0 = (traverse_cuda.traverse_rays.launches, closest_cuda.closest_bvh.launches,
+                   closest_cuda.closest_bins.launches)
+        hits = cast_rays(mm.bvh, o, d)
+        cp = closest_points_seeded(mm.bvh, mm.bins, o, max_dist=0.5, c_super=8, c_bin=64)
+        truth = simulate(mm.bvh, model, Transform.from_pose_tuple(true_pose, device=dev))
+        poses = []
+        for bvh, corr in ((mm.bvh, "RC"), (mm.bvh, "CP"), (mm.bins, "CP")):
+            sensor = tp.MICPSensorData(
+                model=model, points=truth.point, mask=truth.hit,
+                tsb=Transform.identity(device=dev),
+                config=tp.MICPSensorConfig.create(max_dist=0.5, corr_type=corr))
+            tom = Transform.from_pose_tuple(start, device=dev)
+            progress = torch.zeros((), device=dev)
+            for _ in range(3):
+                tom, stats = tp.correct_once(bvh, [sensor], tom, Transform.identity(device=dev),
+                                             progress)
+                progress = stats.convergence_progress
+            poses.append(tom)
+        counts = (traverse_cuda.traverse_rays.launches - counts0[0],
+                  closest_cuda.closest_bvh.launches - counts0[1],
+                  closest_cuda.closest_bins.launches - counts0[2])
+        # card: cast 1 + simulate 1 + 3 RC corrections; seeded 1 + 3 CP on the
+        # BVH; seeded 1 + 3 CP on the bins. CPU: none
+        assert counts == ((5, 4, 4) if dev.type == "cuda" else (0, 0, 0))
+        out.append((hits, cp, poses))
+    (g_hits, g_cp, g_poses), (c_hits, c_cp, c_poses) = out
+    assert torch.equal(g_hits.hit.cpu(), c_hits.hit)
+    torch.testing.assert_close(g_hits.t.cpu(), c_hits.t, rtol=T_TOL, atol=T_TOL)
+    assert torch.equal(g_hits.prim_id.cpu(), c_hits.prim_id)
+    assert torch.equal(g_cp.found.cpu(), c_cp.found)
+    torch.testing.assert_close(g_cp.dist.cpu(), c_cp.dist, rtol=T_TOL, atol=T_TOL)
+    for g, c in zip(g_poses, c_poses):
+        torch.testing.assert_close(g.trans.cpu(), c.trans, rtol=0.0, atol=POSE_TOL)

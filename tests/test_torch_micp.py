@@ -16,15 +16,17 @@ import pytest
 import torch
 
 from rmcl_tpu.bvh.bins import build_bins
+from rmcl_tpu.bvh.builder import build_bvh
 from rmcl_tpu.geom.mesh import make_room_scene
 from rmcl_tpu.math.se3 import Transform as JTransform
+from rmcl_tpu.micp import correspondences as jc
 from rmcl_tpu.micp import pipeline as jp
 from rmcl_tpu.sensors.models import SphericalModel as JSpherical
 from rmcl_tpu.sensors.simulate import simulate as j_simulate
-from rmcl_tpu_torch.convert import bins_from_arrays, transform_from_arrays
+from rmcl_tpu_torch.convert import bins_from_arrays, bvh_from_arrays, transform_from_arrays
 from rmcl_tpu_torch.math.se3 import Transform as TTransform
 from rmcl_tpu_torch.micp import pipeline as tp
-from rmcl_tpu_torch.micp.correspondences import find_rcc
+from rmcl_tpu_torch.micp.correspondences import find_cpc, find_rcc
 from rmcl_tpu_torch.sensors.models import SphericalModel as TSpherical
 
 torch.set_num_threads(2)
@@ -33,6 +35,13 @@ torch.set_num_threads(2)
 POSE_TOL = 1e-4
 MATCH_FRAC_TOL = 0.005  # valid_matches, as a fraction of the rays
 PROGRESS_TOL = 1e-3
+# closest-point correspondences: a measured point equidistant from two
+# perpendicular faces (a wall and the floor) takes either face's normal,
+# decided by float32 rounding; on the bins 2 of 1440 points do so in the
+# first correction, which moves that solve by 2.4e-4 m and its progress by
+# 2e-3 (later corrections agree to 3e-7 m)
+CP_POSE_TOL = 5e-4
+CP_PROGRESS_TOL = 5e-3
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TRUE_POSE = [0.5, -0.3, 1.0, 0.0, 0.0, 0.3]
@@ -55,10 +64,20 @@ def scenario():
     return jb, tb, jmodel, tmodel, points, mask
 
 
-def _quat_close(jq, tq):
+@pytest.fixture(scope="module")
+def bvh_scenario(scenario):
+    """The scenario's map as a BVH too (JAX slots carried across bit for bit)."""
+    jbvh = build_bvh(make_room_scene(n_pillars=4, seed=3))
+    tbvh = bvh_from_arrays({f: np.asarray(getattr(jbvh, f)) for f in
+                            ("nodes", "root_link", "aabb_min", "aabb_max", "n_tris")},
+                           device="cpu")
+    return jbvh, tbvh
+
+
+def _quat_close(jq, tq, tol=POSE_TOL):
     jq, tq = np.asarray(jq), tq.numpy()
     tq = tq * np.sign(np.dot(jq, tq))  # q and -q are one rotation
-    np.testing.assert_allclose(tq, jq, atol=POSE_TOL, rtol=0)
+    np.testing.assert_allclose(tq, jq, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("solver", ["p2l_gn", "umeyama"])
@@ -100,12 +119,14 @@ def test_correspondences_and_guards(scenario):
     # at the true pose the simulated model IS the dataset
     assert torch.equal(corr.found, torch.from_numpy(mask))
     np.testing.assert_allclose(corr.model_points.numpy()[mask], points[mask], atol=1e-4)
-    sensor = tp.MICPSensorData(
+    # closest-point correspondences at the true pose: every measured point
+    # lies on the mesh, so its closest point is itself
+    cp = tp.find_correspondences(tb, [tp.MICPSensorData(
         model=tmodel, points=torch.from_numpy(points), mask=torch.from_numpy(mask),
         tsb=TTransform.identity(device="cpu"),
-        config=tp.MICPSensorConfig.create(corr_type="CP"))
-    with pytest.raises(NotImplementedError):
-        tp.correct_once(tb, [sensor], tsm, TTransform.identity(device="cpu"), 0.0)
+        config=tp.MICPSensorConfig.create(corr_type="CP"))], tsm)[0]
+    assert torch.equal(cp.found, torch.from_numpy(mask))
+    np.testing.assert_allclose(cp.model_points.numpy()[mask], points[mask], atol=1e-4)
     # NaN guard: a non-finite update keeps the old pose
     bad = tp.MICPSensorData(
         model=tmodel, points=torch.full_like(torch.from_numpy(points), float("nan")),
@@ -120,6 +141,67 @@ def test_correspondences_and_guards(scenario):
     tom, _ = tp.correct_once(tb, [sensor], tsm, TTransform.identity(device="cpu"), 0.0,
                              tp.MICPConfig(disable_correction=True))
     torch.testing.assert_close(tom.trans, tsm.trans)
+
+
+@pytest.mark.parametrize("engine", ["bins", "bvh"])
+def test_find_cpc_matches_jax(scenario, bvh_scenario, engine):
+    """Closest-point correspondences from a pose 0.2 m off, gated at
+    max_dist: the same found set except where a distance sits at the gate,
+    model points and normals (oriented toward the query) where the
+    supporting triangle is the same."""
+    jb, tb, _, _, points, mask = scenario
+    jmap, tmap = (jb, tb) if engine == "bins" else bvh_scenario
+    mask = mask.copy()
+    mask[::7] = False  # masked points are never found
+    j = jc.find_cpc(jmap, jnp.asarray(points), jnp.asarray(mask),
+                    JTransform.from_pose_tuple(jnp.asarray(START_POSE)), 0.5)
+    t = find_cpc(tmap, torch.from_numpy(points), torch.from_numpy(mask),
+                 TTransform.from_pose_tuple(START_POSE, device="cpu"), 0.5)
+    jf, tf = np.asarray(j.found), t.found.numpy()
+    assert not tf[::7].any()
+    assert (jf != tf).mean() < MATCH_FRAC_TOL and 0.2 < tf.mean() < 0.99
+    both = jf & tf
+    np.testing.assert_allclose(t.model_points.numpy()[both], np.asarray(j.model_points)[both],
+                               atol=1e-4)
+    dot = np.sum(t.model_normals.numpy()[both] * np.asarray(j.model_normals)[both], axis=-1)
+    assert (dot > 0.999).mean() > 0.99  # the same plane, oriented the same way
+    assert (t.model_points.numpy()[~tf] == 0).all()
+
+
+@pytest.mark.parametrize("engine,corr_type", [("bvh", "RC"), ("bvh", "CP"), ("bins", "CP")])
+def test_correct_once_cp_and_bvh_match_jax(scenario, bvh_scenario, engine, corr_type):
+    """Five corrections from +0.2 m z / 0.05 rad yaw with closest-point
+    correspondences (on the bins or the BVH) and with ray-cast ones on the
+    BVH: the poses agree after every call, and both converge."""
+    jb, tb, jmodel, tmodel, points, mask = scenario
+    jmap, tmap = (jb, tb) if engine == "bins" else bvh_scenario
+    j_sensor = jp.MICPSensorData(
+        model=jmodel, points=jnp.asarray(points), mask=jnp.asarray(mask),
+        tsb=JTransform.identity(),
+        config=jp.MICPSensorConfig.create(max_dist=0.5, corr_type=corr_type))
+    t_sensor = tp.MICPSensorData(
+        model=tmodel, points=torch.from_numpy(points), mask=torch.from_numpy(mask),
+        tsb=TTransform.identity(device="cpu"),
+        config=tp.MICPSensorConfig.create(max_dist=0.5, corr_type=corr_type))
+    j_tom = JTransform.from_pose_tuple(jnp.asarray(START_POSE))
+    t_tom = TTransform.from_pose_tuple(START_POSE, device="cpu")
+    j_tbo, t_tbo = JTransform.identity(), TTransform.identity(device="cpu")
+    j_prog, t_prog = jnp.float32(0.0), torch.tensor(0.0)
+    n = points.shape[0]
+    pose_tol, progress_tol = ((CP_POSE_TOL, CP_PROGRESS_TOL) if corr_type == "CP"
+                              else (POSE_TOL, PROGRESS_TOL))
+    for _ in range(5):
+        j_tom, j_st = jp.correct_once(jmap, [j_sensor], j_tom, j_tbo, j_prog, jp.MICPConfig())
+        t_tom, t_st = tp.correct_once(tmap, [t_sensor], t_tom, t_tbo, t_prog, tp.MICPConfig())
+        np.testing.assert_allclose(t_tom.trans.numpy(), np.asarray(j_tom.trans),
+                                   atol=pose_tol, rtol=0)
+        _quat_close(j_tom.rot, t_tom.rot, pose_tol)
+        assert abs(float(t_st.valid_matches) - float(j_st.valid_matches)) <= MATCH_FRAC_TOL * n
+        assert abs(float(t_st.convergence_progress)
+                   - float(j_st.convergence_progress)) <= progress_tol
+        j_prog, t_prog = j_st.convergence_progress, t_st.convergence_progress
+    err = np.linalg.norm(t_tom.trans.numpy() - np.float32(TRUE_POSE[:3]))
+    assert err < 0.05
 
 
 def test_transform_from_arrays():
