@@ -41,14 +41,19 @@ Phases (any failure ends the run with a nonzero exit code):
    ``correct_once`` each with CP correspondences on the bins (K6b), RC on
    the BVH (K5) and CP on the BVH (K6), each held to the JAX package's final
    error and to one launch a correction; K5, K6 and K6b against their plain
-   versions on the last corrections' inputs (bitwise), and the exact
-   engine's hits against the unbudgeted dense engine's;
+   versions on the last corrections' inputs (bitwise, K6 at the split P
+   its wrapper takes, and also against the serial walk), the lanes each
+   launch takes (K6's P, K6b's G), the registers of the closest-point
+   kernels, the divisions K6b's pairs run, the candidate cull
+   (``binned_inputs``) timed beside its bound, and the exact engine's hits
+   against the unbudgeted dense engine's;
 9. the exact engine at the reference benchmark's size: the ~1M-face
    sphere's BVH, phase 5's 14.4M rays through ``cast_rays`` (K5; t against
    the dense cast), the noisy hit points' closest points through both
    engines (K6b, K6; they must agree), ``occluded`` on 1000 particle moves,
-   and each kernel against its plain version on a 262,144-ray or -query
-   slice.
+   each kernel against its plain version on a 262,144-ray or -query slice,
+   and the binned query split by CUDA events into its steps (the Morton
+   order, the candidate cull, K6b, the winners and un-permute).
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -183,15 +188,23 @@ OPS_PER_TRAVERSE_RAY = 10
 OPS_PER_SLAB_VISIT = 25
 OPS_PER_MT_VISIT = 53
 # K6: per internal visit (the clamp 6, differences 3, squares and sums 5, a
-# compare) and per leaf visit (Ericson 89: the six dot products 39, va vb vc
-# 9, the face denominator 3 and quotients 2, the edge operands 5 and guarded
-# quotients 9, three clamps 6, the region tests 15, 1 - t; then the point 12,
-# q - p 3, |q - p|^2 5, a compare). K6b: per pair Ericson 89, q - p by
-# differences 15, |.|^2 5; per triangle and visit the padding test 12
+# compare) and per leaf visit the operations every triangle needs whatever
+# its Voronoi region (ericson.cuh resolves the region first and divides only
+# for its own quotients, none at a vertex): ap = q - a 3, bp and cp 6, the
+# six dot products 30, va vb vc 9, the vertex tests 6 (Ericson's 54); then
+# the offset e = ap - v ab - w ac 12 (ap reused), |e|^2 5, a compare: 72.
+# K6b: per pair the same 54 + 12 + 5 (the key's min is integer work): 71;
+# per triangle and visit the padding test 12
 OPS_PER_BOX_VISIT = 15
-OPS_PER_CP_VISIT = 110
-OPS_PER_CP_PAIR = 109
+OPS_PER_CP_VISIT = 72
+OPS_PER_CP_PAIR = 71
 OPS_PER_CP_TRI = 12
+# _cp_candidates (torch ops): float operations per box-box distance test
+# (per axis two differences, a max and a clamp; three squares, two adds;
+# the compare with the block's bound) and per query for the block's box
+# (three minima and three maxima)
+OPS_PER_BOX_BOX = 18
+OPS_PER_BLOCK_QUERY = 6
 
 
 def log(msg):
@@ -985,13 +998,22 @@ def traverse_bound(visits, n_rays, slots_read):
     return bound_of(n_rays * (32 + 8) + 64 * slots_read, ops) + (internal + leaf,)
 
 
-def closest_bvh_bound(visits, n_queries, slots_read):
+def closest_bvh_bound(visits, n_queries, slots_read, serial_visits=None):
     """Least time for K6's work: OPS_PER_BOX_VISIT per internal visit and
     OPS_PER_CP_VISIT per leaf visit, against reading the queries and the
-    slots the walk needs once and writing d2, the point and the slot."""
-    internal, leaf = (float(x) for x in visits.double().sum(0))
-    ops = internal * OPS_PER_BOX_VISIT + leaf * OPS_PER_CP_VISIT
-    return bound_of(n_queries * (16 + 20) + 64 * slots_read, ops) + (internal + leaf,)
+    slots the walk needs once and writing d2, the point and the slot. With
+    ``serial_visits`` (the serial walk's, where the kernel ran the split
+    walk) each query counts the cheaper of the two walks, so the split
+    walk's extra visits are never counted as work."""
+    ops = visits.double() @ torch.tensor([OPS_PER_BOX_VISIT, OPS_PER_CP_VISIT],
+                                         dtype=torch.float64, device=visits.device)
+    if serial_visits is not None:
+        serial = serial_visits.double() @ torch.tensor(
+            [OPS_PER_BOX_VISIT, OPS_PER_CP_VISIT], dtype=torch.float64, device=visits.device)
+        visits = torch.where((serial < ops)[:, None], serial_visits, visits)
+        ops = torch.minimum(ops, serial)
+    n_visits = float(visits.double().sum())
+    return bound_of(n_queries * (16 + 20) + 64 * slots_read, float(ops.sum())) + (n_visits,)
 
 
 def closest_bins_bound(inputs, best_key, B):
@@ -1039,36 +1061,101 @@ def check_traverse(name, bvh, rays, bound_rays=None):
 
 
 def check_closest_bvh(name, bvh, q, max_d2):
-    """K6 against its plain version (best d2, point, slot and visits
-    bitwise), with timings and the bound."""
-    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference
+    """K6 at the wrapper's split P against its plain version at the same P
+    (best d2, point, slot and visits bitwise), with timings and the bound;
+    where P > 1 also against the serial walk (P = 1), whose visits the
+    bound may count instead and whose winners the split walk's equal but
+    at float near-ties."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference, walk_split
 
+    P = walk_split(q.shape[0], q.device)
     launches = closest_bvh.launches
     k = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
     seen = torch.zeros(bvh.n_slots, dtype=torch.bool, device="cuda")
     torch.cuda.synchronize()
     t = time.perf_counter()
-    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True, seen=seen)
+    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True, seen=seen,
+                              split=P)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     if closest_bvh.launches != launches + 1:
         fail(f"{name}: K6 did not launch")
     if not all(torch.equal(a, b) for a, b in zip(k, p)):
-        fail(f"{name}: K6 and its plain version disagree "
-             f"({int((k[2] != p[2]).sum())} slots, {int((k[0] != p[0]).sum())} distances)")
+        fail(f"{name}: K6 and its plain version disagree at P={P} "
+             f"({int((k[2] != p[2]).sum())} slots, {int((k[0] != p[0]).sum())} distances, "
+             f"{int((k[3] != p[3]).any(1).sum())} visits)")
     out = dict(max_abs_err=float((k[0] - p[0]).abs().max()), bitwise=True, plain_ms=plain_ms,
-               found_frac=float((k[2] >= 0).float().mean()), slots_read=int(seen.sum()))
+               found_frac=float((k[2] >= 0).float().mean()), slots_read=int(seen.sum()),
+               split=P, serial_mismatch=0)
+    serial_visits = None
+    if P > 1:
+        seen_s = torch.zeros_like(seen)
+        s = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True, seen=seen_s)
+        off = k[2] != s[2]
+        dk, ds = k[0][off].sqrt(), s[0][off].sqrt()
+        gap = float((dk - ds).abs().max()) if bool(off.any()) else 0.0
+        # float32 spacings between the two distances (non-negative floats
+        # order like their bits)
+        ulps = int((dk.view(torch.int32) - ds.view(torch.int32)).abs().max()) if gap else 0
+        out.update(serial_mismatch=int(off.sum()), serial_gap=gap, serial_gap_ulps=ulps,
+                   slots_read=min(out["slots_read"], int(seen_s.sum())),
+                   serial_visits=float(s[3].double().sum()))
+        serial_visits = s[3]
+        log(f"{name}: split walk (P={P}) vs serial walk: {int(off.sum())} of {q.shape[0]} "
+            f"winners differ (float near-ties), distances within {gap:.3g} m ({ulps} float32 "
+            f"spacings); visits split {float(k[3].double().sum()):.0f}, serial "
+            f"{out['serial_visits']:.0f}")
+        if float(off.float().mean()) > 0.005 or gap > 1e-5:
+            fail(f"{name}: the split walk's winners stray from the serial walk's")
     out["ms"] = cuda_ms(lambda: closest_bvh(bvh.nodes, bvh.root_link, q, max_d2), reps=3)
-    out["bound_ms"], out["bound_by"], out["visits"] = closest_bvh_bound(k[3], q.shape[0],
-                                                                        out["slots_read"])
+    out["bound_ms"], out["bound_by"], out["visits"] = closest_bvh_bound(
+        k[3], q.shape[0], out["slots_read"], serial_visits)
     return out
 
 
-def check_closest_bins(name, tri, inputs, plain_blocks=None):
+def pair_divisions(tri, inputs, best_key, n_blocks, chunk=256):
+    """The IEEE divisions K6b's pairs run, counted from the regions the
+    plain version's arithmetic gives (two in the face, one on an edge, none
+    at a vertex or for a padding triangle) over the candidates the first
+    ``n_blocks`` blocks visit (slot < count, dlb <= the block's final worst
+    key). Returns (divisions a pair, {region: share of the pairs})."""
+    qb, d2b, cand, count, dlb = (x[:n_blocks] for x in inputs)
+    B = tri.shape[2]
+    worst = ((best_key[:n_blocks].amax(dim=1) | (B - 1)).view(torch.float32))[:, None]
+    slot = torch.arange(cand.shape[1], device=cand.device)[None, :]
+    blk, c = torch.nonzero((slot < count[:, None]) & (dlb <= worst), as_tuple=True)
+    tally = torch.zeros(5, dtype=torch.float64, device=tri.device)  # pad vertex edge face
+    for s in range(0, blk.numel(), chunk):
+        b, bins = blk[s:s + chunk], cand[blk[s:s + chunk], c[s:s + chunk]]
+        t = tri[bins.long(), :9]
+        ax, ay, az, abx, aby, abz, acx, acy, acz = (t[:, k, :, None] for k in range(9))
+        qx, qy, qz = (qb[b, None, :, k] for k in range(3))
+        apx, apy, apz = qx - ax, qy - ay, qz - az
+        d1, d2 = abx * apx + aby * apy + abz * apz, acx * apx + acy * apy + acz * apz
+        bpx, bpy, bpz = apx - abx, apy - aby, apz - abz
+        d3, d4 = abx * bpx + aby * bpy + abz * bpz, acx * bpx + acy * bpy + acz * bpz
+        cpx, cpy, cpz = apx - acx, apy - acy, apz - acz
+        d5, d6 = abx * cpx + aby * cpy + abz * cpz, acx * cpx + acy * cpy + acz * cpz
+        va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+        vert = ((d1 <= 0) & (d2 <= 0)) | ((d3 >= 0) & (d4 <= d3)) | ((d6 >= 0) & (d5 <= d6))
+        edge = ~vert & (((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0))
+                        | ((vb <= 0) & (d2 >= 0) & (d6 <= 0)) | ((vc <= 0) & (d1 >= 0) & (d3 <= 0)))
+        pad = ((abx.abs() + aby.abs() + abz.abs() + acx.abs() + acy.abs() + acz.abs())
+               < 1e-30).expand_as(vert)
+        for i, m in enumerate((pad, ~pad & vert, ~pad & edge, ~pad & ~vert & ~edge)):
+            tally[i] += m.sum()
+    tally[4] = tally[:4].sum()
+    n = float(tally[4])
+    shares = dict(zip(("padding", "vertex", "edge", "face"), (float(x) / n for x in tally[:4])))
+    return (float(tally[2]) + 2 * float(tally[3])) / n, shares
+
+
+def check_closest_bins(name, tri, inputs, plain_blocks=None, division_blocks=None):
     """K6b against its plain version (keys and bins bitwise) on the first
     ``plain_blocks`` blocks (all by default); the kernel is timed on all
-    of them, with the bound."""
-    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bins_reference
+    of them, with the bound, and its divisions a pair counted on the first
+    ``division_blocks`` (all by default)."""
+    from rmcl_tpu_torch.ops.closest_cuda import bins_groups, closest_bins, closest_bins_reference
 
     part = inputs if plain_blocks is None else tuple(x[:plain_blocks] for x in inputs)
     launches = closest_bins.launches
@@ -1084,11 +1171,17 @@ def check_closest_bins(name, tri, inputs, plain_blocks=None):
         fail(f"{name}: K6b and its plain version disagree ({int((k[0] != p[0]).sum())} keys, "
              f"{int((k[1] != p[1]).sum())} bins)")
     key = k[0] if plain_blocks is None else closest_bins(tri, *inputs)[0]
+    n_blk, Rq, B = inputs[0].shape[0], inputs[0].shape[1], tri.shape[2]
     out = dict(max_abs_err=0.0, bitwise=True, plain_ms=plain_ms,
-               plain_queries=part[0].shape[0] * part[0].shape[1])
+               plain_queries=part[0].shape[0] * part[0].shape[1],
+               groups=bins_groups(n_blk, Rq, B, tri.device))
     out["ms"] = cuda_ms(lambda: closest_bins(tri, *inputs), reps=3)
-    out["bound_ms"], out["bound_by"], out["visits"] = closest_bins_bound(inputs, key,
-                                                                         tri.shape[2])
+    out["bound_ms"], out["bound_by"], out["visits"] = closest_bins_bound(inputs, key, B)
+    out["div_per_pair"], out["regions"] = pair_divisions(tri, inputs, key,
+                                                         division_blocks or n_blk)
+    log(f"{name}: G={out['groups']} lanes a query; {out['div_per_pair']:.3f} divisions a pair "
+        f"(regions " + ", ".join(f"{k} {v:.4f}" for k, v in out["regions"].items())
+        + f"; first {division_blocks or n_blk} blocks), 5 before the region-first form")
     return out
 
 
@@ -1122,16 +1215,63 @@ def cp_budget_need(bins, q, max_dist, Rq=128, chunk=2048):
     return torch.cat(need[0]), torch.cat(need[1])
 
 
+def cp_candidates_bound(bins, inputs, need_super):
+    """Least time for _cp_candidates' work on these blocks: the box-box
+    tests (every super, then the bins of the supers a block keeps, at most
+    its c_super) at OPS_PER_BOX_BOX and the blocks' boxes, against reading
+    the queries, their bounds and the boxes once and writing the lists."""
+    qb, _, cand, _, _ = inputs
+    n_blk, Rq = qb.shape[0], qb.shape[1]
+    cs = min(cand.shape[1], bins.n_super)
+    kept = float(torch.clamp(need_super, max=cs).double().sum())
+    tests = n_blk * bins.n_super + kept * bins.bins_per_super
+    ops = tests * OPS_PER_BOX_BOX + n_blk * Rq * OPS_PER_BLOCK_QUERY
+    bytes_moved = ((bins.n_super + bins.n_bins) * 24 + n_blk * Rq * 16
+                   + n_blk * (cand.shape[1] * 8 + 4))
+    return bound_of(bytes_moved, ops) + (tests,)
+
+
+def binned_breakdown(bins, q, max_dist, **budgets):
+    """closest_points_binned's steps on the card, one CUDA event between
+    each: the Morton order and permute, binned_inputs (the candidate cull,
+    _cp_candidates), K6b, and the winners' exact points with the
+    un-permute. Returns ({step: ms}, the result)."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins
+    from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs, binned_winners
+    from rmcl_tpu_torch.ops.order import cluster_order
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    max_d2 = _max_d2(max_dist, q.shape[:1], "cuda", cap=1.7e19)
+    torch.cuda.synchronize()
+    ev[0].record()
+    order, inv = cluster_order(q, None)
+    qs, md = q[order.long()], max_d2[order.long()]
+    ev[1].record()
+    inputs = binned_inputs(bins, qs, md, **budgets)
+    ev[2].record()
+    key, best_bin = closest_bins(bins.tri, *inputs)
+    ev[3].record()
+    out = binned_winners(bins, qs, md, key, best_bin, inv)
+    ev[4].record()
+    torch.cuda.synchronize()
+    steps = ("cluster_order", "binned_inputs", "K6b", "winners")
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(steps)}, out
+
+
 def phase_exact_main_path(main_r):
     import dataclasses
 
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.pipeline import MICPSensorConfig, correct_once
+    from rmcl_tpu_torch.ops.closest_cuda import bins_groups, kernel_registers, walk_split
     from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
     from rmcl_tpu_torch.ops.order import cluster_order
     from rmcl_tpu_torch.ops.raycast import cast_rays
     from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
 
+    regs = kernel_registers()
+    log("phase 8 closest-point kernels as built (registers, local bytes a thread; local bytes "
+        "are spills): " + ", ".join(f"{k} {r} regs {b} B" for k, (r, b) in regs.items()))
     bmap, model, sensor = main_r["bmap"], main_r["model"], main_r["sensor"]
     true_pose, config = main_r["true_pose"], main_r["config"]
     tbo = Transform.identity()
@@ -1156,11 +1296,13 @@ def phase_exact_main_path(main_r):
             progress = stats.convergence_progress
         counts = read_counts()
         err = float(torch.linalg.vector_norm(tom.trans - true_pose.trans))
+        G = bins_groups(-(-model.n_rays // 128), 128, bmap.bins.bin_size, "cuda")
+        split = {"K6": f" at P={walk_split(model.n_rays, 'cuda')}", "K6b": f" at G={G}"}
         log(f"phase 8 {label}: {N_CORRECTIONS} corrections x {model.n_rays} rays, median "
             f"{statistics.median(times):.3f} ms/correction (min {min(times):.3f}), final |dt| "
             f"{err:.3e} m (JAX on the CPU: {EXACT_ERR_JAX[key]:.3e} m), matches "
             f"{float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}; launches "
-            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+            + ", ".join(f"{k} {v}{split.get(k, '')}" for k, v in counts.items() if v))
         if not (err <= EXACT_ERR_JAX[key] + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
             fail(f"phase 8 {label}: final translation error {err} m, JAX's {EXACT_ERR_JAX[key]} m")
         if counts[kernel] != N_CORRECTIONS:
@@ -1182,18 +1324,26 @@ def phase_exact_main_path(main_r):
     tsm = (runs["cp_bvh"]["tom"] @ tbo) @ sensor.tsb
     q = tsm.apply(sensor.points).contiguous()
     r6 = check_closest_bvh("phase 8 K6", bmap.bvh, q, _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda"))
-    log(exact_line("phase 8 K6 on the last CP correction's queries", r6,
+    log(exact_line(f"phase 8 K6 (P={r6['split']}) on the last CP correction's queries", r6,
                    f"{r6['slots_read']} slots read"))
     # K6b on the last CP-on-bins correction's query blocks (cluster order)
     tsm = (runs["cp_bins"]["tom"] @ tbo) @ sensor.tsb
     q = tsm.apply(sensor.points)
     order, _ = cluster_order(q, None)
-    inputs = binned_inputs(bmap.bins, q[order.long()],
-                           _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19),
-                           c_super=config.c_super, c_bin=config.c_bin)
+    qs = q[order.long()]
+    md = _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19)
+    budgets = dict(c_super=config.c_super, c_bin=config.c_bin)
+    inputs = binned_inputs(bmap.bins, qs, md, **budgets)
     r6b = check_closest_bins("phase 8 K6b", bmap.bins.tri, inputs)
-    log(exact_line(f"phase 8 K6b on the last CP-on-bins correction's {inputs[0].shape[0]} "
-                   "blocks", r6b, ""))
+    log(exact_line(f"phase 8 K6b (G={r6b['groups']}) on the last CP-on-bins correction's "
+                   f"{inputs[0].shape[0]} blocks", r6b, ""))
+    cand = dict(ms=cuda_ms(lambda: binned_inputs(bmap.bins, qs, md, **budgets), reps=3))
+    need_s, _ = cp_budget_need(bmap.bins, q, EXACT_MAX_DIST)
+    cand["bound_ms"], cand["bound_by"], cand["tests"] = cp_candidates_bound(bmap.bins, inputs,
+                                                                            need_s)
+    log(f"phase 8 _cp_candidates (binned_inputs, torch ops) on the same blocks: "
+        f"{cand['ms']:.4f} ms by events, bound {cand['bound_ms']:.4f} ms ({cand['bound_by']}; "
+        f"{cand['tests']:.0f} box-box tests), {cand['bound_ms'] / cand['ms']:.2%}")
 
     # the exact engine recovers what the dense engine's budgets drop
     o, d = true_pose.apply(o_s), true_pose.rotate(d_s)
@@ -1213,13 +1363,14 @@ def phase_exact_main_path(main_r):
         r.update(launches=runs[key]["launches"], correction_ms=runs[key]["ms"],
                  err=runs[key]["err"])
     return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit, hit_frac_unbudgeted=hit_free,
-                runs={k: dict(ms=v["ms"], err=v["err"]) for k, v in runs.items()})
+                runs={k: dict(ms=v["ms"], err=v["err"]) for k, v in runs.items()},
+                cp_candidates=cand, registers=regs)
 
 
 def phase_exact_reference_size(sphere_mesh, sphere_bins):
     from rmcl_tpu_torch.bvh.builder import build_bvh
     from rmcl_tpu_torch.math.se3 import Quaternion, Transform
-    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, walk_split
     from rmcl_tpu_torch.ops.closest_point import (_max_d2, binned_inputs, closest_points,
                                                   closest_points_binned)
     from rmcl_tpu_torch.ops.order import cluster_order
@@ -1334,22 +1485,36 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
                    f"{S} rays"))
     max_d2 = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda")
     r6 = check_closest_bvh("phase 9 K6", bvh, q[:S].contiguous(), max_d2[:S])
+    P, P_slice = walk_split(q.shape[0], q.device), r6["split"]
     _, _, _, cvis = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
     r6["ms"] = cuda_ms(lambda: closest_bvh(bvh.nodes, bvh.root_link, q, max_d2), reps=3)
     r6["bound_ms"], r6["bound_by"], r6["visits"] = closest_bvh_bound(cvis, q.shape[0],
                                                                       r6["slots_read"])
-    log(exact_line(f"phase 9 K6 ({q.shape[0]} queries; plain version on the first {S})", r6,
-                   f"{S} queries"))
+    r6["split"] = P
+    log(exact_line(f"phase 9 K6 ({q.shape[0]} queries at P={P}; plain version on the first "
+                   f"{S} at P={P_slice})", r6, f"{S} queries"))
+    budgets = dict(c_super=c_super, c_bin=c_bin, block_chunk=QUERY_BLOCK_CHUNK)
+    steps, _ = binned_breakdown(sphere_bins, q, QUERY_MAX_DIST, **budgets)
+    log(f"phase 9 binned query by events ({sum(steps.values()):.2f} ms): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items()))
     order, _ = cluster_order(q, None)
-    inputs = binned_inputs(sphere_bins, q[order.long()],
-                           _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19),
-                           c_super=c_super, c_bin=c_bin, block_chunk=QUERY_BLOCK_CHUNK)
+    qs = q[order.long()]
+    md = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19)
+    inputs = binned_inputs(sphere_bins, qs, md, **budgets)
     r6b = check_closest_bins("phase 9 K6b", sphere_bins.tri, inputs,
-                             plain_blocks=S // inputs[0].shape[1])
-    log(exact_line(f"phase 9 K6b ({inputs[0].shape[0]} blocks; plain version on the first "
-                   f"{r6b['plain_queries']} queries)", r6b, f"{r6b['plain_queries']} queries"))
+                             plain_blocks=S // inputs[0].shape[1],
+                             division_blocks=S // inputs[0].shape[1])
+    log(exact_line(f"phase 9 K6b ({inputs[0].shape[0]} blocks at G={r6b['groups']}; plain "
+                   f"version on the first {r6b['plain_queries']} queries)", r6b,
+                   f"{r6b['plain_queries']} queries"))
+    cand = dict(ms=cuda_ms(lambda: binned_inputs(sphere_bins, qs, md, **budgets), reps=3))
+    cand["bound_ms"], cand["bound_by"], cand["tests"] = cp_candidates_bound(sphere_bins, inputs,
+                                                                            need_s)
+    log(f"phase 9 _cp_candidates (binned_inputs, torch ops): {cand['ms']:.3f} ms by events, "
+        f"bound {cand['bound_ms']:.4f} ms ({cand['bound_by']}; {cand['tests']:.0f} box-box "
+        f"tests), {cand['bound_ms'] / cand['ms']:.2%}")
     return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit_frac, cast_ms=cast_ms, bins_ms=bins_ms,
-                exact_ms=exact_ms)
+                exact_ms=exact_ms, binned_steps=steps, cp_candidates=cand)
 
 
 def main():
@@ -1396,9 +1561,12 @@ def main():
         dict(row("traverse_rays", "rmcl_tpu_torch/csrc/traverse_bvh.cu",
                  "rmcl_tpu/ops/raycast.py:73", exact_r["k5"]), bitwise=True),
         dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
-                 "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True),
+                 "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True,
+             split=exact_r["k6"]["split"],
+             registers=exact_r["registers"][f"K6 P={exact_r['k6']['split']}"][0]),
         dict(row("closest_bins", "rmcl_tpu_torch/csrc/closest_bins.cu",
-                 "rmcl_tpu/ops/closest_point.py:445", exact_r["k6b"]), bitwise=True),
+                 "rmcl_tpu/ops/closest_point.py:445", exact_r["k6b"]), bitwise=True,
+             groups=exact_r["k6b"]["groups"], registers=exact_r["registers"]["K6b"][0]),
     ]}))
     log(f"card: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,13 +7,19 @@ loop :172-225); source ``rmcl_tpu_torch/csrc/closest_bvh.cu``.
 ``closest_bins`` (K6b) ports the chunk loop of ``closest_points_binned``
 (:445-511); source ``rmcl_tpu_torch/csrc/closest_bins.cu``. Each source's
 header says what bounds it on the card and what the design does about it.
+Both kernels spread a query over several lanes where queries are few
+(:func:`walk_split`, :func:`bins_groups`): K6 walks P subtrees of the BVH
+at once, K6b splits each bin's triangles over G lanes.
 
 Contract of ``closest_bvh``: ``nodes (N, 16)``, ``root_link ()`` as for
 :func:`rmcl_tpu_torch.ops.traverse_cuda.traverse_rays`; queries ``q (R,
 3)`` and bounds ``max_d2 (R,)`` float32. Returns ``best_d2 (R,)``,
 ``point (R, 3)`` (0 where nothing is nearer than the bound) and ``slot (R,)``
 int32 (-1); with ``visits=True`` also ``(R, 2)`` int32 visits (internal,
-leaf).
+leaf) of the walk that ran: the serial walk at ``split=1``, else the split
+walk's sum over its P lanes. The split walk's winners are the serial
+walk's but at float near-ties (see :func:`closest_bvh_reference`), so a
+query's result depends on the split, which the caller fixes for a batch.
 
 Contract of ``closest_bins``: triangle payload ``tri (n_rows, 14, B)``
 with B a power of two; query blocks ``qb (n_blk, Rq, 3)`` and ``d2b
@@ -39,13 +45,17 @@ Tensor = torch.Tensor
 
 _SENT = int(SENTINEL_LINK)
 _BIG = 3.0e38
+# the lane splits K6's entry point is built for
+WALK_SPLITS = (1, 2, 4, 8)
+# threads resident on the card the port targets, an H100 (132 SMs x 2048)
+_H100_THREADS = 132 * 2048
 
 
 @functools.lru_cache(maxsize=None)
 def _bvh_kernel():
     """K6's C entry point (``rmcl_closest_bvh``), built on first use."""
     fn = _build.load_library("closest_bvh").rmcl_closest_bvh
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,9 +64,86 @@ def _bvh_kernel():
 def _bins_kernel():
     """K6b's C entry point (``rmcl_closest_bins``), built on first use."""
     fn = _build.load_library("closest_bins").rmcl_closest_bins
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_registers() -> dict:
+    """Registers and local-memory bytes a thread (spills show as local
+    memory) of each closest-point kernel as built, by ``cudaFuncGetAttributes``:
+    ``{"K6 P=1": (regs, local), ..., "K6b": (regs, local)}``. Needs a card."""
+    out = {}
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    bvh = _build.load_library("closest_bvh").rmcl_closest_bvh_attrs
+    bvh.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    for P in WALK_SPLITS:
+        if bvh(P, ctypes.byref(regs), ctypes.byref(local)):
+            raise RuntimeError(f"cudaFuncGetAttributes failed for K6 at P={P}")
+        out[f"K6 P={P}"] = (regs.value, local.value)
+    bins = _build.load_library("closest_bins").rmcl_closest_bins_attrs
+    bins.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    if bins(ctypes.byref(regs), ctypes.byref(local)):
+        raise RuntimeError("cudaFuncGetAttributes failed for K6b")
+    out["K6b"] = (regs.value, local.value)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _card_threads(index: int) -> int:
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+def fill_threads(device=None) -> int:
+    """Threads the card holds at once: a CUDA device's SMs x threads per
+    SM; for any other device an H100's (132 x 2048), so that the plain
+    version on the CPU takes the launch shape an H100 would."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type != "cuda":
+        return _H100_THREADS
+    return _card_threads(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def lane_groups(n_queries: int, limit: int, block: int | None = None, least: int = 1,
+                device=None) -> int:
+    """Lanes that share one query in a launch: from ``least`` (1 where it
+    does not fit), the largest power of two <= ``limit`` that keeps
+    ``n_queries`` x lanes within the threads the card holds
+    (:func:`fill_threads` of ``device``) and, for queries in CTAs of
+    ``block``, the CTA within 1024 threads. So the lanes multiply where the
+    queries alone leave the card idle."""
+    def fits(G):
+        return G <= limit and (block is None or -(-block * G // 32) * 32 <= 1024)
+
+    fill = fill_threads(device)
+    G = least if fits(least) else 1
+    while fits(2 * G) and n_queries * 2 * G <= fill:
+        G *= 2
+    return G
+
+
+def walk_split(n_queries: int, device=None) -> int:
+    """K6's lanes a query, P: on an H100 8 at one scan's 14,400 queries,
+    1 at 14.4M. On an NVIDIA H100 80GB HBM3 at 700 W
+    (scripts/torch_cp_split_probe.py, PERF.md) P = 8 walked phase 8's
+    14,400 queries in 0.63 ms against 1.26 at P = 1, and P = 1 phase 9's
+    14.4M in 8.75 ms against 12.63 at P = 2. Only those two sizes were
+    timed: the rule's choice between them (P = 4 at 50,000 queries, 2 at
+    100,000) is not measured."""
+    return lane_groups(n_queries, WALK_SPLITS[-1], device=device)
+
+
+def bins_groups(n_blk: int, Rq: int, B: int, device=None) -> int:
+    """K6b's lanes a query, G: at least 2; on an H100 8 at one scan's 113
+    blocks of 128 queries, 2 at 112,500. On an NVIDIA H100 80GB HBM3 at
+    700 W (scripts/torch_cp_split_probe.py, PERF.md) G = 8 tested phase
+    8's blocks in 0.63 ms against 1.30 at G = 1, and G = 2 phase 9's in
+    14.7 ms against 16.4 at G = 1 and 15.1 at G = 4: a second lane halves
+    each visit's chain of pairs even where the grid fills the card. Only
+    those two sizes were timed: the rule's choice between them is not
+    measured. G does not change the result."""
+    return lane_groups(n_blk * Rq, min(8, B), block=Rq, least=2, device=device)
 
 
 def ericson_vw_planes(qx, qy, qz, ax, ay, az, abx, aby, abz, acx, acy, acz):
@@ -112,18 +199,23 @@ def ericson_vw_planes(qx, qy, qz, ax, ay, az, abx, aby, abz, acx, acy, acz):
 
 
 def closest_bvh(nodes: Tensor, root_link: Tensor, q: Tensor, max_d2: Tensor,
-                visits: bool = False):
+                visits: bool = False, split: int | None = None):
     """Closest mesh point per query over the threaded BVH.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`closest_bvh_reference`. ``closest_bvh.launches`` counts the
-    kernel launches."""
+    ``split`` lanes walk each query (1, 2, 4 or 8; default
+    :func:`walk_split` of the query count on this device). CUDA tensors
+    launch the kernel (or raise); CPU tensors take
+    :func:`closest_bvh_reference` at the same split.
+    ``closest_bvh.launches`` counts the kernel launches."""
     check_slots(nodes, root_link)
     R = q.shape[0]
     dev = nodes.device
     check_rows(dev, q=(q, torch.float32, (R, 3)), max_d2=(max_d2, torch.float32, (R,)))
+    P = walk_split(R, dev) if split is None else split
+    if P not in WALK_SPLITS:
+        raise ValueError(f"split {P} must be one of {WALK_SPLITS}")
     if dev.type == "cpu":
-        return closest_bvh_reference(nodes, root_link, q, max_d2, visits)
+        return closest_bvh_reference(nodes, root_link, q, max_d2, visits, split=P)
     if dev.type != "cuda":
         raise ValueError(f"closest_bvh runs on cuda or cpu tensors, not {dev}")
     best_d2 = torch.empty((R,), dtype=torch.float32, device=dev)
@@ -134,7 +226,7 @@ def closest_bvh(nodes: Tensor, root_link: Tensor, q: Tensor, max_d2: Tensor,
         err = _bvh_kernel()(
             nodes.data_ptr(), root_link.data_ptr(), q.data_ptr(), max_d2.data_ptr(),
             best_d2.data_ptr(), point.data_ptr(), slot.data_ptr(),
-            0 if counts is None else counts.data_ptr(), R, nodes.shape[0],
+            0 if counts is None else counts.data_ptr(), R, nodes.shape[0], P,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -147,11 +239,21 @@ closest_bvh.launches = 0
 
 
 def closest_bvh_reference(nodes: Tensor, root_link: Tensor, q: Tensor, max_d2: Tensor,
-                          visits: bool = False, seen: Tensor | None = None):
+                          visits: bool = False, seen: Tensor | None = None, split: int = 1):
     """The same function in plain PyTorch: one step per visit over the
     queries still walking, reading int32 slot rows, with the kernel's
-    arithmetic term for term. Runs on any device. ``seen``, an optional
-    (N,) bool tensor, gets the slots read marked (a bound counts them)."""
+    arithmetic term for term. ``split=1`` is the serial walk; 2, 4 or 8 the
+    kernel's split walk, step for step (:func:`_closest_bvh_split`), whose
+    best_d2, point and slot are the serial walk's but at float near-ties,
+    where a leaf's point rounds outside its box: on an H100, 5 of one
+    scan's 14,400 queries (0.035%) at every split, their distances within
+    15 float32 spacings, and none of 14.4M queries on the 1M-face sphere
+    (PERF.md); tests/test_torch_closest_point.py allows 1% and 1e-5
+    relative. Runs on any device.
+    ``seen``, an optional (N,) bool tensor, gets the slots read marked (a
+    bound counts them)."""
+    if split != 1:
+        return _closest_bvh_split(nodes, root_link, q, max_d2, split, visits, seen)
     R = q.shape[0]
     dev = q.device
     nodes_i = nodes.view(torch.int32)
@@ -201,6 +303,111 @@ def closest_bvh_reference(nodes: Tensor, root_link: Tensor, q: Tensor, max_d2: T
     return (best_d2, point, best, counts) if visits else (best_d2, point, best)
 
 
+def split_frontier(nodes: Tensor, root_link: Tensor, P: int):
+    """The split walk's frontier: ``(start, end)`` links, (P,) int32, of the
+    P subtrees that cover the BVH in preorder (lane p walks from start[p]
+    until it reaches end[p], its subtree root's miss link; start = end for
+    a lane with nothing). From the root, lane p's bits, highest first, pick
+    the first or second child; a leaf met above depth log2(P) goes to the
+    lane whose remaining bits are 0. The kernel's rule, in torch ops."""
+    nodes_i = nodes.view(torch.int32)
+    dev = nodes.device
+    cur = root_link.reshape(1).expand(P).clone()
+    end = torch.full((P,), _SENT, dtype=torch.int32, device=dev)
+    lanes = torch.arange(P, device=dev)
+    bit = P >> 1
+    while bit:
+        second_child = (lanes & bit) != 0
+        open_ = cur != end
+        internal = open_ & (cur >= 0)
+        hit = nodes_i[torch.where(internal, cur, 0).long(), 12]
+        first = torch.where(internal, torch.where(hit < 0, ~hit, hit), 0)
+        second = nodes_i[first.long(), 13]
+        emptied = open_ & (cur < 0) & second_child  # a leaf above the frontier's depth
+        cur, end = (torch.where(internal, torch.where(second_child, second, hit),
+                                torch.where(emptied, end, cur)),
+                    torch.where(internal & ~second_child, second, end))
+        bit >>= 1
+    return cur, end
+
+
+def _closest_bvh_split(nodes, root_link, q, max_d2, P, visits, seen):
+    """The kernel's split walk in plain PyTorch: row r * P + p is lane p of
+    query r. Each step, every lane still in its subtree takes one visit
+    against the pair (best_d2, slot) its query held after the last step (a
+    leaf is taken when its pair is lexicographically smaller, a box entered
+    when d2_box <= best_d2); then each query keeps the least pair of its
+    lanes. The winner's point is recomputed from its slot."""
+    if P not in WALK_SPLITS:
+        raise ValueError(f"split {P} must be one of {WALK_SPLITS}")
+    R = q.shape[0]
+    dev = q.device
+    nodes_i = nodes.view(torch.int32)
+    start, end = split_frontier(nodes, root_link, P)
+    cur, end = start.repeat(R), end.repeat(R)
+    query = torch.arange(R * P, device=dev) // P
+    best_d2 = max_d2.clone()
+    best = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros((R * P, 2), dtype=torch.int32, device=dev)
+    no_key = torch.iinfo(torch.int64).max
+    alive = torch.nonzero(cur != end).squeeze(1)
+    for _ in range(nodes.shape[0]):
+        if alive.numel() == 0:
+            break
+        c = cur[alive]
+        leaf = c < 0
+        idx = torch.where(leaf, ~c, c)
+        rows = nodes_i[idx.long()]
+        if seen is not None:
+            seen[idx.long()] = True
+        w = rows.view(torch.float32)
+        qa = query[alive]
+        qx, qy, qz = (q[qa, k] for k in range(3))
+        bd, bs = best_d2[qa], best[qa]
+
+        # leaf: the closest point on the inline triangle
+        ax, ay, az, abx, aby, abz, acx, acy, acz = (w[:, k] for k in range(9))
+        v, ww = ericson_vw_planes(qx, qy, qz, ax, ay, az, abx, aby, abz, acx, acy, acz)
+        px = ax + v * abx + ww * acx
+        py = ay + v * aby + ww * acy
+        pz = az + v * abz + ww * acz
+        ex, ey, ez = qx - px, qy - py, qz - pz
+        d2 = ex * ex + ey * ey + ez * ez
+        better = leaf & ((d2 < bd) | ((d2 == bd) & (idx < bs)))
+        # each query's least (d2, slot) among its lanes' taken leaves; d2 >= 0
+        # orders like its bits, so one int64 key orders the pairs
+        key = torch.where(better, (d2.view(torch.int32).long() << 32) | idx.long(), no_key)
+        least = torch.full((R,), no_key, dtype=torch.int64, device=dev)
+        least.scatter_reduce_(0, qa, key, "amin")
+        took = least != no_key
+        best_d2 = torch.where(took, (least >> 32).to(torch.int32).view(torch.float32), best_d2)
+        best = torch.where(took, (least & 0xFFFFFFFF).to(torch.int32), best)
+
+        # internal: prune by the squared distance to the node's box
+        cx = torch.clamp(qx, min=ax, max=abx) - qx
+        cy = torch.clamp(qy, min=ay, max=aby) - qy
+        cz = torch.clamp(qz, min=az, max=abz) - qz
+        d2_box = cx * cx + cy * cy + cz * cz
+        descend = ~leaf & (d2_box <= bd)
+        nxt = torch.where(descend, rows[:, 12], rows[:, 13])
+        cur[alive] = nxt
+        counts[alive, 0] += (~leaf).to(torch.int32)
+        counts[alive, 1] += leaf.to(torch.int32)
+        alive = alive[nxt != end[alive]]
+
+    # the winner's point, with the serial walk's arithmetic
+    found = best >= 0
+    w = nodes_i[torch.where(found, best, 0).long()].view(torch.float32)
+    ax, ay, az, abx, aby, abz, acx, acy, acz = (w[:, k] for k in range(9))
+    qx, qy, qz = q[:, 0], q[:, 1], q[:, 2]
+    v, ww = ericson_vw_planes(qx, qy, qz, ax, ay, az, abx, aby, abz, acx, acy, acz)
+    point = torch.stack([ax + v * abx + ww * acx, ay + v * aby + ww * acy,
+                         az + v * abz + ww * acz], -1)
+    point = torch.where(found[:, None], point, 0.0)
+    counts = counts.view(R, P, 2).sum(1, dtype=torch.int32)
+    return (best_d2, point, best, counts) if visits else (best_d2, point, best)
+
+
 # --- K6b: the candidate-bin loop -------------------------------------------
 
 
@@ -215,7 +422,7 @@ def _check_bins(tri, qb, d2b, cand_bin, cand_count, cand_dlb):
     if B < 1 or B & (B - 1):
         raise ValueError(f"bin size {B} must be a power of two (packed-key min)")
     if not 1 <= Rq <= 1024:
-        raise ValueError(f"block size {Rq} must be in [1, 1024] (one CTA, a thread a query)")
+        raise ValueError(f"block size {Rq} must be in [1, 1024] (one CTA, a lane or more a query)")
     if cb < 1:
         raise ValueError("cand_bin must be (n_blk, cb) with cb >= 1")
     check_rows(tri.device, qb=(qb, torch.float32, (n_blk, Rq, 3)),
@@ -226,27 +433,31 @@ def _check_bins(tri, qb, d2b, cand_bin, cand_count, cand_dlb):
 
 
 def closest_bins(tri: Tensor, qb: Tensor, d2b: Tensor, cand_bin: Tensor, cand_count: Tensor,
-                 cand_dlb: Tensor):
+                 cand_dlb: Tensor, groups: int | None = None):
     """Packed-key closest triangle per query over each block's candidates.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`closest_bins_reference`. ``closest_bins.launches`` counts the
-    kernel launches."""
+    ``groups`` lanes share each query's triangles (a power of two <= min(B,
+    32) whose CTA fits 1024 threads; default :func:`bins_groups`); the
+    result does not depend on it. CUDA tensors launch the kernel (or
+    raise); CPU tensors take :func:`closest_bins_reference`.
+    ``closest_bins.launches`` counts the kernel launches."""
     _check_bins(tri, qb, d2b, cand_bin, cand_count, cand_dlb)
+    n_blk, Rq, B = qb.shape[0], qb.shape[1], tri.shape[2]
+    G = bins_groups(n_blk, Rq, B, tri.device) if groups is None else groups
+    if G < 1 or G & (G - 1) or G > min(B, 32) or -(-Rq * G // 32) * 32 > 1024:
+        raise ValueError(f"{G} lanes a query do not fit bins of {B} in a CTA of {Rq} queries")
     dev = tri.device
     if dev.type == "cpu":
         return closest_bins_reference(tri, qb, d2b, cand_bin, cand_count, cand_dlb)
     if dev.type != "cuda":
         raise ValueError(f"closest_bins runs on cuda or cpu tensors, not {dev}")
-    n_blk, Rq = qb.shape[0], qb.shape[1]
     best_key = torch.empty((n_blk, Rq), dtype=torch.int32, device=dev)
     best_bin = torch.empty((n_blk, Rq), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _bins_kernel()(
             tri.data_ptr(), qb.data_ptr(), d2b.data_ptr(), cand_bin.data_ptr(),
             cand_count.data_ptr(), cand_dlb.data_ptr(), best_key.data_ptr(), best_bin.data_ptr(),
-            n_blk, Rq, cand_bin.shape[1], tri.shape[2],
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_blk, Rq, cand_bin.shape[1], B, G, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
         raise RuntimeError(f"closest_bins kernel launch failed: cudaError {err}")

@@ -20,7 +20,7 @@ import torch
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.types import BVH
-from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh
+from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, walk_split
 from rmcl_tpu_torch.ops.order import cluster_order
 
 Tensor = torch.Tensor
@@ -105,20 +105,23 @@ def closest_points(bvh: BVH, queries: Tensor, max_dist=3.0e38,
                    chunk_size: int = 65536) -> ClosestPoints:
     """Closest mesh surface point for each query point (map frame), within
     ``max_dist``. ``chunk_size`` bounds the plain version's memory on the
-    CPU only; the kernel takes every query in one launch."""
+    CPU only; the kernel takes every query in one launch. The walk's split
+    (:func:`walk_split` of the whole batch) is fixed once, so each chunk
+    walks as the kernel would and the CPU gives the card's result."""
     dev = bvh.device
     queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     batch_shape = queries.shape[:-1]
     q = queries.reshape(-1, 3).contiguous()
     n = q.shape[0]
     max_d2 = _max_d2(max_dist, batch_shape, dev)
+    P = walk_split(n, dev)
     if dev.type == "cpu" and n:
         step = max(1, int(chunk_size))
-        parts = [closest_bvh(bvh.nodes, bvh.root_link, q[s:s + step], max_d2[s:s + step])
-                 for s in range(0, n, step)]
+        parts = [closest_bvh(bvh.nodes, bvh.root_link, q[s:s + step], max_d2[s:s + step],
+                             split=P) for s in range(0, n, step)]
         d2, point, slot = (torch.cat([p[k] for p in parts]) for k in range(3))
     else:
-        d2, point, slot = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2)
+        d2, point, slot = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, split=P)
 
     found = slot >= 0
     safe_slot = torch.where(found, slot, 0).long()
@@ -269,7 +272,17 @@ def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
 
     inputs = binned_inputs(bins, q, max_d2, block_size, c_super, c_bin, block_chunk)
     best_key, best_bin = closest_bins(bins.tri, *inputs)
+    out = binned_winners(bins, q, max_d2, best_key, best_bin, inv_perm)
+    return ClosestPoints(**{f.name: getattr(out, f.name).reshape(
+        batch_shape + getattr(out, f.name).shape[1:]) for f in dataclasses.fields(out)})
 
+
+def binned_winners(bins: TriangleBins, q: Tensor, max_d2: Tensor, best_key: Tensor,
+                   best_bin: Tensor, inv_perm: Tensor | None = None) -> ClosestPoints:
+    """The winners of K6b's packed keys for the (n, 3) queries ``q`` in
+    block order: each winner's exact closest point, normal, distance and
+    id, in the caller's order again when ``inv_perm`` is given."""
+    n = q.shape[0]
     B = bins.bin_size
     jmask = B - 1
     best_key = best_key.reshape(-1)[:n]
@@ -296,8 +309,7 @@ def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
         inv = inv_perm.long()
         out = ClosestPoints(**{f.name: getattr(out, f.name)[inv]
                                for f in dataclasses.fields(out)})
-    return ClosestPoints(**{f.name: getattr(out, f.name).reshape(
-        batch_shape + getattr(out, f.name).shape[1:]) for f in dataclasses.fields(out)})
+    return out
 
 
 def closest_points_seeded(bvh: BVH, bins: TriangleBins, queries: Tensor, max_dist=3.0e38,

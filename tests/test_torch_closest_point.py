@@ -289,3 +289,362 @@ def test_cluster_order_matches_jax(bits, headings):
     assert to.dtype == torch.int32 and ti.dtype == torch.int32
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+# --- the closest-point kernels' redesign: the region-first Ericson point,
+# the split walk over the BVH (K6) and the lane-group rule ---
+
+_F = np.float32
+
+
+def _ericson_region_first(q, a, ab, ac):
+    """The kernels' Ericson point (csrc/ericson.cuh) as a scalar float32
+    model: the region first, then only its own quotients, in the kernel's
+    branch order (vertex, then bc, ac, ab, else the face)."""
+    def dot(u, w):
+        return u[0] * w[0] + u[1] * w[1] + u[2] * w[2]
+
+    def safe_div(x, y):
+        return x / (y if abs(y) > _F(1e-30) else _F(1e-30))
+
+    def clip01(x):
+        return min(max(x, _F(0)), _F(1))
+
+    ap = [q[k] - a[k] for k in range(3)]
+    bp = [ap[k] - ab[k] for k in range(3)]
+    cp = [ap[k] - ac[k] for k in range(3)]
+    d1, d2, d3, d4 = dot(ab, ap), dot(ac, ap), dot(ab, bp), dot(ac, bp)
+    d5, d6 = dot(ab, cp), dot(ac, cp)
+    va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+    in_a = d1 <= 0 and d2 <= 0
+    in_b = d3 >= 0 and d4 <= d3
+    in_c = d6 >= 0 and d5 <= d6
+    if in_a or in_b or in_c:
+        return (_F(0) if in_a or in_c else _F(1)), (_F(0) if in_a or in_b else _F(1)), "vertex"
+    if va <= 0 and (d4 - d3) >= 0 and (d5 - d6) >= 0:
+        t = clip01(safe_div(d4 - d3, (d4 - d3) + (d5 - d6)))
+        return _F(1) - t, t, "bc"
+    if vb <= 0 and d2 >= 0 and d6 <= 0:
+        return _F(0), clip01(safe_div(d2, d2 - d6)), "ac"
+    if vc <= 0 and d1 >= 0 and d3 <= 0:
+        return clip01(safe_div(d1, d1 - d3)), _F(0), "ab"
+    denom = max(va + vb + vc, _F(1e-30))
+    return vb / denom, vc / denom, "face"
+
+
+def test_region_first_ericson_equals_the_plain_selects():
+    """The kernels divide only for the region they take; the plain version
+    forms all five quotients and selects. Bitwise equal on random
+    triangles and on degenerate ones where several region flags hold at
+    once (zero edges, collinear vertices, queries on vertices, edges and the
+    face)."""
+    rng = np.random.default_rng(21)
+    cases = []
+    for _ in range(1500):
+        a, ab, ac = (rng.normal(size=3).astype(_F) for _ in range(3))
+        cases.append((rng.normal(scale=1.5, size=3).astype(_F), a, ab, ac))
+    z = np.zeros(3, _F)
+    for _ in range(60):
+        a, ab = rng.normal(size=3).astype(_F), rng.normal(size=3).astype(_F)
+        q = rng.normal(size=3).astype(_F)
+        for tri in ((a, z, z), (a, ab, z), (a, z, ab), (a, ab, ab * _F(2)), (a, ab, -ab),
+                    (a, ab, ab)):
+            b, c = tri[0] + tri[1], tri[0] + tri[2]
+            for qq in (q, tri[0], b, c, (tri[0] + b) * _F(0.5), (b + c) * _F(0.5),
+                       (tri[0] + b + c) / _F(3)):
+                cases.append((qq.astype(_F), *tri))
+    q, a, ab, ac = (np.stack([c[k] for c in cases]) for k in range(4))
+    with np.errstate(all="ignore"):
+        model = [_ericson_region_first(*c) for c in cases]
+    v, w = ericson_vw_planes(*(torch.from_numpy(x[:, k].copy()) for x in (q, a, ab, ac)
+                               for k in range(3)))
+    np.testing.assert_array_equal(np.array([m[0] for m in model], _F).view(np.int32),
+                                  v.numpy().view(np.int32))
+    np.testing.assert_array_equal(np.array([m[1] for m in model], _F).view(np.int32),
+                                  w.numpy().view(np.int32))
+    regions = {m[2] for m in model}
+    assert regions == {"vertex", "ab", "ac", "bc", "face"}
+    # degenerate triangles where several flags hold at once: a zero triangle
+    # is at every vertex (in_a, in_b and in_c)
+    assert _ericson_region_first(a[0], a[0], z, z)[:2] == (_F(0), _F(0))
+
+
+def _far_leaf_mesh():
+    """Four triangles near the origin and one far away: the BVH's first
+    split isolates the far one, a leaf above any split depth > 1."""
+    from rmcl_tpu.geom.mesh import TriangleMesh
+
+    rng = np.random.default_rng(5)
+    v = np.concatenate([rng.uniform(0, 1, (12, 3)), rng.uniform(40, 41, (3, 3))])
+    return TriangleMesh(v.astype(np.float32), np.arange(15, dtype=np.int32).reshape(5, 3))
+
+
+SPLIT_MESHES = dict(MESHES, far_leaf=_far_leaf_mesh)
+
+
+def _split_maps(name):
+    if name == "far_leaf":
+        jb = j_build_bvh(_far_leaf_mesh())
+        tb = bvh_from_arrays({f: np.asarray(getattr(jb, f)) for f in
+                              ("nodes", "root_link", "aabb_min", "aabb_max", "n_tris")},
+                             device="cpu")
+        return _far_leaf_mesh(), tb
+    mesh, _, _, tb, _ = _maps(name)
+    return mesh, tb
+
+
+def _leaf_slots(tb):
+    """Which slots hold leaves, from the links (a preorder walk)."""
+    ni = tb.nodes.view(torch.int32)
+    leaf = torch.zeros(tb.n_slots, dtype=torch.bool)
+    stack = [int(tb.root_link)]
+    while stack:
+        link = stack.pop()
+        if link < 0:
+            leaf[~link] = True
+            continue
+        first = int(ni[link, 12])
+        stack += [first, int(ni[~first if first < 0 else first, 13])]
+    return leaf
+
+
+def test_split_frontier_covers_the_bvh_in_preorder():
+    """Lane p's subtree is the slot range [start, end); the lanes' ranges
+    follow each other in preorder, hold every leaf once, and skip only the
+    internal nodes above the frontier (at most P - 1); a leaf above the
+    frontier's depth goes to one lane and leaves the others empty."""
+    from rmcl_tpu_torch.ops.closest_cuda import split_frontier
+
+    for name in ("room", "building", "far_leaf"):
+        _, tb = _split_maps(name)
+        leaf = _leaf_slots(tb)
+        for P in (2, 4, 8):
+            start, end = (x.tolist() for x in split_frontier(tb.nodes, tb.root_link, P))
+            slot = lambda link: tb.n_slots if link == -2**31 else (~link if link < 0 else link)
+            covered = torch.zeros(tb.n_slots, dtype=torch.int32)
+            pos = 0
+            for s, e in zip(start, end):
+                if s == e:
+                    continue
+                assert pos <= slot(s) < slot(e)
+                covered[slot(s):slot(e)] += 1
+                pos = slot(e)
+            assert covered.max() == 1 and bool(covered[leaf].all())
+            assert not bool(leaf[covered == 0].any()) and int((covered == 0).sum()) <= P - 1
+            if name == "far_leaf":
+                assert any(s < 0 and s != -2**31 for s in start)  # the far leaf starts a lane
+                assert P == 2 or any(s == e for s, e in zip(start, end))  # and empties others
+
+
+def _tie_queries(mesh, n, seed):
+    rng = np.random.default_rng(seed)
+    v = mesh.vertices.astype(_F)
+    f = mesh.faces[rng.integers(0, mesh.faces.shape[0], n)]
+    return np.concatenate([v[rng.integers(0, v.shape[0], n)],
+                           (v[f[:, 0]] + v[f[:, 1]]) * _F(0.5)])
+
+
+def _leaf_and_box_d2(tb, q):
+    """Per query, every leaf's d2 (the kernels' arithmetic) and the largest
+    box d2 over its ancestors: (leaf slots, d2 (n_q, L), ancestor box max)."""
+    ni = tb.nodes.view(torch.int32)
+    nf = tb.nodes
+    n = tb.n_slots
+    qt = torch.from_numpy(q)
+    anc = torch.zeros((q.shape[0], n))
+    is_leaf = torch.zeros(n, dtype=torch.bool)
+    root = int(tb.root_link)
+    stack = [root]
+    while stack:
+        link = stack.pop()
+        s = ~link if link < 0 else link
+        if link < 0:
+            is_leaf[s] = True
+            continue
+        box = nf[s]
+        c = torch.clamp(qt, min=box[0:3], max=box[3:6]) - qt
+        d2_box = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
+        first = int(ni[s, 12])
+        second = int(ni[~first if first < 0 else first, 13])
+        for child in (first, second):
+            cs = ~child if child < 0 else child
+            anc[:, cs] = torch.maximum(anc[:, s], d2_box)
+            stack.append(child)
+    leaves = torch.nonzero(is_leaf).squeeze(1)
+    w = nf[leaves]
+    qx, qy, qz = (qt[:, k:k + 1] for k in range(3))
+    ax, ay, az, abx, aby, abz, acx, acy, acz = (w[None, :, k] for k in range(9))
+    v, ww = ericson_vw_planes(qx, qy, qz, ax, ay, az, abx, aby, abz, acx, acy, acz)
+    ex, ey, ez = (qx - (ax + v * abx + ww * acx), qy - (ay + v * aby + ww * acy),
+                  qz - (az + v * abz + ww * acz))
+    return leaves, ex * ex + ey * ey + ez * ez, anc[:, leaves]
+
+
+@pytest.mark.parametrize("max_dist", [0.25, 2.0, 3.0e38])
+@pytest.mark.parametrize("name", ["room", "sphere_room", "building", "far_leaf"])
+def test_split_walk_returns_the_serial_winner(name, max_dist):
+    """The plain split walk (P = 2, 4, 8) against the serial walk (P = 1),
+    on scattered queries and on queries on vertices and edge midpoints,
+    where several leaves tie at the least d2 (the test asserts they do).
+    best_d2, point and slot are bitwise equal on every query but those
+    where float rounding puts a leaf's d2 below one of its ancestors'
+    box d2 near the minimum: there a walk can prune a slightly nearer
+    leaf, so the two winners' distances agree within D_RTOL / D_ATOL. No
+    more than 1% of the queries are such, and every mismatch is one."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh_reference
+
+    mesh, tb = _split_maps(name)
+    q = np.concatenate([_queries(mesh, n=1000, seed=12), _tie_queries(mesh, 300, 13)])
+    qt = torch.from_numpy(q)
+    max_d2 = torch.full((q.shape[0],), _F(max_dist)) ** 2
+    serial = closest_bvh_reference(tb.nodes, tb.root_link, qt, max_d2, visits=True)
+    leaves, d2, anc = _leaf_and_box_d2(tb, q)
+    d2 = torch.where(d2 < max_d2[:, None], d2, torch.inf)
+    least = d2.min(dim=1, keepdim=True).values
+    ties = (torch.isfinite(least[:, 0]) & ((d2 == least).sum(1) > 1))
+    if name != "far_leaf":
+        assert int(ties[1000:].sum()) >= 20  # vertex and edge queries tie
+    for P in (2, 4, 8):
+        split = closest_bvh_reference(tb.nodes, tb.root_link, qt, max_d2, visits=True, split=P)
+        same = (split[2] == serial[2]) & (split[0] == serial[0])
+        assert torch.equal(same, (split[1] == serial[1]).all(1) & same)
+        off = ~same
+        hi = torch.maximum(split[0], serial[0])[:, None]
+        skewed = ((anc > d2) & (d2 <= hi)).any(1)  # the rounding the walks disagree at
+        assert bool(skewed[off].all())
+        assert float(off.float().mean()) <= 0.01
+        torch.testing.assert_close(split[0][off].sqrt(), serial[0][off].sqrt(), rtol=D_RTOL,
+                                   atol=D_ATOL)
+        assert bool((split[2][ties & same] == serial[2][ties & same]).all())
+        # the split walk visits every query's subtrees: its visits are its own
+        assert torch.equal(split[3].sum(1) > 0, serial[3].sum(1) > 0)
+
+
+@pytest.mark.parametrize("split", [1, 2, 8])
+def test_closest_points_at_each_split_match_jax(monkeypatch, split):
+    """closest_points with the walk forced to P lanes a query (the wrapper
+    takes walk_split's choice) against JAX's closest_points."""
+    from rmcl_tpu_torch.ops import closest_cuda
+
+    monkeypatch.setattr(tcp, "walk_split", lambda n, device=None: split)
+    monkeypatch.setattr(closest_cuda, "walk_split", lambda n, device=None: split)
+    mesh, jb, _, tb, _ = _maps("sphere_room")
+    q = _queries(mesh, n=1500, seed=14)
+    for max_dist in (0.3, 3.0e38):
+        j = jcp.closest_points(jb, jnp.asarray(q), max_dist=max_dist)
+        t = tcp.closest_points(tb, torch.from_numpy(q), max_dist=max_dist)
+        _assert_cp_agree(j, t, max_dist)
+
+
+def test_closest_bvh_wrapper_takes_the_split_plain_version():
+    """On CPU tensors the wrapper runs the plain version at the split it
+    would launch (walk_split of the query count), visits included."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference, walk_split
+
+    mesh, tb = _split_maps("room")
+    q = torch.from_numpy(_queries(mesh, n=700, seed=16))
+    max_d2 = torch.full((700,), 4.0)
+    P = walk_split(700)
+    assert P == 8
+    before = closest_bvh.launches
+    got = closest_bvh(tb.nodes, tb.root_link, q, max_d2, visits=True)
+    for a, b in zip(got, closest_bvh_reference(tb.nodes, tb.root_link, q, max_d2, visits=True,
+                                               split=P)):
+        assert torch.equal(a, b)
+    assert closest_bvh.launches == before
+    with pytest.raises(ValueError):
+        closest_bvh(tb.nodes, tb.root_link, q, max_d2, split=3)
+
+
+def test_closest_points_fixes_the_split_for_the_whole_batch(monkeypatch):
+    """closest_points takes walk_split of the whole batch once and walks
+    every CPU chunk at it, so the chunks give what one launch of all the
+    queries gives. On a card of 2048 threads 700 queries take P = 2, a
+    chunk of 100 alone would take P = 8."""
+    from rmcl_tpu_torch.ops import closest_cuda
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh_reference, walk_split
+
+    monkeypatch.setattr(closest_cuda, "_H100_THREADS", 2048)
+    assert (walk_split(700), walk_split(100)) == (2, 8)
+    splits = []
+
+    def spy(*args, split=None, **kw):
+        splits.append(split)
+        return closest_cuda.closest_bvh(*args, split=split, **kw)
+
+    monkeypatch.setattr(tcp, "closest_bvh", spy)
+    mesh, tb = _split_maps("room")
+    q = np.concatenate([_queries(mesh, n=400, seed=17), _tie_queries(mesh, 150, 18)])
+    got = tcp.closest_points(tb, torch.from_numpy(q), max_dist=2.0, chunk_size=100)
+    assert splits == [2] * 7
+    d2, point, slot = closest_bvh_reference(tb.nodes, tb.root_link, torch.from_numpy(q),
+                                            torch.full((700,), _F(2.0)) ** 2, split=2)
+    assert torch.equal(got.prim_id >= 0, slot >= 0) and bool(got.found.any())
+    assert torch.equal(got.dist[got.found], d2[slot >= 0].sqrt())
+    assert torch.equal(got.point[got.found], point[slot >= 0])
+    leaf_prim = tb.nodes.view(torch.int32)[slot[slot >= 0].long(), 12]
+    assert torch.equal(got.prim_id[got.found], leaf_prim)
+
+
+def test_fill_threads_off_the_card_is_an_h100s():
+    """Off the card the launch-shape rules count an H100's resident
+    threads (132 SMs x 2048), so the plain version takes the card's split."""
+    from rmcl_tpu_torch.ops.closest_cuda import fill_threads
+
+    assert fill_threads() == fill_threads("cpu") == 132 * 2048
+
+
+@pytest.mark.parametrize("n_queries,limit,block,least,want", [
+    (50000, 8, None, 1, 4),
+    (3000, 4, 128, 1, 4),  # B = 4 caps the lanes
+    (100, 32, 1024, 1, 1),  # a 1024-query CTA has no room for more lanes
+    (100, 32, 1024, 2, 1),  # nor for the least asked
+    (10 ** 7, 8, 128, 2, 2),  # a full card still takes the least
+    (10 ** 7, 1, 128, 2, 1),  # bins of one triangle: one lane
+])
+def test_lane_groups_rule(n_queries, limit, block, least, want):
+    from rmcl_tpu_torch.ops.closest_cuda import lane_groups
+
+    G = lane_groups(n_queries, limit, block=block, least=least)
+    assert G == want
+    assert n_queries * G <= 132 * 2048 or G <= least
+    assert block is None or -(-block * G // 32) * 32 <= 1024
+
+
+@pytest.mark.parametrize("n_queries,want", [
+    (14400, 8),  # one VLP-16 scan (chip_smoke phase 8)
+    (700, 8),
+    (50000, 4),
+    (262144, 1),  # phase 9's slice
+    (14399955, 1),  # phase 9
+])
+def test_walk_split_at_the_documented_sizes(n_queries, want):
+    from rmcl_tpu_torch.ops.closest_cuda import walk_split
+
+    assert walk_split(n_queries) == want
+
+
+@pytest.mark.parametrize("n_blk,Rq,B,want", [
+    (113, 128, 64, 8),  # phase 8: 113 blocks of 128
+    (112500, 128, 64, 2),  # phase 9
+    (30, 100, 8, 8),  # B = 8: one triangle a lane
+    (30, 128, 4, 4),  # B = 4 caps the lanes
+    (2000, 128, 64, 2),
+])
+def test_bins_groups_at_the_documented_sizes(n_blk, Rq, B, want):
+    from rmcl_tpu_torch.ops.closest_cuda import bins_groups
+
+    assert bins_groups(n_blk, Rq, B) == want
+
+
+def test_closest_bins_refuses_groups_that_do_not_fit():
+    mesh, _, _, _, tbins = _maps("room")  # bins of 16
+    q = torch.from_numpy(_queries(mesh, n=256, seed=6))
+    inputs = tcp.binned_inputs(tbins, q, torch.full((256,), 0.25), 128, c_super=8, c_bin=32)
+    want = closest_bins_reference(tbins.tri, *inputs)
+    for G in (1, 2, 4, 8):
+        assert all(torch.equal(a, b) for a, b in zip(closest_bins(tbins.tri, *inputs, groups=G),
+                                                     want))
+    for G in (3, 16, 32):  # not a power of two; 2048 threads for 128 queries; over B
+        with pytest.raises(ValueError):
+            closest_bins(tbins.tri, *inputs, groups=G)

@@ -524,39 +524,68 @@ def test_traverse_kernel_matches_plain_version(card, mesh, case):
         assert int(k[2][::3].sum()) == 0
 
 
+def _tie_queries(mesh, dev, n=500, seed=11):
+    """Queries on mesh vertices and on edge midpoints: several triangles
+    then lie at the same least distance."""
+    rng = np.random.default_rng(seed)
+    v = mesh.vertices.astype(np.float32)
+    f = mesh.faces[rng.integers(0, mesh.faces.shape[0], n)]
+    mid = (v[f[:, 0]] + v[f[:, 1]]) * np.float32(0.5)
+    return torch.from_numpy(np.concatenate([v[rng.integers(0, v.shape[0], n)], mid])).to(dev)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
 @pytest.mark.parametrize("mesh,max_dist", [
     ("room", 3.0e38),
     ("room", 0.25),
     ("sphere", 1.0),
     ("building", 0.5),
 ])
-def test_closest_bvh_kernel_matches_plain_version(card, mesh, max_dist):
+def test_closest_bvh_kernel_matches_plain_version(card, mesh, max_dist, split):
+    """Each split P the wrapper can take, on scattered queries and on
+    vertex and edge-midpoint queries (equal-distance ties): the kernel
+    equals the plain version at the same P bitwise, and its winners are
+    the serial walk's but at the float near-ties tests/
+    test_torch_closest_point.py characterises."""
     from rmcl_tpu_torch.bvh.builder import build_bvh
     from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, closest_bvh_reference
 
     m = _exact_mesh(mesh)
     bvh = build_bvh(m, device=card)
-    q = _points_in(m, card, 3000, 9, 0.1)
+    q = torch.cat([_points_in(m, card, 3000, 9, 0.1), _tie_queries(m, card)]).contiguous()
     md = torch.tensor(max_dist, dtype=torch.float32, device=card)
     max_d2 = (md * md).expand(q.shape[0]).contiguous()
     before = closest_bvh.launches
-    k = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
-    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+    k = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True, split=split)
+    p = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, visits=True, split=split)
     torch.cuda.synchronize()
     assert closest_bvh.launches == before + 1
     assert (p[2] >= 0).float().mean() > 0.2
     for a, b in zip(k, p):  # best_d2, point, slot, visits: bitwise
         assert torch.equal(a, b)
+    serial = closest_bvh_reference(bvh.nodes, bvh.root_link, q, max_d2, split=1)
+    off = k[2] != serial[2]
+    assert off.float().mean() <= 0.005
+    torch.testing.assert_close(k[0][off].sqrt(), serial[0][off].sqrt(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("mesh,B,Rq,max_dist", [
-    ("room", 8, 128, 3.0e38),
-    ("sphere", 32, 128, 0.5),
-    ("sphere", 64, 100, 1.0),  # the last warp of each block is partly idle
-    ("building", 64, 128, 0.5),
-    ("sphere", 512, 128, 2.0),  # the largest bin MeshMap builds
+@pytest.mark.parametrize("mesh,B,Rq,max_dist,groups", [
+    ("room", 8, 128, 3.0e38, 1),
+    ("room", 8, 128, 3.0e38, 8),  # one triangle a lane
+    ("room", 8, 100, 3.0e38, 8),
+    ("sphere", 32, 128, 0.5, 1),
+    ("sphere", 32, 128, 0.5, 4),
+    ("sphere", 64, 100, 1.0, 1),  # the last warp of each block is partly idle
+    ("sphere", 64, 100, 1.0, 2),
+    ("sphere", 64, 100, 1.0, 8),  # partial lane groups at the block's end
+    ("building", 64, 128, 0.5, 1),
+    ("building", 64, 128, 0.5, 2),
+    ("building", 64, 128, 0.5, 4),
+    ("building", 64, 128, 0.5, 8),
+    ("sphere", 512, 128, 2.0, 1),  # the largest bin MeshMap builds
+    ("sphere", 512, 128, 2.0, 8),
 ])
-def test_closest_bins_kernel_matches_plain_version(card, mesh, B, Rq, max_dist):
+def test_closest_bins_kernel_matches_plain_version(card, mesh, B, Rq, max_dist, groups):
     from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bins_reference
     from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
 
@@ -566,13 +595,66 @@ def test_closest_bins_kernel_matches_plain_version(card, mesh, B, Rq, max_dist):
     inputs = binned_inputs(bins, q, _max_d2(max_dist, q.shape[:1], card, cap=1.7e19), Rq,
                            c_super=8, c_bin=64)
     before = closest_bins.launches
-    k = closest_bins(bins.tri, *inputs)
+    k = closest_bins(bins.tri, *inputs, groups=groups)
     p = closest_bins_reference(bins.tri, *inputs)
     torch.cuda.synchronize()
     assert closest_bins.launches == before + 1
     assert (p[1] >= 0).float().mean() > 0.05  # some queries lie within max_dist
     for a, b in zip(k, p):  # best_key, best_bin: bitwise
         assert torch.equal(a, b)
+
+
+def test_closest_kernels_take_the_documented_splits(card):
+    """The wrappers' own choice (PERF.md): K6 walks one scan's 14,400
+    queries with P = 8 and 1M queries with P = 1 (the visits show which
+    walk ran); K6b takes G = 8 at 113 blocks of 128 and G = 2 at 7,813.
+    The rules count the card's own resident threads: an H100's 132 x 2048."""
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.closest_cuda import bins_groups, closest_bvh, fill_threads
+
+    assert fill_threads(card) == 132 * 2048
+    m = _exact_mesh("building")
+    bvh = build_bvh(m, device=card)
+    for n, P in ((14400, 8), (1 << 20, 1)):
+        q = _points_in(m, card, n, 13, 0.1)
+        max_d2 = torch.full((n,), 0.25, device=card)
+        auto = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True)
+        forced = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True, split=P)
+        other = closest_bvh(bvh.nodes, bvh.root_link, q, max_d2, visits=True, split=9 - P)
+        assert torch.equal(auto[3], forced[3]) and not torch.equal(auto[3], other[3])
+    assert bins_groups(113, 128, 64, card) == 8
+    assert bins_groups(7813, 128, 64, card) == 2
+
+
+def test_closest_points_on_card_match_cpu_above_chunk_size(card):
+    """100,000 queries, above closest_points' CPU chunk of 65,536: the card
+    walks them in one launch at P = walk_split(100,000) = 2, the CPU in two
+    chunks at the same P (a chunk alone would take P = 4, and on these
+    queries the walks at P = 2 and 4 part at a near-tie), so the winners,
+    points, normals and squared distances are bitwise equal; each device
+    then takes its own square root, which may round apart."""
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh_reference, walk_split
+    from rmcl_tpu_torch.ops.closest_point import closest_points
+
+    m = _exact_mesh("room")
+    cpu = torch.device("cpu")
+    q = torch.cat([_points_in(m, cpu, 98000, 9, 0.1), _tie_queries(m, cpu, n=1000)]).contiguous()
+    assert (walk_split(q.shape[0], card), walk_split(65536, card)) == (2, 4)
+    g, c = (closest_points(build_bvh(m, device=dev), q.to(dev), max_dist=0.5)
+            for dev in (card, cpu))
+    for f in ("point", "normal", "prim_id", "found"):
+        assert torch.equal(getattr(g, f).cpu(), getattr(c, f))
+    # the squared distance from the (equal) points, with the walks' arithmetic
+    found = c.found
+    e = q[found] - c.point[found]
+    d2 = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+    assert torch.equal(c.dist[found], d2.sqrt())
+    assert torch.equal(g.dist[found.to(card)], d2.to(card).sqrt())
+    bvh = build_bvh(m, device=cpu)
+    md = torch.full((q.shape[0],), 0.25)
+    a, b = (closest_bvh_reference(bvh.nodes, bvh.root_link, q, md, split=P)[2] for P in (2, 4))
+    assert bool((a != b).any())
 
 
 def test_exact_kernels_refuse_misaligned_nodes(card):
