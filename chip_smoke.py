@@ -43,17 +43,22 @@ Phases (any failure ends the run with a nonzero exit code):
    error and to one launch a correction; K5, K6 and K6b against their plain
    versions on the last corrections' inputs (bitwise, K6 at the split P
    its wrapper takes, and also against the serial walk), the lanes each
-   launch takes (K6's P, K6b's G), the registers of the closest-point
-   kernels, the divisions K6b's pairs run, the candidate cull
-   (``binned_inputs``) timed beside its bound, and the exact engine's hits
-   against the unbudgeted dense engine's;
+   launch takes (K6's P, K6b's G), the registers of the exact engine's
+   kernels (none may spill), the divisions K6b's pairs run, the candidate
+   cull (``binned_inputs``) timed beside its bound, and the exact engine's
+   hits against the unbudgeted dense engine's;
 9. the exact engine at the reference benchmark's size: the ~1M-face
    sphere's BVH, phase 5's 14.4M rays through ``cast_rays`` (K5; t against
    the dense cast), the noisy hit points' closest points through both
    engines (K6b, K6; they must agree), ``occluded`` on 1000 particle moves,
    each kernel against its plain version on a 262,144-ray or -query slice,
    and the binned query split by CUDA events into its steps (the Morton
-   order, the candidate cull, K6b, the winners and un-permute).
+   order, the candidate cull, K6b, the winners and un-permute);
+10. MCL's sensor-update cast at the reference's size: 1,048,576 particles
+   uniform over phase 4's building floor x 100 beams sampled from phase
+   4's scan (104,857,600 rays, t_max = range + 12 m) through ``cast_rays``
+   (one K5 launch), K5 against its plain version on a 262,144-ray slice,
+   timed on every ray with the beams in sampled and in angular order.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -178,6 +183,18 @@ QUERY_BLOCK_CHUNK = 1024  # query blocks per step of the binned engine's candida
 # at the sphere's 50 m radius, where each engine rounds its own point)
 QUERY_DIST_RTOL = 1e-5
 QUERY_DIST_ATOL = 2e-5
+# phase 10: MCL's sensor-update cast at the reference's size (MCL_1M_r05.json:
+# 1M particles x 100 beams on the 486,544-face building): particles uniform
+# over the building's floor (make_building_scene's 4 x 3 rooms of 6 m) at
+# the sensor's height, beams sampled from phase 4's scan, each beam's reach
+# capped at its range + range_cap_sigmas x dist_sigma = 6 x 2.0 m
+# (rmcl_tpu/mcl/sensor_update.py:115-135)
+MCL_PARTICLES = 1 << 20
+MCL_BEAMS = 100
+MCL_SEED = 10
+MCL_FLOOR = (24.0, 18.0)
+MCL_Z = 1.5
+MCL_RANGE_CAP = 12.0
 # K5: float instructions per ray (three guarded reciprocals, 3 each; the
 # entry compare), per internal visit (the slab test: 6 differences, 6
 # products, 3 minima and 3 maxima of the pairs, 2 + 2 for t_near and t_far, 3
@@ -1032,10 +1049,13 @@ def closest_bins_bound(inputs, best_key, B):
     return bound_of(bytes_moved, ops) + (visits,)
 
 
-def check_traverse(name, bvh, rays, bound_rays=None):
+def check_traverse(name, bvh, rays, device_timed=False):
     """K5 against its plain version on the same CUDA tensors (t_best, slot
     and each ray's visits bitwise), with timings and the bound; the bound
-    counts the slots the plain version read."""
+    counts the slots the plain version read. ``device_timed``: the kernel's
+    time from the profiler's device trace (``call_ms`` keeps the call by
+    events, ``timed_by`` says which one ``ms`` is), for a launch shorter
+    than the host's call."""
     from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, traverse_rays_reference
 
     launches = traverse_rays.launches
@@ -1049,12 +1069,18 @@ def check_traverse(name, bvh, rays, bound_rays=None):
     if traverse_rays.launches != launches + 1:
         fail(f"{name}: K5 did not launch")
     if not all(torch.equal(a, b) for a, b in zip(k, p)):
-        bad = int((k[1] != p[1]).sum()) + int((k[0] != p[0]).sum())
-        fail(f"{name}: K5 and its plain version disagree ({bad} t or slot differences)")
+        fail(f"{name}: K5 and its plain version disagree ({int((k[1] != p[1]).sum())} slots, "
+             f"{int((k[0] != p[0]).sum())} t, {int((k[2] != p[2]).any(1).sum())} visits)")
     out = dict(max_abs_err=float((k[0] - p[0]).abs().max()), bitwise=True,
                hit_frac=float((k[1] >= 0).float().mean()), plain_ms=plain_ms,
-               slots_read=int(seen.sum()))
-    out["ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, *rays), reps=3)
+               slots_read=int(seen.sum()), timed_by="events")
+    launch = lambda: traverse_rays(bvh.nodes, bvh.root_link, *rays)
+    out["ms"] = cuda_ms(launch, reps=3)
+    if device_timed:
+        out["call_ms"] = out["ms"]
+        trace_ms = device_ms(launch, "traverse_bvh")
+        if trace_ms is not None:
+            out["ms"], out["timed_by"] = trace_ms, "device trace"
     out["bound_ms"], out["bound_by"], out["visits"] = traverse_bound(k[2], rays[0].shape[0],
                                                                      out["slots_read"])
     return out
@@ -1263,15 +1289,18 @@ def phase_exact_main_path(main_r):
 
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.pipeline import MICPSensorConfig, correct_once
-    from rmcl_tpu_torch.ops.closest_cuda import bins_groups, kernel_registers, walk_split
+    from rmcl_tpu_torch.ops import closest_cuda, traverse_cuda
+    from rmcl_tpu_torch.ops.closest_cuda import bins_groups, walk_split
     from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
     from rmcl_tpu_torch.ops.order import cluster_order
     from rmcl_tpu_torch.ops.raycast import cast_rays
     from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
 
-    regs = kernel_registers()
-    log("phase 8 closest-point kernels as built (registers, local bytes a thread; local bytes "
+    regs = {**traverse_cuda.kernel_registers(), **closest_cuda.kernel_registers()}
+    log("phase 8 exact-engine kernels as built (registers, local bytes a thread; local bytes "
         "are spills): " + ", ".join(f"{k} {r} regs {b} B" for k, (r, b) in regs.items()))
+    if any(b for _, b in regs.values()):
+        fail("phase 8: a kernel spills to local memory")
     bmap, model, sensor = main_r["bmap"], main_r["model"], main_r["sensor"]
     true_pose, config = main_r["true_pose"], main_r["config"]
     tbo = Transform.identity()
@@ -1317,9 +1346,11 @@ def phase_exact_main_path(main_r):
     lim = (torch.full((n,), model.range.min, device="cuda"),
            torch.full((n,), model.range.max, device="cuda"))
     tsm = (runs["rc_bvh"]["tom"] @ tbo) @ sensor.tsb
-    r5 = check_traverse("phase 8 K5", bmap.bvh, (tsm.apply(o_s), tsm.rotate(d_s), *lim))
+    r5 = check_traverse("phase 8 K5", bmap.bvh, (tsm.apply(o_s), tsm.rotate(d_s), *lim),
+                        device_timed=True)
     log(exact_line("phase 8 K5 on the last RC correction's rays", r5,
-                   f"{r5['slots_read']} of {bmap.bvh.n_slots} slots read"))
+                   f"{r5['slots_read']} of {bmap.bvh.n_slots} slots read")
+        + f"; kernel by the {r5['timed_by']}, the call {r5['call_ms']:.4f} ms by events")
     # K6 on the last CP correction's queries (find_cpc's map-frame points)
     tsm = (runs["cp_bvh"]["tom"] @ tbo) @ sensor.tsb
     q = tsm.apply(sensor.points).contiguous()
@@ -1367,9 +1398,150 @@ def phase_exact_main_path(main_r):
                 cp_candidates=cand, registers=regs)
 
 
+def reference_scan_rays(model):
+    """Phase 9's rays: N_POSES poses of ``model`` at uniform offsets in [-5,
+    5] m (seed 0), unrotated; (o, d) flattened to (N_POSES * rays, 3) and
+    the offsets (numpy)."""
+    from rmcl_tpu_torch.math.se3 import Quaternion, Transform
+
+    trans = np.random.default_rng(0).uniform(-5, 5, size=(N_POSES, 3)).astype(np.float32)
+    tsm = Transform(rot=Quaternion.identity((N_POSES,), "cuda"),
+                    trans=torch.from_numpy(trans).cuda()).expand_dims(-1)
+    o_s, d_s = model.rays("cuda")
+    return (tsm.apply(o_s).reshape(-1, 3).contiguous(),
+            tsm.rotate(d_s).reshape(-1, 3).contiguous(), trans)
+
+
+def mcl_beams(points, mask, seed=MCL_SEED):
+    """MCL_BEAMS beams drawn with ``seed`` from the valid points of a
+    sensor-frame scan, with replacement as the JAX package's
+    ``mcl/sensor_update.py::sample_beams`` draws them: unit directions (S,
+    3) and ranges (S,)."""
+    valid = torch.nonzero(mask.reshape(-1)).squeeze(1).cpu().numpy()
+    pick = np.random.default_rng(seed).choice(valid, MCL_BEAMS, replace=True)
+    p = points.reshape(-1, 3)[torch.from_numpy(pick).to(points.device)]
+    r = torch.linalg.vector_norm(p, dim=1)
+    return p / r[:, None], r
+
+
+def angular_order(dirs):
+    """The beams' angular order, as the JAX package sorts them once for its
+    particle-major layouts (``sensor_update.py:340-350``): by the elevation's
+    band of 22.5 degrees, then the azimuth in 512 steps (a stable sort)."""
+    az = torch.atan2(dirs[:, 1], dirs[:, 0])
+    el = torch.asin(torch.clamp(dirs[:, 2], -1.0, 1.0))
+    band = torch.clamp(((el + np.pi * 0.5) * (8.0 / np.pi)).to(torch.int32), 0, 7)
+    azq = torch.clamp(((az + np.pi) * (512.0 / (2.0 * np.pi))).to(torch.int32), 0, 511)
+    return torch.argsort(band * 512 + azq, stable=True)
+
+
+def mcl_rays(dirs, ranges, n_particles=MCL_PARTICLES, seed=MCL_SEED):
+    """MCL's sensor-update rays, particle-major: ``n_particles`` poses drawn
+    with ``seed`` uniformly over the building's floor (x in [0, 24], y in
+    [0, 18] m, z = MCL_Z, yaw in [-pi, pi); MCLNode.global_localization's
+    box) and ray (i, s) = particle i's pose applied to beam s. Returns o, d
+    (n_particles * S, 3) and t_max (range + MCL_RANGE_CAP) (n_particles *
+    S,), contiguous."""
+    from rmcl_tpu_torch.math.se3 import Transform
+
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_particles, 6), np.float32)
+    poses[:, :2] = rng.uniform((0.0, 0.0), MCL_FLOOR, (n_particles, 2))
+    poses[:, 2] = MCL_Z
+    poses[:, 5] = rng.uniform(-np.pi, np.pi, n_particles)
+    tsm = Transform.from_pose_tuple(torch.from_numpy(poses).cuda()).expand_dims(-1)
+    S = dirs.shape[0]
+    d = tsm.rotate(dirs).reshape(-1, 3).contiguous()
+    o = tsm.trans.expand(n_particles, S, 3).reshape(-1, 3).contiguous()
+    t_max = (ranges + MCL_RANGE_CAP).expand(n_particles, S).reshape(-1).contiguous()
+    return o, d, t_max
+
+
+def phase_mcl_cast(main_r):
+    """Phase 10: MCL's sensor-update cast at the reference's size on phase
+    4's building map, through ``cast_rays`` (host clock and events), then
+    K5 against its plain version on a slice, timed on all rays in the
+    beams' sampled and angular orders (which change no ray's result)."""
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    bvh, sensor = main_r["bmap"].bvh, main_r["sensor"]
+    dirs, ranges = mcl_beams(sensor.points, sensor.mask)
+    o, d, t_max = mcl_rays(dirs, ranges)
+    n = o.shape[0]
+    log(f"phase 10 rays: {MCL_PARTICLES} particles x {MCL_BEAMS} beams = {n} rays on the "
+        f"building's BVH ({bvh.n_slots} slots, {bvh.nbytes() / 1e6:.1f} MB); beam ranges "
+        f"{float(ranges.min()):.2f}-{float(ranges.max()):.2f} m (median "
+        f"{float(ranges.median()):.2f}), t_max = range + {MCL_RANGE_CAP} m")
+    cast_rays(bvh, o[:1024], d[:1024], t_max=t_max[:1024])  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # the main drive: one cast of every ray
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    reset_counts()
+    t = time.perf_counter()
+    ev[0].record()
+    hits = cast_rays(bvh, o, d, t_min=0.0, t_max=t_max)
+    ev[1].record()
+    torch.cuda.synchronize()
+    cast_ms = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hit = hits.hit
+    hit_frac = float(hit.float().mean())
+    finite = bool(torch.isfinite(hits.t[hit]).all() & torch.isfinite(hits.point[hit]).all())
+    in_range = bool(((hits.t[hit] > 0) & (hits.t[hit] <= t_max[hit] * (1 + T_RTOL))).all())
+    log(f"phase 10 cast_rays: {n} rays in {cast_ms:.2f} ms (host clock; "
+        f"{ev[0].elapsed_time(ev[1]):.2f} ms by events), hits {hit_frac:.6f}, peak memory "
+        f"{peak_gb:.2f} GB; launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if counts["K5"] != 1 or sum(counts.values()) != 1:
+        fail(f"phase 10: the cast launched {counts} (K5 once expected)")
+    if tuple(hits.t.shape) != (n,) or not finite or not in_range or not hit_frac > 0.5:
+        fail(f"phase 10: the cast's hits are off (shape {tuple(hits.t.shape)}, finite {finite}, "
+             f"t within (0, t_max] {in_range}, hits {hit_frac})")
+    S = EXACT_SLICE
+    head = (hits.hit[:S].clone(), hits.prim_id[:S].clone())
+    del hits, hit
+
+    # K5 against its plain version on the first rays; the cast's hits there
+    t_min = torch.zeros(n, device="cuda")
+    r5 = check_traverse("phase 10 K5", bvh, (o[:S], d[:S], t_min[:S], t_max[:S]))
+    _, slot, _ = traverse_rays(bvh.nodes, bvh.root_link, o[:S], d[:S], t_min[:S], t_max[:S],
+                               visits=True)
+    prim = bvh.nodes.view(torch.int32)[slot.clamp(min=0).long(), 12]
+    if not (torch.equal(head[0], slot >= 0) and torch.equal(head[1][head[0]], prim[slot >= 0])):
+        fail("phase 10: cast_rays' hits differ from K5's plain version on the first rays")
+    # K5 on every ray: one run with visits (the bound), then timed; the
+    # same rays with the beams in angular order
+    _, slot, visits = traverse_rays(bvh.nodes, bvh.root_link, o, d, t_min, t_max, visits=True)
+    r5["ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, o, d, t_min, t_max),
+                       reps=3)
+    r5["bound_ms"], r5["bound_by"], r5["visits"] = traverse_bound(visits, n, r5["slots_read"])
+    r5.update(launches=counts["K5"], hit_frac=hit_frac,
+              cast_ms=cast_ms, cast_event_ms=ev[0].elapsed_time(ev[1]), peak_gb=peak_gb,
+              visits_per_ray=r5["visits"] / n,
+              visits_p99=float(torch.quantile(visits[:S].sum(1).double(), 0.99)),
+              visits_max=int(visits.sum(1).max()))
+    log(exact_line(f"phase 10 K5 ({n} rays; plain version on the first {S})", r5, f"{S} rays")
+        + f"; visits a ray {r5['visits_per_ray']:.1f} mean, {r5['visits_p99']:.0f} p99 "
+        f"(first {S}), {r5['visits_max']} max")
+    del o, d, t_max, visits
+    order = angular_order(dirs)
+    o, d, t_max = mcl_rays(dirs[order], ranges[order])
+    _, slot_a = traverse_rays(bvh.nodes, bvh.root_link, o, d, t_min, t_max)
+    if not torch.equal(slot_a.view(-1, MCL_BEAMS), slot.view(-1, MCL_BEAMS)[:, order]):
+        fail("phase 10: the angular order changed a ray's result")
+    r5["angular_ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, o, d, t_min,
+                                                     t_max), reps=3)
+    log(f"phase 10 K5 with the beams in angular order: {r5['angular_ms']:.3f} ms against "
+        f"{r5['ms']:.3f} ms in sampled order (the same rays' results)")
+    del o, d, t_max, t_min, slot, slot_a
+    return r5
+
+
 def phase_exact_reference_size(sphere_mesh, sphere_bins):
     from rmcl_tpu_torch.bvh.builder import build_bvh
-    from rmcl_tpu_torch.math.se3 import Quaternion, Transform
     from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, walk_split
     from rmcl_tpu_torch.ops.closest_point import (_max_d2, binned_inputs, closest_points,
                                                   closest_points_binned)
@@ -1385,12 +1557,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
     log(f"phase 9 map: sphere BVH {bvh.n_slots} slots, {bvh.nbytes() / 1e6:.1f} MB, built in "
         f"{time.perf_counter() - t0:.2f} s")
     model = SphericalModel.vlp16()
-    trans = np.random.default_rng(0).uniform(-5, 5, size=(N_POSES, 3)).astype(np.float32)
-    tsm = Transform(rot=Quaternion.identity((N_POSES,), "cuda"),
-                    trans=torch.from_numpy(trans).cuda()).expand_dims(-1)
-    o_s, d_s = model.rays("cuda")
-    o = tsm.apply(o_s).reshape(-1, 3).contiguous()
-    d = tsm.rotate(d_s).reshape(-1, 3).contiguous()
+    o, d, trans = reference_scan_rays(model)
     n = o.shape[0]
     lim = dict(t_min=model.range.min, t_max=model.range.max)
     cast_rays(bvh, o[:1024], d[:1024], **lim)  # warm-up, not counted
@@ -1481,6 +1648,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
     r5["ms"] = cuda_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, o, d, t_lo, t_hi), reps=3)
     # the slots the slice's walks read: a floor for the whole cast's
     r5["bound_ms"], r5["bound_by"], r5["visits"] = traverse_bound(visits, n, r5["slots_read"])
+    r5.update(launches=counts["K5"])
     log(exact_line(f"phase 9 K5 ({n} rays; plain version on the first {S})", r5,
                    f"{S} rays"))
     max_d2 = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda")
@@ -1539,7 +1707,8 @@ def main():
     phase_tracking(main_r)
     sweep_r = phase_sweep()
     exact_r = phase_exact_main_path(main_r)
-    phase_exact_reference_size(sphere_mesh, sphere)
+    ref_r = phase_exact_reference_size(sphere_mesh, sphere)
+    mcl_r = phase_mcl_cast(main_r)
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -1559,7 +1728,11 @@ def main():
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),
         dict(row("traverse_rays", "rmcl_tpu_torch/csrc/traverse_bvh.cu",
-                 "rmcl_tpu/ops/raycast.py:73", exact_r["k5"]), bitwise=True),
+                 "rmcl_tpu/ops/raycast.py:73", exact_r["k5"]), bitwise=True,
+             timed_by=exact_r["k5"]["timed_by"], registers=exact_r["registers"]["K5"][0],
+             phases={ph: {k: r[k] for k in ("ms", "bound_ms", "bound_by", "launches")}
+                     for ph, r in (("8", exact_r["k5"]), ("9", ref_r["k5"]), ("10", mcl_r))},
+             phase10_angular_ms=mcl_r["angular_ms"]),
         dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
                  "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True,
              split=exact_r["k6"]["split"],

@@ -39,7 +39,7 @@ import torch
 
 from rmcl_tpu_torch import _build
 from rmcl_tpu_torch.bvh.types import SENTINEL_LINK
-from rmcl_tpu_torch.ops.traverse_cuda import check_rows, check_slots
+from rmcl_tpu_torch.ops.bvh_walk import check_rows, check_slots
 
 Tensor = torch.Tensor
 

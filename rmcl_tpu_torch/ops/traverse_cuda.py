@@ -6,6 +6,7 @@ engine, ``rmcl_tpu/ops/raycast.py::_traverse_batch`` (:73, loop :131-211),
 and its round scheduler ``_traverse_rounds`` (:226), which is bitwise
 neutral. The kernel source is ``rmcl_tpu_torch/csrc/traverse_bvh.cu``; its
 header says what bounds it on the card and what the design does about it.
+One thread walks a ray.
 
 Contract: ``nodes (N, 16)`` float32 threaded slots (words 12-14 int32 bit
 patterns), ``root_link ()`` int32; rays ``o, d (R, 3)``, ``t_min, t_max
@@ -23,6 +24,7 @@ import torch
 
 from rmcl_tpu_torch import _build
 from rmcl_tpu_torch.bvh.types import SENTINEL_LINK
+from rmcl_tpu_torch.ops.bvh_walk import check_rows, check_slots
 
 Tensor = torch.Tensor
 
@@ -32,39 +34,29 @@ _ONE_PLUS_EPS = 1.0 + _EPS
 
 
 @functools.lru_cache(maxsize=None)
+def _library():
+    return _build.load_library("traverse_bvh")
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel():
     """The kernel's C entry point (``rmcl_traverse_bvh``), built on first use."""
-    fn = _build.load_library("traverse_bvh").rmcl_traverse_bvh
+    fn = _library().rmcl_traverse_bvh
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_slots(nodes: Tensor, root_link: Tensor):
-    if nodes.dtype != torch.float32 or nodes.dim() != 2 or nodes.shape[1] != 16:
-        raise ValueError(f"nodes must be (N, 16) float32, got {tuple(nodes.shape)} {nodes.dtype}")
-    if not nodes.is_contiguous():
-        raise ValueError("nodes must be contiguous")
-    if root_link.dtype != torch.int32 or root_link.dim() != 0:
-        raise ValueError("root_link must be a 0-dim int32 tensor")
-    if root_link.device != nodes.device:
-        raise ValueError(f"root_link is on {root_link.device}, nodes on {nodes.device}")
-    if nodes.device.type == "cuda" and nodes.data_ptr() % 16:
-        raise ValueError("nodes must start on a 16-byte boundary (the kernel reads a slot as "
-                         "four 16-byte loads): pass a fresh tensor, not an offset view")
-
-
-def check_rows(dev, **tensors):
-    """Each ``name=(tensor, dtype, shape)`` on ``dev``, contiguous."""
-    for name, (x, dtype, shape) in tensors.items():
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, nodes on {dev}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def kernel_registers() -> dict:
+    """Registers and local-memory bytes a thread (spills show as local
+    memory) of K5's kernel as built, by ``cudaFuncGetAttributes``:
+    ``{"K5": (regs, local)}``. Needs a card."""
+    fn = _library().rmcl_traverse_bvh_attrs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    if fn(ctypes.byref(regs), ctypes.byref(local)):
+        raise RuntimeError("cudaFuncGetAttributes failed for K5")
+    return {"K5": (regs.value, local.value)}
 
 
 def traverse_rays(nodes: Tensor, root_link: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
@@ -107,6 +99,43 @@ def _safe_inv(v: Tensor) -> Tensor:
     return 1.0 / torch.where(torch.abs(v) > 1e-20, v, 1e-20)
 
 
+def _leaf_t(w, ox, oy, oz, dx, dy, dz, tmin):
+    """Moller-Trumbore (the Pallas-form test) on the inline triangles of
+    float slot rows ``w``: (t, whether the hit passes every gate but the
+    compare with the best), the kernel's arithmetic term for term."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (w[:, k] for k in range(9))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    det_ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    ok = det_ok & (u >= -_EPS) & (v >= -_EPS) & (u + v <= _ONE_PLUS_EPS) & (t > tmin)
+    return t, ok
+
+
+def _box_enter(w, ox, oy, oz, ix, iy, iz, tmin, tb):
+    """The slab test of the boxes of float slot rows ``w``: descend?"""
+    tx0 = (w[:, 0] - ox) * ix
+    tx1 = (w[:, 3] - ox) * ix
+    ty0 = (w[:, 1] - oy) * iy
+    ty1 = (w[:, 4] - oy) * iy
+    tz0 = (w[:, 2] - oz) * iz
+    tz1 = (w[:, 5] - oz) * iz
+    t_near = torch.maximum(torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+                           torch.minimum(tz0, tz1))
+    t_far = torch.minimum(torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+                          torch.maximum(tz0, tz1))
+    return (t_near <= t_far) & (t_far >= tmin) & (t_near <= tb)
+
+
 def traverse_rays_reference(nodes: Tensor, root_link: Tensor, o: Tensor, d: Tensor,
                             t_min: Tensor, t_max: Tensor, visits: bool = False,
                             seen: Tensor | None = None):
@@ -138,40 +167,14 @@ def traverse_rays_reference(nodes: Tensor, root_link: Tensor, o: Tensor, d: Tens
         dx, dy, dz = (d[alive, k] for k in range(3))
         tmin, tb = t_min[alive], t_best[alive]
 
-        # leaf: the inline triangle (Moller-Trumbore, the Pallas-form test)
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (w[:, k] for k in range(9))
-        pvx = dy * e2z - dz * e2y
-        pvy = dz * e2x - dx * e2z
-        pvz = dx * e2y - dy * e2x
-        det = e1x * pvx + e1y * pvy + e1z * pvz
-        det_ok = torch.abs(det) > 1e-12
-        inv_det = torch.where(det_ok, 1.0 / det, 0.0)
-        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-        t_tri = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-        leaf_hit = leaf & det_ok & (u >= -_EPS) & (v >= -_EPS) & (u + v <= _ONE_PLUS_EPS) & (
-            t_tri > tmin) & (t_tri < tb)
-        tb = torch.where(leaf_hit, t_tri, tb)
-        t_best[alive] = tb
+        # leaf: the inline triangle, taken at the strict t < t_best
+        t_tri, ok = _leaf_t(w, ox, oy, oz, dx, dy, dz, tmin)
+        leaf_hit = leaf & ok & (t_tri < tb)
+        t_best[alive] = torch.where(leaf_hit, t_tri, tb)
         best[alive] = torch.where(leaf_hit, idx, best[alive])
 
         # internal: the node's own AABB, slab test
-        ixa, iya, iza = ix[alive], iy[alive], iz[alive]
-        tx0 = (v0x - ox) * ixa
-        tx1 = (e1x - ox) * ixa
-        ty0 = (v0y - oy) * iya
-        ty1 = (e1y - oy) * iya
-        tz0 = (v0z - oz) * iza
-        tz1 = (e1z - oz) * iza
-        t_near = torch.maximum(torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
-                               torch.minimum(tz0, tz1))
-        t_far = torch.minimum(torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
-                              torch.maximum(tz0, tz1))
-        descend = ~leaf & (t_near <= t_far) & (t_far >= tmin) & (t_near <= tb)
+        descend = ~leaf & _box_enter(w, ox, oy, oz, ix[alive], iy[alive], iz[alive], tmin, tb)
         nxt = torch.where(descend, rows[:, 12], rows[:, 13])
         cur[alive] = nxt
         counts[alive, 0] += (~leaf).to(torch.int32)

@@ -8,7 +8,8 @@
 #    inside this one, e.g. `git archive HEAD~1 | tar -x -C build/parent`)
 #    the parent's and this tree's in turns: parent, change, change, parent;
 # 3. the card tests, tests/test_torch_cuda.py (marker cuda);
-# 4. scripts/torch_cp_split_probe.py (with --parent PARENT_DIR if given).
+# 4. scripts/torch_cp_split_probe.py and scripts/torch_k5_probe.py (each
+#    with --parent PARENT_DIR if given).
 #
 # Each step's output goes to $CLOSING_OUT/closing_<step>.log (by default
 # the git-ignored build/closing/) and its exit code is printed; the script
@@ -40,10 +41,12 @@ fi
 step cardtests . python3 -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -m cuda -q \
   -p no:cacheprovider
 tail -n 3 "$out/closing_cardtests.log"
-if [ -n "$parent" ]; then
-  step probe . python3 -m scripts.torch_cp_split_probe --parent "$parent"
-else
-  step probe . python3 -m scripts.torch_cp_split_probe
-fi
-cat "$out/closing_probe.log"
+for probe in cp_split k5; do
+  if [ -n "$parent" ]; then
+    step "probe_$probe" . python3 -m "scripts.torch_${probe}_probe" --parent "$parent"
+  else
+    step "probe_$probe" . python3 -m "scripts.torch_${probe}_probe"
+  fi
+  cat "$out/closing_probe_$probe.log"
+done
 exit $status

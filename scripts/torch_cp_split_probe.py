@@ -20,9 +20,10 @@ the two distances in float32 spacings). Each case prints one
 JSON line: the card, milliseconds (CUDA events, median of 5 after a
 warm-up) per launch shape, the rule's choice. With ``--parent DIR`` it
 also times the two kernels built from ``DIR/rmcl_tpu_torch/csrc`` (an
-older checkout, whose entry points take no P or G) on the same inputs, for
-a before/after in one run; an older source's variants are measured the
-same way. Needs one card; run from the repo root (~2 minutes):
+older checkout) on the same inputs, for a before/after in one run: at the
+rule's P and G where its entry points take them, else in their own launch
+shape. An older source's variants are measured the same way. Needs one
+card; run from the repo root (~2 minutes):
 
     python -m scripts.torch_cp_split_probe [--parent build/parent]
 """
@@ -42,7 +43,7 @@ from rmcl_tpu_torch.bvh.builder import build_bvh
 from rmcl_tpu_torch.bvh.bins import build_bins
 from rmcl_tpu_torch.geom.map import MeshMap
 from rmcl_tpu_torch.geom.mesh import make_building_scene, make_sphere
-from rmcl_tpu_torch.math.se3 import Quaternion, Transform
+from rmcl_tpu_torch.math.se3 import Transform
 from rmcl_tpu_torch.ops import closest_cuda as cc
 from rmcl_tpu_torch.ops.closest_point import _max_d2, binned_inputs
 from rmcl_tpu_torch.ops.order import cluster_order
@@ -119,11 +120,13 @@ def probe_bvh(name, fn, parent, bvh, q, max_d2, card):
         gap_ulps[P] = int((dk - ds).abs().max()) if near_ties[P] else 0
         ms[f"P={P}"] = chip_smoke.cuda_ms(lambda: run_bvh(fn, bvh, q, max_d2, P))
     if parent is not None:
-        got = run_bvh(parent, bvh, q, max_d2)
+        pfn, takes_split = parent
+        P = rule if takes_split else None  # a parent older than the split walk is serial
+        got = run_bvh(pfn, bvh, q, max_d2, P)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise SystemExit(f"{name}: the parent's K6 differs from the serial walk")
-        ms["parent"] = chip_smoke.cuda_ms(lambda: run_bvh(parent, bvh, q, max_d2))
+        if not all(torch.equal(a, b) for a, b in zip(got, run_bvh(fn, bvh, q, max_d2, P or 1))):
+            raise SystemExit(f"{name}: the parent's K6 differs from this walk at P={P or 1}")
+        ms["parent"] = chip_smoke.cuda_ms(lambda: run_bvh(pfn, bvh, q, max_d2, P))
     print(json.dumps({"case": name, "kernel": "K6", "card": card, "queries": q.shape[0],
                       "rule_P": rule, "ms": ms, "winners_off_serial": near_ties,
                       "dist_gap_ulps": gap_ulps, "serial_visits": float(want[3].double().sum())}),
@@ -143,11 +146,13 @@ def probe_bins(name, fn, parent, tri, inputs, card):
             raise SystemExit(f"{name}: K6b at G={G} differs from the rule's result")
         ms[f"G={G}"] = chip_smoke.cuda_ms(lambda: run_bins(fn, tri, inputs, G))
     if parent is not None:
-        got = run_bins(parent, tri, inputs)
+        pfn, takes_groups = parent
+        G = rule if takes_groups else None
+        got = run_bins(pfn, tri, inputs, G)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise SystemExit(f"{name}: the parent's K6b differs")
-        ms["parent"] = chip_smoke.cuda_ms(lambda: run_bins(parent, tri, inputs))
+        ms["parent"] = chip_smoke.cuda_ms(lambda: run_bins(pfn, tri, inputs, G))
     print(json.dumps({"case": name, "kernel": "K6b", "card": card, "blocks": n_blk, "Rq": Rq,
                       "B": B, "rule_G": rule, "ms": ms}), flush=True)
 
@@ -165,8 +170,13 @@ def main():
     parent_bvh = parent_bins = None
     if args.parent:
         src = Path(args.parent) / "rmcl_tpu_torch" / "csrc"
-        parent_bvh = bvh_fn(build("closest_bvh", src, tag="parent"), with_split=False)
-        parent_bins = bins_fn(build("closest_bins", src, tag="parent"), with_groups=False)
+        # entries that take P and G come with an _attrs query; older ones have neither
+        lib = build("closest_bvh", src, tag="parent")
+        split = hasattr(lib, "rmcl_closest_bvh_attrs")
+        parent_bvh = (bvh_fn(lib, with_split=split), split)
+        lib = build("closest_bins", src, tag="parent")
+        groups = hasattr(lib, "rmcl_closest_bins_attrs")
+        parent_bins = (bins_fn(lib, with_groups=groups), groups)
     model = SphericalModel.vlp16()
 
     # phase 8
@@ -185,14 +195,8 @@ def main():
     lat_lon = chip_smoke.SPHERE_LAT_LON
     mesh = make_sphere(lat_lon, lat_lon, radius=50.0)
     bvh, bins = build_bvh(mesh), build_bins(mesh, bin_size=64)
-    n = chip_smoke.N_POSES
-    trans = np.random.default_rng(0).uniform(-5, 5, size=(n, 3)).astype(np.float32)
-    tsm = Transform(rot=Quaternion.identity((n,), "cuda"),
-                    trans=torch.from_numpy(trans).cuda()).expand_dims(-1)
-    o_s, d_s = model.rays("cuda")
-    hits = cast_rays(bvh, tsm.apply(o_s).reshape(-1, 3).contiguous(),
-                     tsm.rotate(d_s).reshape(-1, 3).contiguous(), t_min=model.range.min,
-                     t_max=model.range.max)
+    o, d, _ = chip_smoke.reference_scan_rays(model)
+    hits = cast_rays(bvh, o, d, t_min=model.range.min, t_max=model.range.max)
     pts = hits.point[hits.hit]
     noise = np.random.default_rng(chip_smoke.QUERY_SEED).normal(0.0, chip_smoke.QUERY_NOISE,
                                                                 size=tuple(pts.shape))

@@ -524,6 +524,32 @@ def test_traverse_kernel_matches_plain_version(card, mesh, case):
         assert int(k[2][::3].sum()) == 0
 
 
+def test_traverse_kernel_has_no_spills(card):
+    """K5's kernel as built: registers within the 255 a thread allows, no
+    local memory (spills)."""
+    from rmcl_tpu_torch.ops.traverse_cuda import kernel_registers
+
+    (r, local), = kernel_registers().values()
+    assert 0 < r <= 255 and local == 0
+
+
+def test_cast_rays_on_card_match_cpu(card):
+    """100,000 rays: the card casts them in one launch, the CPU in chunks of
+    30,000 through the plain version; hit and prim ids are equal, t
+    agrees."""
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+
+    m = _exact_mesh("building")
+    cpu = torch.device("cpu")
+    o, d = _scattered_rays(m, cpu, n=100000, seed=17)
+    g = cast_rays(build_bvh(m, device=card), o.to(card), d.to(card), t_max=8.0)
+    c = cast_rays(build_bvh(m, device=cpu), o, d, t_max=8.0, chunk_size=30000)
+    assert torch.equal(g.hit.cpu(), c.hit) and bool(c.hit.float().mean() > 0.5)
+    assert torch.equal(g.prim_id.cpu(), c.prim_id)
+    torch.testing.assert_close(g.t.cpu(), c.t, rtol=T_TOL, atol=T_TOL)
+
+
 def _tie_queries(mesh, dev, n=500, seed=11):
     """Queries on mesh vertices and on edge midpoints: several triangles
     then lie at the same least distance."""
