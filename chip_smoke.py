@@ -58,7 +58,23 @@ Phases (any failure ends the run with a nonzero exit code):
    uniform over phase 4's building floor x 100 beams sampled from phase
    4's scan (104,857,600 rays, t_max = range + 12 m) through ``cast_rays``
    (one K5 launch), K5 against its plain version on a 262,144-ray slice,
-   timed on every ray with the beams in sampled and in angular order.
+   timed on every ray with the beams in sampled and in angular order;
+11. MCL on the card at the JAX MCL benchmark's workload (the building with
+   doors at mid-wall, bins of 64 in supers of 16 and hypers of 16, one
+   VLP-16 scan at the truth): (a) the full cycle on 1,048,576 particles x
+   100 beams — motion update, a global cluster order, one beam sample,
+   four 262,144-particle binned sensor updates (K3 with the hyper level, K1
+   in candidate-count order), gladiator resampling, statistics — after the
+   budget audit, a warm cycle and three timed ones, the estimate within
+   0.1 m of the truth, the stages of one more cycle by events, K1 and K3
+   against their plain versions on a slice and timed on a whole chunk; (b)
+   one sensor update per engine on a 65,536-particle slice with one beam
+   set (bvh, seeded, binned particle-major, binned beam-major with and
+   without the mid level): seeded = bvh, binned = bvh on certified
+   particles, mid level = two levels, K3 with the mid level bitwise its
+   plain version, K5's refine launch in the seeded pass, and a CP update
+   per engine (K6, K6b); (c) ``MCLNode`` at 100,000 particles with engine
+   "auto", ten steps of +0.2 m, its final error below 0.25 m.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -195,6 +211,33 @@ MCL_SEED = 10
 MCL_FLOOR = (24.0, 18.0)
 MCL_Z = 1.5
 MCL_RANGE_CAP = 12.0
+# phase 11: MCL on the card at the JAX MCL benchmark's workload
+# (scripts/bench_mcl_1m.py): the truth, the initial cloud's covariance
+# (0.2 m, ~3 deg), four 262,144-particle chunks, a warm cycle and three
+# timed ones; the estimate must end within 0.1 m of the truth (the cloud
+# starts at 0.2 m spread). 11b: a 65,536-particle slice per engine (and the
+# audit's slice in 11a), mid budgets tried in order, the CP updates'
+# particles; kernel vs plain version on the first blocks of a launch. 11c:
+# MCLNode at MCLConfig's default count, ten steps of +0.2 m in x, held to
+# the JAX package's tracking criterion (tests/test_mcl.py: 0.25 m).
+MCL_TRUTH = [3.0, 3.0, 1.2, 0.0, 0.0, 0.0]
+MCL_COV = [0.04, 0.04, 0.01, 1e-4, 1e-4, 3e-3]
+MCL_CHUNK = 262144
+MCL_CYCLES = 3
+MCL_ERR_MAX = 0.1
+MCL_SLICE = 65536
+MCL_CP_PARTICLES = 131072
+# binned vs exact on certified particles: the share within rtol 1e-4 (a
+# beam through a shared edge may hit in one engine only)
+MCL_BINNED_CLOSE = 0.99
+# seeded vs exact: the share of particles allowed a ray whose winner the
+# two engines' triangle tests decide apart
+MCL_EDGE_PARTICLES = 0.01
+MCL_CHECK_BLOCKS = 512
+MCL_NODE_PARTICLES = 100_000
+MCL_NODE_STEPS = 10
+MCL_NODE_STEP = 0.2
+MCL_NODE_ERR_MAX = 0.25
 # K5: float instructions per ray (three guarded reciprocals, 3 each; the
 # entry compare), per internal visit (the slab test: 6 differences, 6
 # products, 3 minima and 3 maxima of the pairs, 2 + 2 for t_near and t_far, 3
@@ -379,18 +422,22 @@ def bound_of(bytes_moved, ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cull_bound(args):
+def cull_bound(args, tests=None):
     """Least time for K3's work on these inputs: the cone-box tests the
     kernel runs (its level-0 boxes, the kept hypers' supers, R tests for
-    each bin of a kept super) at OPS_PER_TEST each, against reading the
-    cones and boxes once and writing the lists."""
+    each mid of a kept super with the mid level, R tests for each bin of a
+    kept super or mid) at OPS_PER_TEST each, against reading the cones and
+    boxes once and writing the lists. ``tests``: the count, where the
+    caller took it in steps."""
     from rmcl_tpu_torch.ops.cull_cuda import cull_tests
 
-    cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb = args
-    tests = float(cull_tests(cones, fat, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs)
-                  .double().sum())
+    cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb, M, cm = args
+    if tests is None:
+        tests = float(cull_tests(cones, fat, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs,
+                                 mid_aabb, M, cm).double().sum())
     Cb = cones.shape[0]
-    boxes = bin_aabb.numel() + super_aabb.numel() + (hyper_aabb.numel() if ch else 0)
+    boxes = (bin_aabb.numel() + super_aabb.numel() + (hyper_aabb.numel() if ch else 0)
+             + (mid_aabb.numel() if cm else 0))
     bytes_moved = 4 * (cones.numel() + (fat.numel() if ch else 0) + n_hi.numel() + boxes) \
         + Cb * cb * 8 + Cb * 5
     return bound_of(bytes_moved, tests * OPS_PER_TEST) + (tests,)
@@ -417,7 +464,9 @@ def fused_bound(fn, args, back_args, tests):
         origins, in_floats = P, (P + G) * 3 + 1
     ops = (tests * OPS_PER_TEST + Cb * (passes * rays * OPS_PER_BOUND_RAY + origins * OPS_PER_ORIGIN
                                         + (R + passes - 1) * OPS_PER_CONE))
-    boxes = bins.bin_aabb.numel() + bins.super_aabb.numel() + (bins.hyper_aabb.numel() if ch else 0)
+    boxes = (bins.bin_aabb.numel() + bins.super_aabb.numel()
+             + (bins.hyper_aabb.numel() if ch else 0)
+             + (bins.mid_aabb.numel() if back_args[13] else 0))
     bytes_moved = 4 * (Cb * in_floats + boxes + 6) + Cb * cb * 8 + Cb * 5
     return bound_of(bytes_moved, ops)
 
@@ -594,7 +643,7 @@ def phase_kernel_vs_plain(sphere_bins):
         n = o.shape[0]
         blocks = _pad_rays(o, d, torch.full((n,), model.range.min, device="cuda"),
                            torch.full((n,), model.range.max, device="cuda"), Rb)
-        inputs = blocks + _build_candidates(bins, *blocks, *_resolve_budgets(bins, 24, 96))
+        inputs = blocks + _build_candidates(bins, *blocks, *_resolve_budgets(bins, 24, 96)[:2])
         r = compare_kernel(f"phase 3 {name}", bins.tri, inputs)
         log(f"phase 3 kernel vs plain [{name}, {bins.n_bins * bins.bin_size} tris, {n} rays "
             f"in blocks of {Rb}]: "
@@ -683,7 +732,7 @@ def phase_main_path():
 
     # K3 on the same cast's inputs, and the cast through both lists
     blocks = _pad_rays(o, d, t_min_r, t_max_r, 128)
-    cs, cb = _resolve_budgets(bmap.bins, config.c_super, config.c_bin)
+    cs, cb, _ = _resolve_budgets(bmap.bins, config.c_super, config.c_bin)
     back_args = _cull_args(bmap.bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
     k, p, r3 = check_cull("phase 4 K3", cull_rays, cull_rays_reference,
                           (bmap.bins, *blocks, 4, cs, cb, 0), back_args,
@@ -766,7 +815,7 @@ def phase_reference_cast(sphere_bins):
     cull_ms = cuda_ms(lambda: _kernel_inputs(*args), reps=3)
     # K3 on the cast's own blocks, and the cast through both lists
     blocks = inputs[:4]
-    cs, cb = _resolve_budgets(sphere_bins, 24, 96)
+    cs, cb, _ = _resolve_budgets(sphere_bins, 24, 96)
     back_args = _cull_args(sphere_bins, lambda r: _subblock_bounds(*blocks, r), 4, cs, cb, 0)
     k, p, r3 = check_cull("phase 5 K3", cull_rays, cull_rays_reference,
                           (sphere_bins, *blocks, 4, cs, cb, 0), back_args)
@@ -850,7 +899,7 @@ def phase_tracking(main_r):
     lay = tc._layouts[0]
     o_blk, d_blk = lay.blocks((last_tom @ tbo) @ sensor.tsb)
     o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
-    cs, cb = _resolve_budgets(bins, config.c_super, config.c_bin)
+    cs, cb, _ = _resolve_budgets(bins, config.c_super, config.c_bin)
     raw = _factored_bounds(o_p, d_p, alive, lay.t_min, lay.t_max, 4, 0.05, 0.01)
     tsm_last = (last_tom @ tbo) @ sensor.tsb
     k, p, r3 = check_cull("phase 6 K3", cull_factored, cull_factored_reference,
@@ -942,7 +991,7 @@ def phase_sweep():
         fail(f"phase 7: only {hit_frac:.6f} of the dataset's rays hit the sphere")
 
     # saturation of the dataset cast's fresh cull and of a reuse cull
-    cs, cb = _resolve_budgets(bins, cfg["c_super"], cfg["c_bin"], cfg["c_mid"])
+    cs, cb, _ = _resolve_budgets(bins, cfg["c_super"], cfg["c_bin"], cfg["c_mid"])
     R = cfg["sub_blocks"]
 
     def padded(tr):
@@ -1540,6 +1589,601 @@ def phase_mcl_cast(main_r):
     return r5
 
 
+def mcl_world():
+    """Phase 11's map, scan and sensor configuration: the JAX package's MCL
+    benchmark (scripts/bench_mcl_1m.py) — the 4 x 3-room building at subdiv
+    45 with doors at mid-wall, bins of 64 (16 a super, 16 supers a hyper,
+    8-bin mids), one VLP-16 scan (900 wide) simulated on the BVH at the
+    truth, and its sensor-update configuration."""
+    from rmcl_tpu_torch.bvh.bins import build_bins
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+    from rmcl_tpu_torch.sensors.simulate import simulate
+
+    t0 = time.perf_counter()
+    mesh = make_building_scene(rooms_x=4, rooms_y=3, subdiv=BUILDING_SUBDIV, seed=0, door_t=0.5)
+    bins = build_bins(mesh, bin_size=64, bins_per_super=16, supers_per_hyper=16)
+    mmap = MeshMap(mesh=mesh, bvh=build_bvh(mesh), bins=bins, name="building")
+    torch.cuda.synchronize()
+    model = SphericalModel.vlp16(width=900)
+    truth = Transform.from_pose_tuple(MCL_TRUTH)
+    hits = simulate(mmap.bvh, model, truth)
+    points = model.polar_to_cartesian(torch.where(hits.hit, hits.t, 0.0))
+    scfg = SensorUpdateConfig.create(
+        samples=MCL_BEAMS, engine="binned", layout="beam", c_super=48, c_bin=288, c_hyper=8,
+        range_max=30.0, dist_sigma=0.4, block_size=128, sub_blocks=8, sort_blocks=True)
+    log(f"phase 11 map: building {mesh.n_faces} faces (doors at mid-wall), {bins.n_bins} bins "
+        f"of {bins.bin_size}, {bins.n_super} supers, {bins.n_mid} mids, {bins.n_hyper} hypers, "
+        f"BVH {mmap.bvh.n_slots} slots, built in {time.perf_counter() - t0:.2f} s; scan "
+        f"{int(hits.hit.sum())}/{model.n_rays} hits at the truth {MCL_TRUTH[:3]}")
+    return mmap, model, truth, points, hits.hit, scfg
+
+
+def mcl_cloud(truth, n, gen):
+    from rmcl_tpu_torch.math.stats import sample_pose_gaussian
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+
+    poses = sample_pose_gaussian(gen, truth, torch.diag(torch.tensor(MCL_COV, device="cuda")), n)
+    return ParticleCloud.create(n).with_poses(poses)
+
+
+def full_cull_bound(bins, blocks, R, cs, cb, ch, cm):
+    """fused_bound of one K3 launch on every block of ``blocks``, its tests
+    counted in steps of blocks (the plain count's tensors grow with the
+    blocks and the boxes a level tests)."""
+    from rmcl_tpu_torch.ops.cull_cuda import (_REF_TESTS_PER_STEP, _cull_args,
+                                              _subblock_bounds, cull_rays, cull_tests)
+
+    back = _cull_args(bins, lambda r: _subblock_bounds(*blocks, r), R, cs, cb, ch, cm)
+    cones, fat = back[:2]
+    S, H = bins.bins_per_super, bins.supers_per_hyper
+    width = max(cs * S, ch * H if ch else bins.n_super)
+    step = max(1, _REF_TESTS_PER_STEP // (R * width))
+    tests = 0.0
+    for s0 in range(0, cones.shape[0], step):
+        sl = slice(s0, s0 + step)
+        tests += float(cull_tests(cones[sl], None if fat is None else fat[sl], *back[3:10],
+                                  *back[11:]).double().sum())
+    return fused_bound(cull_rays, (bins, *blocks), back, tests) + (tests,)
+
+
+def mcl_update_steps(bins, cloud, beams, tsb, cfg, ev, mark):
+    """One binned beam-major sensor update on ``cloud`` through the steps
+    that ``sensor_update`` composes, with a CUDA event at each boundary:
+    the layout and the rays, K3 (the cull), K1 (in count order), the winner
+    gather and the scoring, the fold. Returns the cloud and the cull's
+    (blocked rays, kernel inputs, sat, order) for the checks."""
+    from rmcl_tpu_torch.mcl.sensor_update import (beam_layout, cluster_poses, fold, score_rc,
+                                                  update_rays)
+    from rmcl_tpu_torch.ops.raycast import RayHits
+    from rmcl_tpu_torch.ops.raycast_binned import _hits_from_winners, _kernel_inputs
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins
+
+    layout = beam_layout(cfg, beams)
+    tsm, perm_inv = cluster_poses(cloud, tsb, cfg)
+    N, Sp = cloud.capacity, layout.dirs.shape[0]
+    orig_m, dirs_m, t_m = update_rays(tsm, layout)
+    o = orig_m.transpose(0, 1).reshape(-1, 3)
+    d = dirs_m.transpose(0, 1).reshape(-1, 3)
+    t_max = t_m.transpose(0, 1).reshape(-1)
+    t_min = torch.zeros_like(t_max)
+    mark("rays")
+    inputs, sat = _kernel_inputs(bins, o, d, t_min, t_max, cfg.block_size, cfg.c_super,
+                                 cfg.c_bin, cfg.sub_blocks, cfg.c_hyper, cfg.c_mid)
+    mark("K3")
+    order = torch.argsort(inputs[5], stable=True).to(torch.int32)
+    t_best, ref = intersect_bins(bins.tri, *inputs, order=order)
+    mark("K1")
+    h = _hits_from_winners(bins, o, d, t_max, t_best, ref, "index", False)
+    hits = RayHits(**{f: getattr(h, f).reshape((Sp, N) + tuple(getattr(h, f).shape[1:]))
+                      .transpose(0, 1) for f in ("t", "hit", "prim_id", "inst_id", "point",
+                                                 "normal")})
+    error = score_rc(cfg, layout, orig_m, dirs_m, hits)
+    mark("gather_score")
+    out = fold(cloud, cfg, layout, error, perm_inv)
+    mark("fold")
+    return out, (inputs, sat, order)
+
+
+def phase_mcl_cycle():
+    """Phase 11a: the full MCL cycle at the JAX MCL benchmark's workload:
+    1,048,576 particles x 100 beams, binned beam-major (K3 with the hyper
+    level, K1 in count order), four 262,144-particle chunks."""
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.motion import MotionUpdateConfig, motion_update
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+    from rmcl_tpu_torch.mcl.resampling import ResamplerConfig, gladiator_resample
+    from rmcl_tpu_torch.mcl.sensor_update import probe_update_rays, sample_beams, sensor_update
+    from rmcl_tpu_torch.mcl.stats import estimate_stats
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _subblock_bounds, cull_rays,
+                                              cull_rays_reference, kernel_registers)
+    from rmcl_tpu_torch.ops.order import cluster_order
+    from rmcl_tpu_torch.ops.raycast_binned import _resolve_budgets, block_cull_stats
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_bins_reference
+
+    mmap, model, truth, points, mask, scfg = mcl_world()
+    bins = mmap.bins
+    tsb = Transform.identity()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cloud = mcl_cloud(truth, MCL_PARTICLES, gen)
+
+    # the budget audit on the first 65,536 particles' update rays
+    o_p, d_p, t_p = probe_update_rays(cloud.map(lambda x: x[:MCL_SLICE]), gen, points, mask,
+                                      tsb, scfg)
+    counts, sat = block_cull_stats(bins, o_p, d_p, t_max=t_p, block_size=scfg.block_size,
+                                   c_super=scfg.c_super, c_bin=scfg.c_bin,
+                                   sub_blocks=scfg.sub_blocks, c_hyper=scfg.c_hyper)
+    audit = dict(sat_frac=float(sat.float().mean()), mean=float(counts.float().mean()),
+                 max=int(counts.max()))
+    log(f"phase 11a audit: {MCL_SLICE} particles' update rays, candidates a block mean "
+        f"{audit['mean']:.1f}, max {audit['max']} (c_bin {scfg.c_bin}); saturated blocks "
+        f"{audit['sat_frac']:.4%}")
+    del o_p, d_p, t_p
+
+    mcfg, rcfg = MotionUpdateConfig.create(), ResamplerConfig.create()
+    scfg_nc = dataclasses.replace(scfg, cluster=False)
+    n_chunks = MCL_PARTICLES // MCL_CHUNK
+    stages = ("motion", "cluster", "beams", "rays", "K3", "K1", "gather_score", "fold",
+              "resample", "stats")
+
+    def cycle(cloud, delta_t, ev=None):
+        """One cycle; with ``ev`` (a dict of event lists) the sensor
+        update runs through its steps with events between them."""
+        marks = []
+
+        def mark(name):
+            if ev is not None:
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((name, e))
+
+        mark("start")
+        cloud = motion_update(cloud, Transform(rot=torch.tensor([1.0, 0, 0, 0], device="cuda"),
+                                               trans=delta_t), 0.05, mcfg)
+        mark("motion")
+        fw = cloud.poses.rotate(torch.tensor([1.0, 0.0, 0.0], device="cuda"))
+        order, _ = cluster_order(cloud.poses.trans, fw)
+        cloud = cloud.map(lambda x: x[order.long()])
+        mark("cluster")
+        beams = sample_beams(gen, points, mask, MCL_BEAMS)
+        mark("beams")
+        parts, first = [], None
+        for i in range(n_chunks):
+            sub = cloud.map(lambda x: x[i * MCL_CHUNK:(i + 1) * MCL_CHUNK])
+            if ev is None:
+                parts.append(sensor_update(bins, sub, None, None, None, tsb, scfg_nc,
+                                           beams=beams).likelihood)
+            else:
+                out, cull = mcl_update_steps(bins, sub, beams, tsb, scfg_nc, ev, mark)
+                parts.append(out.likelihood)
+                first = first or (sub, beams, cull)
+        lik = parts[0].__class__(*(torch.cat([getattr(p, f) for p in parts])
+                                   for f in ("mean", "sigma", "n_meas")))
+        cloud = dataclasses.replace(cloud, likelihood=lik)
+        cloud = gladiator_resample(cloud, gen, rcfg)
+        mark("resample")
+        stats = estimate_stats(cloud, max_induction_particles=50_000)
+        mark("stats")
+        if ev is not None:
+            torch.cuda.synchronize()
+            prev = marks[0][1]
+            for name, e in marks[1:]:
+                ev.setdefault(name, []).append(prev.elapsed_time(e))
+                prev = e
+        return cloud, stats, first
+
+    rng = np.random.default_rng(0)
+    times, errs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(MCL_CYCLES + 1):
+        delta_t = torch.from_numpy(rng.normal(0, 0.002, 3).astype(np.float32)).cuda()
+        if it == 1:
+            reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cloud, stats, _ = cycle(cloud, delta_t)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        err = float(torch.linalg.vector_norm(stats.pose.trans - truth.trans))
+        errs.append(err)
+        if it:
+            times.append(dt)
+        log(f"phase 11a {'warm' if it == 0 else f'cycle {it}'}: {dt:.1f} ms, estimate error "
+            f"{err:.4f} m")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cycle_ms = statistics.median(times)
+    require_launches("phase 11a", counts, ("K1", "K3r"), culls=MCL_CYCLES * n_chunks)
+    if counts["K1"] != MCL_CYCLES * n_chunks:
+        fail(f"phase 11a: {counts['K1']} K1 launches for {MCL_CYCLES * n_chunks} chunk casts")
+    if not errs[-1] < MCL_ERR_MAX:
+        fail(f"phase 11a: the estimate is {errs[-1]:.4f} m off the truth (>= {MCL_ERR_MAX})")
+    if not bool(torch.isfinite(cloud.likelihood.mean).all()):
+        fail("phase 11a: non-finite likelihoods")
+
+    # the same cycle on the exact engine (K5), for comparison: a warm cycle
+    # and a timed one on a copy of the cloud
+    scfg_bvh = dataclasses.replace(scfg_nc, engine="bvh")
+    bvh_ms = []
+    for _ in range(2):
+        c_b = cloud.map(lambda x: x.clone())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c_b = motion_update(c_b, Transform(rot=torch.tensor([1.0, 0, 0, 0], device="cuda"),
+                                           trans=torch.zeros(3, device="cuda")), 0.05, mcfg)
+        fw = c_b.poses.rotate(torch.tensor([1.0, 0.0, 0.0], device="cuda"))
+        c_b = c_b.map(lambda x: x[cluster_order(c_b.poses.trans, fw)[0].long()])
+        beams_b = sample_beams(gen, points, mask, MCL_BEAMS)
+        lik = [sensor_update(mmap.bvh, c_b.map(lambda x: x[i * MCL_CHUNK:(i + 1) * MCL_CHUNK]),
+                             None, None, None, tsb, scfg_bvh, beams=beams_b).likelihood
+               for i in range(n_chunks)]
+        c_b = dataclasses.replace(c_b, likelihood=lik[0].__class__(
+            *(torch.cat([getattr(p, f) for p in lik]) for f in ("mean", "sigma", "n_meas"))))
+        c_b = gladiator_resample(c_b, gen, rcfg)
+        estimate_stats(c_b, max_induction_particles=50_000)
+        torch.cuda.synchronize()
+        bvh_ms.append((time.perf_counter() - t) * 1e3)
+    del c_b
+    log(f"phase 11a the same cycle on the exact engine (K5): {bvh_ms[1]:.1f} ms (warm "
+        f"{bvh_ms[0]:.1f} ms), against the binned engine's median {cycle_ms:.1f} ms")
+
+    # one more cycle through the update's steps, with events between them
+    ev = {}
+    delta_t = torch.from_numpy(rng.normal(0, 0.002, 3).astype(np.float32)).cuda()
+    cloud_i, stats_i, (sub0, beams0, (inputs, sat0, order)) = cycle(cloud, delta_t, ev)
+    stage_ms = {k: sum(v) for k, v in ev.items()}
+    log(f"phase 11a cycle: median {cycle_ms:.1f} ms of {MCL_CYCLES} (host clock), "
+        f"{MCL_PARTICLES / cycle_ms * 1e3:.0f} particles/s, "
+        f"{MCL_PARTICLES * MCL_BEAMS / cycle_ms * 1e3:.3g} rays/s; peak memory {peak_gb:.2f} GB; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    log("phase 11a stages by events (one instrumented cycle, " + f"{sum(stage_ms.values()):.1f}"
+        " ms): " + ", ".join(f"{k} {stage_ms[k]:.2f}" for k in stages))
+    # the stepped update gives the composed update's likelihoods, bit for bit
+    ref = sensor_update(bins, sub0, None, None, None, tsb, scfg_nc, beams=beams0).likelihood
+    step_out = mcl_update_steps(bins, sub0, beams0, tsb, scfg_nc, {}, lambda name: None)[0]
+    if not torch.equal(step_out.likelihood.mean, ref.mean):
+        fail("phase 11a: the stepped update differs from sensor_update")
+    del cloud_i, stats_i
+
+    # K1 (count order) and K3 (hyper level) against their plain versions on
+    # the first MCL_CHECK_BLOCKS blocks of the first chunk; then each on the
+    # whole chunk: device time, bound
+    B = bins.bin_size
+    cs, cb, cm = _resolve_budgets(bins, scfg.c_super, scfg.c_bin)
+    ch = min(scfg.c_hyper, bins.n_hyper)
+    sl = lambda x: x[:MCL_CHECK_BLOCKS].contiguous()
+    part = tuple(sl(x) for x in inputs)
+    part_order = torch.argsort(part[5], stable=True).to(torch.int32)
+    launches = intersect_bins.launches
+    kt, kref = intersect_bins(bins.tri, *part, order=part_order)
+    pt, pref = intersect_bins_reference(bins.tri, *part, order=part_order)
+    torch.cuda.synchronize()
+    if intersect_bins.launches != launches + 1:
+        fail("phase 11a K1: the kernel did not launch")
+    k1 = dict(zip(("max_abs_err", "ref_mismatch"),
+                  check_agreement("phase 11a K1", bins.tri, part, kt, kref, pt, pref)))
+    k1["plain_ms"] = cuda_ms(lambda: intersect_bins_reference(bins.tri, *part), reps=1)
+    k1["ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs, order=order),
+                          "intersect_bins", reps=3)
+                or cuda_ms(lambda: intersect_bins(bins.tri, *inputs, order=order), reps=3))
+    k1["unsorted_ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs), "intersect_bins",
+                                   reps=3)
+                         or cuda_ms(lambda: intersect_bins(bins.tri, *inputs), reps=3))
+    t_best, _ = intersect_bins(bins.tri, *inputs, order=order)
+    k1["bound_ms"], k1["bound_by"], k1["visits"] = kernel_bound(inputs, t_best, B)
+    k1.update(launches=counts["K1"], blocks=inputs[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
+              order="count")
+    log(f"phase 11a K1 (count order) on the first chunk's {k1['blocks']} blocks: "
+        f"{k1['ms']:.3f} ms ({k1['unsorted_ms']:.3f} ms in block order), bound "
+        f"{k1['bound_ms']:.3f} ms ({k1['bound_by']}; {k1['visits']:.0f} bin visits), "
+        f"roofline {k1['bound_ms'] / k1['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: "
+        f"max_abs_err {k1['max_abs_err']:.3g}, {k1['ref_mismatch']} near-tie winners, plain "
+        f"{k1['plain_ms']:.2f} ms")
+
+    blocks = tuple(x.contiguous() for x in inputs[:4])
+    part_blocks = tuple(sl(x) for x in blocks)
+    back = _cull_args(bins, lambda r: _subblock_bounds(*part_blocks, r), scfg.sub_blocks, cs,
+                      cb, ch)
+    _, _, k3 = check_cull("phase 11a K3", cull_rays, cull_rays_reference,
+                          (bins, *part_blocks, scfg.sub_blocks, cs, cb, ch), back)
+    full = (bins, *blocks, scfg.sub_blocks, cs, cb, ch)
+    k3_slice_ms = k3["ms"]
+    k3["ms"] = device_ms(lambda: cull_rays(*full), "cull_kernel", reps=3) or cuda_ms(
+        lambda: cull_rays(*full), reps=3)
+    k3["bound_ms"], k3["bound_by"], k3["tests"] = full_cull_bound(
+        bins, blocks, scfg.sub_blocks, cs, cb, ch, 0)
+    k3.update(launches=counts["K3r"], blocks=blocks[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
+              slice_ms=k3_slice_ms, registers=kernel_registers())
+    log(f"phase 11a K3 (hyper level) on the first chunk's {k3['blocks']} blocks: "
+        f"{k3['ms']:.3f} ms by the device trace, bound {k3['bound_ms']:.3f} ms "
+        f"({k3['bound_by']}; {k3['tests']:.4g} tests), roofline "
+        f"{k3['bound_ms'] / k3['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: lists agree "
+        f"({'bitwise' if k3['bitwise'] else str(k3['ties']) + ' tie blocks'}), plain "
+        f"{k3['plain_ms']:.2f} ms; {int(sat0.sum())} of {k3['blocks']} blocks saturated; "
+        f"registers (regs, local bytes) {k3['registers']}")
+    if any(local for _, local in k3["registers"].values()):
+        fail(f"phase 11a: K3 spills: {k3['registers']}")
+    return dict(mmap=mmap, model=model, truth=truth, points=points, mask=mask, scfg=scfg,
+                cloud=cloud, gen=gen, cycle_ms=cycle_ms, stage_ms=stage_ms, err=errs[-1],
+                bvh_cycle_ms=bvh_ms[1],
+                audit=audit, peak_gb=peak_gb, k1=k1, k3=k3, counts=counts)
+
+
+def phase_mcl_engines(r11):
+    """Phase 11b: one sensor update per engine on a 65,536-particle slice of
+    11a's cloud with one injected beam set; the mid level against the
+    two-level cull; a CP update per engine on 131,072 particles."""
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.sensor_update import (beam_layout, cluster_poses,
+                                                  probe_update_rays, sample_beams,
+                                                  sensor_update, update_rays)
+    from rmcl_tpu_torch.ops.cull_cuda import _packs, cull_rays, cull_rays_reference
+    from rmcl_tpu_torch.ops.raycast_binned import (_flat_rays, _pad_rays, _resolve_budgets,
+                                                   block_cull_stats, cast_rays_binned)
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    from rmcl_tpu_torch.mcl.node import MCLNode
+
+    mmap, scfg, gen = r11["mmap"], r11["scfg"], r11["gen"]
+    bvh, bins = mmap.bvh, mmap.bins
+    points, mask = r11["points"], r11["mask"]
+    tsb = Transform.identity()
+    cloud = r11["cloud"].map(lambda x: x[:MCL_SLICE].contiguous())
+    beams = sample_beams(gen, points, mask, MCL_BEAMS)
+    # the mid level's comparison: the first rung of MCLNode's budget ladder
+    # (then every super and bin) at which the two-level cull truncates no
+    # block of these update rays, with the hyper budget raised to cover
+    # c_super, and the least mid budget there (from ceil(c_bin / M), the
+    # least the engine takes, to every mid of the kept supers) at which the
+    # mid level truncates none either
+    lay = lambda cfg: probe_update_rays(cloud, None, None, None, tsb, cfg, beams=beams)
+    o, d, t_b = lay(scfg)
+    M, Sm = bins.bins_per_mid, bins.bins_per_super // bins.bins_per_mid
+    sats, mid_budgets = {}, None
+    H = bins.supers_per_hyper
+    for cs_, cb_ in MCLNode._BUDGET_RUNGS + ((bins.n_super, bins.n_bins),):
+        ch_ = max(scfg.c_hyper, -(-cs_ // H))
+        kw = dict(block_size=scfg.block_size, c_super=cs_, c_bin=cb_,
+                  sub_blocks=scfg.sub_blocks, c_hyper=ch_)
+        sats[(cs_, cb_, 0)] = int(block_cull_stats(bins, o, d, t_max=t_b, **kw)[1].sum())
+        if sats[(cs_, cb_, 0)]:
+            continue
+        for c_mid in sorted({-(-cb_ // M), -(-3 * cb_ // (2 * M)), cs_ * Sm}):
+            sats[(cs_, cb_, c_mid)] = int(block_cull_stats(bins, o, d, t_max=t_b, c_mid=c_mid,
+                                                           **kw)[1].sum())
+            if not sats[(cs_, cb_, c_mid)]:
+                mid_budgets = (cs_, cb_, ch_, c_mid)
+                break
+        break
+    log(f"phase 11b blocks saturated at (c_super, c_bin, c_mid; 0: two levels): {sats}")
+    if mid_budgets is None:
+        fail(f"phase 11b: the culls truncate at every budget tried: {sats}")
+    cs_, cb_, ch_, c_mid = mid_budgets
+    cfgs = {
+        "bvh": dataclasses.replace(scfg, engine="bvh"),
+        "seeded": dataclasses.replace(scfg, engine="seeded"),
+        "binned_particle": dataclasses.replace(scfg, layout="particle"),
+        "binned_beam": dataclasses.replace(scfg, c_super=cs_, c_bin=cb_, c_hyper=ch_),
+        "binned_beam_mid": dataclasses.replace(scfg, c_super=cs_, c_bin=cb_, c_hyper=ch_,
+                                               c_mid=c_mid),
+    }
+    accel = {"bvh": bvh, "seeded": (bvh, bins)}
+    out, ms, counts = {}, {}, {}
+    for name, cfg in cfgs.items():
+        run = lambda: sensor_update(accel.get(cfg.engine, bins), cloud, None, None, None, tsb,
+                                    cfg, beams=beams).likelihood
+        run()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = run()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        counts[name] = {k: v for k, v in read_counts().items() if v}
+    need = {"bvh": ("K5",), "seeded": ("K3r", "K1", "K5"), "binned_particle": ("K3r", "K1"),
+            "binned_beam": ("K3r", "K1"), "binned_beam_mid": ("K3r", "K1")}
+    for name, ks in need.items():
+        require_launches(f"phase 11b {name}", {**dict.fromkeys(wrappers(), 0), **counts[name]},
+                         ks)
+
+    # the seeded pass's certified rays (its particle-major blocks); the
+    # binned beam-major run's certified particles: those whose every
+    # beam's block no budget truncated
+    o_pm, d_pm, t_pm = lay(dataclasses.replace(scfg, layout="particle"))
+    _, sat_pm = block_cull_stats(bins, o_pm, d_pm, t_max=t_pm, block_size=scfg.block_size,
+                                 c_super=scfg.c_super, c_bin=scfg.c_bin,
+                                 sub_blocks=scfg.sub_blocks, c_hyper=scfg.c_hyper)
+    del o_pm, d_pm, t_pm
+    certified_frac = 1.0 - float(sat_pm.float().mean())
+    _, sat_bm = block_cull_stats(bins, o, d, t_max=t_b, block_size=scfg.block_size,
+                                 c_super=cs_, c_bin=cb_, sub_blocks=scfg.sub_blocks, c_hyper=ch_)
+    _, inv = cluster_poses(cloud, tsb, scfg)
+    N = cloud.capacity
+    ray_ok = (~sat_bm)[:, None].expand(-1, scfg.block_size).reshape(-1)[:N * MCL_BEAMS]
+    cert_particle = ray_ok.reshape(MCL_BEAMS, N).all(0)[inv]
+    ref = out["bvh"].mean
+    close = lambda a, b, rtol, atol: bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+    # the dense and exact engines' triangle tests round apart on rays through
+    # a shared edge (ROADMAP.md §3): a particle with such a beam differs
+    binned_close = float(torch.isclose(out["binned_beam"].mean[cert_particle],
+                                       ref[cert_particle], rtol=1e-4, atol=1e-6).float().mean())
+    if not (cert_particle.any() and binned_close >= MCL_BINNED_CLOSE):
+        fail(f"phase 11b: the binned engine is off the exact one on certified particles "
+             f"({int(cert_particle.sum())} certified, {binned_close:.4%} within rtol 1e-4)")
+
+    # the mid level against the two-level cull, at a budget where neither
+    # truncates; K3 with the mid level bitwise its plain version on a slice
+    cs, cb, cm = _resolve_budgets(bins, cs_, cb_, c_mid)
+    ch = min(ch_, bins.n_hyper)
+    if not close(out["binned_beam_mid"].mean, out["binned_beam"].mean, 1e-5, 1e-7):
+        fail("phase 11b: the mid level's likelihoods are off the two-level cull's")
+    o_r, d_r, tmin_r, tmax_r, _ = _flat_rays(o, d, 0.0, t_b)
+    blocks = _pad_rays(o_r, d_r, tmin_r, tmax_r, scfg.block_size)
+    part = tuple(x[:MCL_CHECK_BLOCKS].contiguous() for x in blocks)
+    args = (bins, *part, scfg.sub_blocks, cs, cb, ch, cm)
+    launches = cull_rays.launches
+    k = cull_rays(*args)
+    p = cull_rays_reference(*args)
+    torch.cuda.synchronize()
+    if cull_rays.launches != launches + 1:
+        fail("phase 11b: K3 with the mid level did not launch")
+    if not all(torch.equal(x, y) for x, y in zip(k, p)):
+        fail("phase 11b: K3 with the mid level is not bitwise its plain version")
+    full = (bins, *(x.contiguous() for x in blocks), scfg.sub_blocks, cs, cb, ch, cm)
+    kmid = dict(bitwise=True, max_abs_err=0.0, launches=counts["binned_beam_mid"].get("K3r", 0),
+                blocks=blocks[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS, cm=cm,
+                mid_packed=_packs(bins.n_mid),
+                plain_ms=cuda_ms(lambda: cull_rays_reference(*args), reps=1))
+    kmid["ms"] = device_ms(lambda: cull_rays(*full), "cull_kernel", reps=3) or cuda_ms(
+        lambda: cull_rays(*full), reps=3)
+    kmid["two_level_ms"] = device_ms(lambda: cull_rays(*full[:-1], 0), "cull_kernel",
+                                     reps=3) or cuda_ms(lambda: cull_rays(*full[:-1], 0), reps=3)
+    kmid["bound_ms"], kmid["bound_by"], kmid["tests"] = full_cull_bound(
+        bins, full[1:5], scfg.sub_blocks, cs, cb, ch, cm)
+    log(f"phase 11b K3 with the mid level (c_mid {cm}, packed mid keys "
+        f"{kmid['mid_packed']}) on {kmid['blocks']} blocks: {kmid['ms']:.3f} ms by the device "
+        f"trace ({kmid['two_level_ms']:.3f} ms two-level), bound {kmid['bound_ms']:.3f} ms "
+        f"({kmid['bound_by']}; {kmid['tests']:.4g} tests), roofline "
+        f"{kmid['bound_ms'] / kmid['ms']:.2%}; bitwise its plain version on "
+        f"{MCL_CHECK_BLOCKS} blocks (plain {kmid['plain_ms']:.2f} ms)")
+
+    # K5's refine launch in the seeded pass: the suspect rays, sorted by bound
+    scfg_s = cfgs["seeded"]
+    layout = beam_layout(scfg_s, beams)
+    tsm, inv_s = cluster_poses(cloud, tsb, scfg_s)
+    N, Sp = cloud.capacity, layout.dirs.shape[0]
+    o_s, d_s, t_s = (x.reshape(-1, *x.shape[2:]).contiguous() for x in update_rays(tsm, layout))
+    seed, lossless = cast_rays_binned(bins, o_s, d_s, t_max=t_s, flip_normals=False,
+                                      block_size=scfg.block_size, c_super=scfg.c_super,
+                                      c_bin=scfg.c_bin, c_hyper=scfg.c_hyper,
+                                      sub_blocks=scfg.sub_blocks, with_lossless=True)
+    bound = torch.minimum(torch.where(seed.hit, seed.t * (1.0 + 1e-5) + 1e-6, t_s), t_s)
+    bound = torch.where(lossless, -1.0, bound)
+    srt = torch.argsort(bound, stable=True)
+    rays5 = (o_s[srt].contiguous(), d_s[srt].contiguous(), torch.zeros_like(t_s),
+             bound[srt].contiguous())
+    k5 = check_traverse("phase 11b K5 (seeded refine)", bvh,
+                        tuple(x[-EXACT_SLICE:].contiguous() for x in rays5))
+    _, slot5, visits = traverse_rays(bvh.nodes, bvh.root_link, *rays5, visits=True)
+    k5["ms"] = device_ms(lambda: traverse_rays(bvh.nodes, bvh.root_link, *rays5),
+                         "traverse_bvh", reps=3) or cuda_ms(
+        lambda: traverse_rays(bvh.nodes, bvh.root_link, *rays5), reps=3)
+    k5["bound_ms"], k5["bound_by"], k5["visits"] = traverse_bound(visits, rays5[0].shape[0],
+                                                                  k5["slots_read"])
+    k5.update(launches=counts["seeded"].get("K5", 0), rays=rays5[0].shape[0],
+              suspect=int((~lossless).sum()), plain_rays=EXACT_SLICE)
+    # seeded against the exact engine, on the particles whose every ray
+    # keeps the exact walk's winner: a ray whose result is the dense
+    # engine's (certified, or the fallback) may differ where the two
+    # engines' triangle tests round apart (a ray through a shared edge,
+    # ROADMAP.md §3)
+    slot = torch.empty_like(slot5)
+    slot[srt] = slot5
+    _, slot_ex = traverse_rays(bvh.nodes, bvh.root_link, o_s, d_s, torch.zeros_like(t_s), t_s)
+    prim = lambda sl: torch.where(sl >= 0, bvh.nodes.view(torch.int32)[sl.clamp(min=0).long(),
+                                                                       12], -1)
+    from_seed = lossless | (seed.hit & (slot < 0))
+    seeded_prim = torch.where(from_seed, seed.prim_id, prim(slot))
+    fallback = (seeded_prim != prim(slot_ex)).reshape(N, Sp).any(1)[inv_s]
+    if float(fallback.float().mean()) > MCL_EDGE_PARTICLES:
+        fail(f"phase 11b: {int(fallback.sum())} particles have a ray whose seeded winner is "
+             f"not the exact engine's")
+    if not close(out["seeded"].mean[~fallback], ref[~fallback], 1e-4, 1e-6):
+        fail("phase 11b: the seeded likelihoods are off the exact engine's")
+    log(f"phase 11b sensor updates on {MCL_SLICE} particles x {MCL_BEAMS} beams (one beam "
+        f"set): " + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f"; seeded: {certified_frac:.4%} of the rays certified by the dense pass (one "
+        f"particle's 100 beams a block), likelihoods within rtol 1e-4 of the exact engine's "
+        f"but on the {int(fallback.sum())} particles with a ray whose winner differs; "
+        f"binned beam-major at c_super {cs_}, c_bin {cb_}: {binned_close:.4%} of its "
+        f"{int(cert_particle.sum())} certified particles within rtol 1e-4 of the exact "
+        f"engine; at c_super "
+        f"{cs}, c_bin {cb}, c_hyper {ch}, c_mid {cm} is within rtol 1e-5 of the two-level "
+        f"cull (neither saturates)")
+    log(f"phase 11b K5 in the seeded pass: {k5['rays']} rays ({k5['suspect']} suspect) sorted "
+        f"by bound, {k5['ms']:.3f} ms, bound {k5['bound_ms']:.3f} ms ({k5['bound_by']}), "
+        f"roofline {k5['bound_ms'] / k5['ms']:.2%}; bitwise its plain version on the last "
+        f"{EXACT_SLICE} rays (plain {k5['plain_ms']:.1f} ms)")
+    del o_s, d_s, t_s, seed, lossless, bound, rays5, visits, slot5, slot, slot_ex
+
+    # CP updates: K6 on the BVH, K6b on the bins (candidates in torch ops)
+    cp_cloud = r11["cloud"].map(lambda x: x[:MCL_CP_PARTICLES].contiguous())
+    cp = {}
+    for name, acc, k in (("bvh", bvh, "K6"), ("binned", bins, "K6b")):
+        cfg = dataclasses.replace(scfg, engine=name, correspondence_type="CP")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lik = sensor_update(acc, cp_cloud, None, None, None, tsb, cfg, beams=beams).likelihood
+        torch.cuda.synchronize()
+        cp[name] = ((time.perf_counter() - t0) * 1e3, lik)
+        require_launches(f"phase 11b CP {name}", read_counts(), (k,))
+        if not bool(torch.isfinite(lik.mean).all()):
+            fail(f"phase 11b: CP {name} gave non-finite likelihoods")
+    cp_close = float(torch.isclose(cp["binned"][1].mean, cp["bvh"][1].mean, rtol=1e-4,
+                                   atol=1e-6).float().mean())
+    log(f"phase 11b CP updates on {MCL_CP_PARTICLES} particles x {MCL_BEAMS} beams: bvh (K6) "
+        f"{cp['bvh'][0]:.1f} ms, binned (K6b) {cp['binned'][0]:.1f} ms; {cp_close:.4%} of the "
+        f"particles' likelihoods agree within rtol 1e-4")
+    return dict(ms=ms, certified_frac=certified_frac, kmid=kmid, k5=k5,
+                cp_ms={k: v[0] for k, v in cp.items()})
+
+
+def phase_mcl_node(r11):
+    """Phase 11c: MCLNode end to end at MCLConfig's default 100,000
+    particles on 11a's map: engine "auto" (gate every update), the budget
+    audit, ten steps of +0.2 m in x with a scan simulated at the truth."""
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.node import MCLConfig, MCLNode
+    from rmcl_tpu_torch.sensors.simulate import simulate
+
+    mmap, model, truth = r11["mmap"], r11["model"], r11["truth"]
+    cfg = MCLConfig(n_particles=MCL_NODE_PARTICLES, auto_engine_period=1, seed=MCL_SEED,
+                    sensor=dataclasses.replace(r11["scfg"], engine="auto"))
+    node = MCLNode(mmap, cfg)
+    t = time.perf_counter()
+    node.warm()
+    warm_s = time.perf_counter() - t
+    node.initial_pose_guess(truth, torch.diag(torch.tensor(MCL_COV)))
+    tsb = Transform.identity()
+    pose = list(MCL_TRUTH)
+    reset_counts()
+    for step in range(MCL_NODE_STEPS):
+        pose[0] += MCL_NODE_STEP
+        true_bm = Transform.from_pose_tuple(pose)
+        hits = simulate(mmap.bvh, model, true_bm)
+        points = model.polar_to_cartesian(torch.where(hits.hit, hits.t, 0.0))
+        if step == 0:  # the odometry's first reading sets its origin
+            node.motion_update(Transform.from_pose_tuple(MCL_TRUTH), 0.0)
+        node.motion_update(true_bm, 0.1 * (step + 1))
+        node.sensor_update(points, hits.hit, tsb)
+        node.resample()
+        err = float(torch.linalg.vector_norm(node.estimate().pose.trans - true_bm.trans))
+        sc = node.config.sensor
+        log(f"phase 11c step {step + 1}: engine {node._engine_choice}, budgets c_super "
+            f"{sc.c_super} c_bin {sc.c_bin} c_mid {sc.c_mid} (audit {node.last_audit}), "
+            f"error {err:.4f} m")
+    counts = {k: v for k, v in read_counts().items() if v}
+    log(f"phase 11c MCLNode: {cfg.n_particles} particles, {MCL_NODE_STEPS} steps, final error "
+        f"{err:.4f} m; kernels built by warm() in {warm_s:.2f} s; launches {counts}; "
+        f"StageTimer:\n{node.timer.report()}")
+    if not err < MCL_NODE_ERR_MAX:
+        fail(f"phase 11c: MCLNode ended {err:.4f} m off the truth (>= {MCL_NODE_ERR_MAX})")
+    return dict(err=err, engine=node._engine_choice, audit=node.last_audit, counts=counts,
+                stage_ms={k: node.timer.mean(k) * 1e3 for k in node.timer.total})
+
+
 def phase_exact_reference_size(sphere_mesh, sphere_bins):
     from rmcl_tpu_torch.bvh.builder import build_bvh
     from rmcl_tpu_torch.ops.closest_cuda import closest_bvh, walk_split
@@ -1709,6 +2353,10 @@ def main():
     exact_r = phase_exact_main_path(main_r)
     ref_r = phase_exact_reference_size(sphere_mesh, sphere)
     mcl_r = phase_mcl_cast(main_r)
+    del main_r["bmap"]
+    r11 = phase_mcl_cycle()
+    r11b = phase_mcl_engines(r11)
+    r11c = phase_mcl_node(r11)
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -1720,10 +2368,22 @@ def main():
         row(name, "rmcl_tpu_torch/csrc/cull_blocks.cu", replaces, r), bitwise=r["bitwise"],
         call_ms=r["call_ms"], cull_e2e_ms=r["e2e_ms"], back_end_ms=r["back_ms"],
         back_end_bound_ms=r["back_bound_ms"])
+    p11 = lambda r, **extra: dict({k: r[k] for k in ("ms", "bound_ms", "bound_by", "launches",
+                                                       "plain_ms", "max_abs_err", "blocks",
+                                                       "plain_blocks")},
+                                  roofline=r["bound_ms"] / r["ms"], **extra)
     log(json.dumps({"kernels": [
-        row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
-            "rmcl_tpu/ops/raycast_pallas.py:35", main_r),
-        k3_row("cull_rays", "rmcl_tpu/ops/raycast_binned.py:751", main_r["k3"]),
+        dict(row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
+                 "rmcl_tpu/ops/raycast_pallas.py:35", main_r),
+             phase11=p11(r11["k1"], order="count", block_order_ms=r11["k1"]["unsorted_ms"])),
+        dict(k3_row("cull_rays", "rmcl_tpu/ops/raycast_binned.py:751", main_r["k3"]),
+             phase11_hyper=p11(r11["k3"], timed_by="device trace", bitwise=r11["k3"]["bitwise"],
+                               registers=r11["k3"]["registers"]),
+             phase11_mid=p11(r11b["kmid"], timed_by="device trace", bitwise=True,
+                             replaces="rmcl_tpu/ops/raycast_binned.py:644",
+                             c_mid=r11b["kmid"]["cm"],
+                             two_level_ms=r11b["kmid"]["two_level_ms"],
+                             registers=r11["k3"]["registers"])),
         k3_row("cull_factored", "rmcl_tpu/ops/raycast_binned.py:1370", sweep_r["k3"]),
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),
@@ -1731,7 +2391,8 @@ def main():
                  "rmcl_tpu/ops/raycast.py:73", exact_r["k5"]), bitwise=True,
              timed_by=exact_r["k5"]["timed_by"], registers=exact_r["registers"]["K5"][0],
              phases={ph: {k: r[k] for k in ("ms", "bound_ms", "bound_by", "launches")}
-                     for ph, r in (("8", exact_r["k5"]), ("9", ref_r["k5"]), ("10", mcl_r))},
+                     for ph, r in (("8", exact_r["k5"]), ("9", ref_r["k5"]), ("10", mcl_r),
+                                   ("11", r11b["k5"]))},
              phase10_angular_ms=mcl_r["angular_ms"]),
         dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
                  "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True,

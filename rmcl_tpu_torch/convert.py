@@ -62,3 +62,24 @@ def transform_from_arrays(rot: np.ndarray, trans: np.ndarray, device="cuda") -> 
     dev = resolve_device(device)
     as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
     return Transform(rot=as_t(rot), trans=as_t(trans))
+
+
+def particles_from_arrays(arrays: Dict[str, np.ndarray], device="cuda"):
+    """``ParticleCloud`` from its fields as numpy arrays: ``rot`` (N, 4)
+    [w,x,y,z], ``trans`` (N, 3), ``mean``, ``sigma``, ``n_meas`` (N,),
+    ``state_sigma`` (N, 6) and ``alive`` (N,) — for example another
+    package's cloud, so that both run from the identical particles."""
+    from rmcl_tpu_torch.math.gaussian import Gaussian1D
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+
+    fields = {"rot", "trans", "mean", "sigma", "n_meas", "state_sigma", "alive"}
+    if set(arrays) != fields:
+        raise ValueError(f"particle fields must be {sorted(fields)}, got {sorted(arrays)}")
+    dev = resolve_device(device)
+    f32 = lambda k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(dev)
+    return ParticleCloud(
+        poses=Transform(rot=f32("rot"), trans=f32("trans")),
+        likelihood=Gaussian1D(mean=f32("mean"), sigma=f32("sigma"), n_meas=f32("n_meas")),
+        state_sigma=f32("state_sigma"),
+        alive=torch.from_numpy(np.array(arrays["alive"], dtype=bool)).to(dev),
+    )

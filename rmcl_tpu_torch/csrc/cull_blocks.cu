@@ -22,8 +22,13 @@
 //            nearest by the key (bits(tn), index); or the fat cone x every
 //            hyper, the ch nearest by the packed key (bits(tn) & ~idm) | id,
 //            then the fat cone x those hypers' supers, the cs nearest;
-//   level 1: the R cones x the S bins of each kept super, the cb nearest by
-//            the packed key; tnear = the key's truncated tn / n_hi;
+//   mid:     with the mid level (cm > 0), the R cones x the S / M mid boxes
+//            of each kept super (mids made only of padding bins skipped),
+//            the cm nearest by the packed key when the mid ids fit 20 bits,
+//            else by the key (bits(tn), position) (_chunk_cull_tests3);
+//   level 1: the R cones x the S bins of each kept super (or the M bins of
+//            each kept mid), the cb nearest by the packed key; tnear = the
+//            key's truncated tn / n_hi;
 //   sat:     whether any level had more passing boxes than its budget.
 //
 // Every sum runs in the plain version's fixed order (ops/cull_cuda.py): the
@@ -73,14 +78,16 @@ struct CullArgs {
   const float* bin_aabb;
   const float* super_aabb;
   const float* hyper_aabb;
+  const float* mid_aabb;
   int* cand_bin;
   int* cand_count;
   float* cand_tnear;
   unsigned char* sat;
   int mode, Cb, R, Rb, P, G;
   int n_bins, n_super, n_hyper, S, H, ch, cs, cb;
-  unsigned idm_hyp, idm_sup, idm_bin;
-  int hyp_packed, sup_packed, bin_packed;
+  int M, Sm, cm, n_mid_ids;  // the mid level: M bins a mid, S / M mids a super, budget cm
+  unsigned idm_hyp, idm_sup, idm_bin, idm_mid;
+  int hyp_packed, sup_packed, bin_packed, mid_packed;
   float t_min_s, t_max_s, origin_margin, tan_dm;
 };
 
@@ -499,6 +506,7 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
   float* s_a = s_nhi + A.R;                            // 3 R
   int* s_hyp = reinterpret_cast<int*>(s_a + 3 * A.R);  // max(ch, 1)
   int* s_sup = s_hyp + (A.ch > 0 ? A.ch : 1);          // cs
+  int* s_mid = s_sup + A.cs;                            // max(cm, 1)
   __shared__ float s_obox[6];
   __shared__ int s_count;
   __shared__ int s_sat;
@@ -596,15 +604,35 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
   if (tid == 0) s_sat |= m > A.cs;
   __syncthreads();
 
-  // level 1: the kept supers' bins
-  test_level<CPL>(cn, cmask, L, min(m, A.cs) * A.S, A.bin_aabb, s_sup, A.S, A.n_bins,
+  // the groups whose bins level 1 tests: the kept supers, or the kept mids
+  const int* groups = s_sup;
+  int group_size = A.S;
+  int n_groups = min(m, A.cs);
+  if (A.cm > 0) {
+    test_level<CPL>(cn, cmask, L, n_groups * A.Sm, A.mid_aabb, s_sup, A.Sm, A.n_mid_ids,
+                    A.mid_packed, A.idm_mid, s_keys, &s_count);
+    m = take_count(&s_count);
+    sort_keys(s_keys, m);
+    for (int k = tid; k < A.cm; k += blockDim.x) {
+      float tn;
+      decode(s_keys, k, m, A.mid_packed, A.idm_mid, s_sup, A.Sm, s_mid + k, &tn);
+    }
+    if (tid == 0) s_sat |= m > A.cm;
+    __syncthreads();
+    groups = s_mid;
+    group_size = A.M;
+    n_groups = min(m, A.cm);
+  }
+
+  // level 1: the kept groups' bins
+  test_level<CPL>(cn, cmask, L, n_groups * group_size, A.bin_aabb, groups, group_size, A.n_bins,
                   A.bin_packed, A.idm_bin, s_keys, &s_count);
   m = take_count(&s_count);
   sort_keys(s_keys, m);
   for (int k = tid; k < A.cb; k += blockDim.x) {
     int id;
     float tn;
-    decode(s_keys, k, m, A.bin_packed, A.idm_bin, s_sup, A.S, &id, &tn);
+    decode(s_keys, k, m, A.bin_packed, A.idm_bin, groups, group_size, &id, &tn);
     A.cand_bin[(size_t)blk * A.cb + k] = id;
     A.cand_tnear[(size_t)blk * A.cb + k] = id >= 0 ? tn / s_scale : kBig;
   }
@@ -644,7 +672,8 @@ extern "C" int rmcl_cull(const CullArgs* args, void* stream) {
     const int n_rays = A.mode == kFactored ? A.G : A.Rb;
     sh.n_slots = std::max(A.R * pow2_at_least(n_rays / A.R), pow2_at_least(n_rays));
   }
-  int slots = A.cs * A.S;
+  // level 1's keys (and the mid level's), then level 0's
+  int slots = A.cm > 0 ? std::max(A.cs * A.Sm, A.cm * A.M) : A.cs * A.S;
   if (A.ch > 0) {
     slots = std::max(slots, std::max(A.n_hyper, A.ch * A.H));
   } else {
@@ -653,7 +682,7 @@ extern "C" int rmcl_cull(const CullArgs* args, void* stream) {
   sh.key_cap = pow2_at_least(std::max(slots, 32));  // the warp sort writes 32
   const size_t smem = (size_t)region_floats(sh) * sizeof(float) + (size_t)(A.R + 1) * sizeof(Cone) +
                       (size_t)4 * A.R * sizeof(float) +
-                      (size_t)((A.ch > 0 ? A.ch : 1) + A.cs) * sizeof(int);
+                      (size_t)((A.ch > 0 ? A.ch : 1) + A.cs + (A.cm > 0 ? A.cm : 1)) * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
   switch (cpl) {
     case 1: return launch<1>(A, sh, smem, s);
@@ -662,4 +691,21 @@ extern "C" int rmcl_cull(const CullArgs* args, void* stream) {
     case 4: return launch<4>(A, sh, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Registers and local-memory bytes a thread (spills show as local memory) of
+// the kernel built for `cpl` cones a lane (1, 2 or 4). Returns the
+// cudaFuncGetAttributes error.
+extern "C" int rmcl_cull_attrs(int cpl, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  switch (cpl) {
+    case 1: err = cudaFuncGetAttributes(&a, cull_kernel<1>); break;
+    case 2: err = cudaFuncGetAttributes(&a, cull_kernel<2>); break;
+    case 4: err = cudaFuncGetAttributes(&a, cull_kernel<4>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)err;
 }

@@ -36,7 +36,11 @@
 //     maxima of t_best for the block-wide early exit (positive floats order
 //     like ints; the maxima alternate between two shared arrays, so a warp
 //     that runs ahead never overwrites words another warp still reads);
-//   * B is a runtime power of two; shared memory is 2 * 48 * B bytes.
+//   * B is a runtime power of two; shared memory is 2 * 48 * B bytes;
+//   * an optional launch order (int32, one entry a block): CTA i works on
+//     block order[i] and writes it in place, so the caller may launch the
+//     blocks in candidate-count order (the dense engine's sort_blocks) and
+//     read the outputs unpermuted. It changes no result.
 // Built with --fmad=false so that every product and sum rounds like the
 // plain PyTorch version's (rmcl_tpu_torch/ops/raycast_cuda.py), which keeps
 // the packed-key winners identical at shared edges.
@@ -85,13 +89,15 @@ __global__ void __launch_bounds__(1024) intersect_bins_kernel(
     const int* __restrict__ cand_bin,    // (n_blk, cb)
     const int* __restrict__ cand_count,  // (n_blk,)
     const float* __restrict__ cand_tnear,// (n_blk, cb)
+    const int* __restrict__ order,       // (n_blk,) launch order, or null
     float* __restrict__ t_best_out,      // (n_blk, Rb)
     int* __restrict__ ref_out,           // (n_blk, Rb)
     int Rb, int cb, int B, int S) {
   extern __shared__ float4 s_tri[];  // 2 x [j][3]: v0, e1, e2 (.w unused)
   __shared__ __align__(16) int s_warp_max[2][kMaxWarps];
 
-  const int blk = blockIdx.x;
+  // CTA i works on block order[i]; outputs stay in block order
+  const int blk = order ? order[blockIdx.x] : blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(1024) intersect_bins_kernel(
 
   for (int i = tid; i < 2 * kMaxWarps; i += nt) (&s_warp_max[0][0])[i] = (int)0x80000000;
 
-  const int r = blk * Rb + min(ray, Rb - 1);
+  const size_t r = (size_t)blk * Rb + min(ray, Rb - 1);
   const float ox = ob[3 * r + 0], oy = ob[3 * r + 1], oz = ob[3 * r + 2];
   const float dx = db[3 * r + 0], dy = db[3 * r + 1], dz = db[3 * r + 2];
   const float tmin = t_min_b[r];
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(1024) intersect_bins_kernel(
   cp_async_wait_all();  // a copy started before the exit must land before the CTA ends
 
   if (writer) {
-    const int w = blk * Rb + ray;
+    const size_t w = (size_t)blk * Rb + ray;
     t_best_out[w] = t_best;
     ref_out[w] = ref;
   }
@@ -201,7 +207,7 @@ extern "C" int rmcl_intersect_bins(
     const float* tri, const float* ob, const float* db,
     const float* t_min_b, const float* t_max_b,
     const int* cand_bin, const int* cand_count, const float* cand_tnear,
-    float* t_best, int* ref,
+    const int* order, float* t_best, int* ref,
     int n_blk, int Rb, int cb, int B, int S, void* stream) {
   if (n_blk == 0) return 0;
   if (S < 1 || S > 32 || (S & (S - 1))) return (int)cudaErrorInvalidValue;
@@ -217,7 +223,7 @@ extern "C" int rmcl_intersect_bins(
     if (err != cudaSuccess) return (int)err;
   }
   intersect_bins_kernel<<<n_blk, threads, smem, (cudaStream_t)stream>>>(
-      tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear,
+      tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear, order,
       t_best, ref, Rb, cb, B, S);
   return (int)cudaGetLastError();
 }

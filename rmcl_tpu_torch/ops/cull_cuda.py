@@ -6,8 +6,9 @@ cone bounds of ``_block_bounds`` / ``_subblock_bounds`` and the factored
 cull's ``fact_bounds`` / ``margin_sb_bounds`` with the scene-exit cap, then
 the box tests and nearest-first selections of ``_chunk_level0`` (level 0
 over all supers, or its ``c_hyper`` branch: hypers, then the selected
-hypers' supers), ``_group_box_tests``, ``_chunk_cull_tests``,
-``_chunk_select`` and ``_chunk_candidates``. One kernel does all of it,
+hypers' supers), ``_group_box_tests``, ``_chunk_cull_tests`` (or, with the
+mid level, ``_chunk_cull_tests3``), ``_chunk_select`` and
+``_chunk_candidates``. One kernel does all of it,
 ``rmcl_tpu_torch/csrc/cull_blocks.cu``; its header says what bounds it on
 the card and what the design does about that. Three wrappers launch it:
 
@@ -31,7 +32,9 @@ sub-block cones ``[oc(3), oh(3), axis(3), tan_th, t_hi]``; ``fat (Cb,
 ``n_hi (Cb,)`` the blocks' direction-length scale; boxes ``bin_aabb
 (n_bins, 6)``, ``super_aabb (n_super, 6)``, ``hyper_aabb (n_hyper, 6)``
 with ``S`` bins per super and ``H`` supers per hyper; budgets ``ch`` (0: no
-hyper level), ``cs``, ``cb``. Every wrapper returns ``cand_bin (Cb, cb)``
+hyper level), ``cs``, ``cb``; optionally the mid level, ``mid_aabb
+(n_super * S / M, 6)`` with ``M`` bins a mid and budget ``cm`` (0: none),
+between the supers and the bins. Every wrapper returns ``cand_bin (Cb, cb)``
 int32 (-1 padding, nearest first), ``cand_count (Cb,)`` int32,
 ``cand_tnear (Cb, cb)`` f32 (3e38 padding) and ``sat (Cb,)`` bool, True
 where a budget truncated the block's set.
@@ -277,18 +280,17 @@ def _capped_bounds(bins, raw):
     return pack_cones(oc, oh, axis, tan_th, t_hi), n_hi
 
 
-def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, ch):
+def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, ch, cm=0):
     """The arguments of :func:`cull_blocks` for bounds from
     ``raw_bounds(r)`` (r cones per block). With the hyper level (ch > 0),
     the coarse levels use ONE fat block cone (r = 1) and the sub-block cones
-    stay for the bin tests, as in the JAX package."""
+    stay for the mid and bin tests, as in the JAX package."""
     cones, n_hi = _capped_bounds(bins, raw_bounds(sub_blocks))
     fat = None
     if ch:
         fat = (_capped_bounds(bins, raw_bounds(1))[0] if sub_blocks > 1 else cones)[:, 0]
         fat = fat.contiguous()
-    return (cones, fat, torch.amax(n_hi, dim=1).contiguous(), bins.bin_aabb, bins.super_aabb,
-            bins.hyper_aabb, bins.bins_per_super, bins.supers_per_hyper, ch, cs, cb)
+    return (cones, fat, torch.amax(n_hi, dim=1).contiguous(), *_bins_boxes(bins, ch, cs, cb, cm))
 
 
 def _by_blocks(fn, step, *blocked):
@@ -370,16 +372,57 @@ def _level0(cones, fat, super_aabb, hyper_aabb, H, ch, cs):
     return sup_ids, sat0
 
 
+def _mid_level(cones, sup_ids, mid_aabb, n_bins, S, M, cm):
+    """The mid level (``_chunk_cull_tests3``'s level 1a): the R cones x
+    the S / M mids of each selected super, mids made only of padding bins
+    excluded, the cm nearest kept. Returns (mid_sel (Cb, cm) with -1
+    padding, sat (Cb,): more than cm mids passed)."""
+    Cb, cs = sup_ids.shape
+    Sm = S // M
+    n_mid = mid_aabb.shape[0]
+    safe = sup_ids.clamp(min=0)
+    boxes = mid_aabb.reshape(n_mid // Sm, Sm, 6)[safe]  # (Cb, cs, Sm, 6)
+    any_mid, tn_mid = _group_box_tests(cones, boxes.reshape(Cb, cs * Sm, 6))
+    gmid = safe[..., None] * Sm + torch.arange(Sm, dtype=torch.int32, device=cones.device)
+    valid = (any_mid.reshape(Cb, cs, Sm) & (sup_ids >= 0)[..., None]
+             & (gmid * M < n_bins)).reshape(Cb, cs * Sm)
+    mid_sel, _ = _select(valid, tn_mid, gmid.reshape(Cb, cs * Sm), n_mid, cm, _packs(n_mid))
+    return mid_sel, torch.sum(valid, dim=1) > cm
+
+
+def _level1_groups(cones, fat, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, mid_aabb, M,
+                   cm):
+    """The groups whose bins level 1 tests: (ids (Cb, k) with -1 padding,
+    group size, number of groups, sat of the levels above) — the selected
+    supers (S bins each), or with the mid level (cm > 0) the selected mids
+    (M bins each)."""
+    sup_ids, sat0 = _level0(cones, fat, super_aabb, hyper_aabb, H, ch, cs)
+    if not cm:
+        return sup_ids, S, super_aabb.shape[0], sat0
+    mid_sel, sat_mid = _mid_level(cones, sup_ids, mid_aabb, bin_aabb.shape[0], S, M, cm)
+    return mid_sel, M, mid_aabb.shape[0], sat0 | sat_mid
+
+
 def cull_tests(cones: Tensor, fat: Optional[Tensor], bin_aabb: Tensor, super_aabb: Tensor,
-               hyper_aabb: Optional[Tensor], S: int, H: int, ch: int, cs: int) -> Tensor:
+               hyper_aabb: Optional[Tensor], S: int, H: int, ch: int, cs: int,
+               mid_aabb: Optional[Tensor] = None, M: int = 1, cm: int = 0) -> Tensor:
     """Cone-box tests per block that the kernel runs on these inputs (the
     work its bound counts): every hyper or super of level 0, the selected
-    hypers' supers, and R tests for each bin of a selected super."""
+    hypers' supers, R tests for each mid of a selected super (those not all
+    padding) with the mid level, and R tests for each bin of a selected
+    super or mid."""
     Cb, R, _ = cones.shape
     n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
-    sup_ids, _ = _level0(cones, fat, super_aabb, hyper_aabb, H, ch, cs)
-    bins_of = torch.clamp(n_bins - sup_ids.clamp(min=0).long() * S, 0, S)
-    tests = R * torch.sum(torch.where(sup_ids >= 0, bins_of, 0), dim=1)
+    groups, g, _, _ = _level1_groups(cones, fat, bin_aabb, super_aabb, hyper_aabb, S, H, ch,
+                                     cs, mid_aabb, M, cm)
+    bins_of = torch.clamp(n_bins - groups.clamp(min=0).long() * g, 0, g)
+    tests = R * torch.sum(torch.where(groups >= 0, bins_of, 0), dim=1)
+    if cm:
+        sup_ids, _ = _level0(cones, fat, super_aabb, hyper_aabb, H, ch, cs)
+        Sm = S // M
+        n_mid_ids = -(-n_bins // M)
+        mids_of = torch.clamp(n_mid_ids - sup_ids.clamp(min=0).long() * Sm, 0, Sm)
+        tests = tests + R * torch.sum(torch.where(sup_ids >= 0, mids_of, 0), dim=1)
     if not ch:
         return tests + R * n_super
     n_hyper = hyper_aabb.shape[0]
@@ -404,9 +447,19 @@ def _check_tensors(dev, **named):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_boxes(dev, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
+def _check_boxes(dev, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb=None, M=1,
+                 cm=0):
     n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
     boxes = {"bin_aabb": (bin_aabb, (n_bins, 6)), "super_aabb": (super_aabb, (n_super, 6))}
+    if cm:
+        if mid_aabb is None:
+            raise ValueError("the mid level (cm > 0) needs mid_aabb")
+        if M < 1 or S % M or S // M < 2:
+            raise ValueError(f"the mid level needs M={M} to divide S={S} at least twice")
+        Sm = S // M
+        boxes["mid_aabb"] = (mid_aabb, (n_super * Sm, 6))
+        if not 1 <= cm <= n_super * Sm or cb > cm * M:
+            raise ValueError(f"mid budget cm={cm} out of range (cb={cb}, M={M})")
     if ch:
         if hyper_aabb is None:
             raise ValueError("the hyper level (ch > 0) needs hyper_aabb")
@@ -422,7 +475,8 @@ def _check_boxes(dev, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
         raise ValueError("S bins per super do not cover the bins")
 
 
-def _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb):
+def _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb,
+                  mid_aabb=None, M=1, cm=0):
     if cones.dim() != 3 or cones.shape[2] != CONE_WIDTH:
         raise ValueError(f"cones must be (Cb, R, {CONE_WIDTH}), got {tuple(cones.shape)}")
     Cb = cones.shape[0]
@@ -430,13 +484,15 @@ def _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, 
         raise ValueError("the hyper level (ch > 0) needs fat")
     extra = {"fat": (fat, (Cb, CONE_WIDTH))} if ch else {}
     _check_tensors(cones.device, cones=(cones, None), n_hi=(n_hi, (Cb,)), **extra)
-    _check_boxes(cones.device, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb)
+    _check_boxes(cones.device, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb, M,
+                 cm)
 
 
-def _bins_boxes(bins, ch, cs, cb):
+def _bins_boxes(bins, ch, cs, cb, cm=0):
     """The back end's box arguments from TriangleBins."""
     return (bins.bin_aabb, bins.super_aabb, bins.hyper_aabb, bins.bins_per_super,
-            bins.supers_per_hyper, ch, cs, cb)
+            bins.supers_per_hyper, ch, cs, cb, bins.mid_aabb if cm else None,
+            bins.bins_per_mid, cm)
 
 
 def _check_scene(dev, bins):
@@ -446,11 +502,12 @@ def _check_scene(dev, bins):
 # --- the kernel ---
 
 _PTRS = ("cones", "fat", "n_hi", "o", "d", "t_min", "t_max", "alive", "scene_min", "scene_max",
-         "bin_aabb", "super_aabb", "hyper_aabb", "cand_bin", "cand_count", "cand_tnear", "sat")
+         "bin_aabb", "super_aabb", "hyper_aabb", "mid_aabb", "cand_bin", "cand_count",
+         "cand_tnear", "sat")
 _INTS = ("mode", "Cb", "R", "Rb", "P", "G", "n_bins", "n_super", "n_hyper", "S", "H", "ch",
-         "cs", "cb")
-_UINTS = ("idm_hyp", "idm_sup", "idm_bin")
-_FLAGS = ("hyp_packed", "sup_packed", "bin_packed")
+         "cs", "cb", "M", "Sm", "cm", "n_mid_ids")
+_UINTS = ("idm_hyp", "idm_sup", "idm_bin", "idm_mid")
+_FLAGS = ("hyp_packed", "sup_packed", "bin_packed", "mid_packed")
 _FLOATS = ("t_min_s", "t_max_s", "origin_margin", "tan_dm")
 # the kernel's front ends
 _MODES = {"cones": 0, "rays": 1, "expanded": 2, "factored": 3}
@@ -475,6 +532,22 @@ def _kernel():
     return fn
 
 
+def kernel_registers() -> dict:
+    """Registers and local-memory bytes a thread (spills show as local
+    memory) of K3's kernel as built for 1, 2 and 4 cones a lane, by
+    ``cudaFuncGetAttributes``: ``{"K3 CPL=1": (regs, local), ...}``. Needs a
+    card."""
+    fn = _build.load_library("cull_blocks").rmcl_cull_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = {}
+    for cpl in (1, 2, 4):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        if fn(cpl, ctypes.byref(regs), ctypes.byref(local)):
+            raise RuntimeError(f"cudaFuncGetAttributes failed for K3 at {cpl} cones a lane")
+        out[f"K3 CPL={cpl}"] = (regs.value, local.value)
+    return out
+
+
 def _idm(n: int) -> int:
     return (1 << max(1, (n - 1).bit_length())) - 1
 
@@ -483,7 +556,7 @@ def _launch(mode, Cb, R, boxes, tensors, **scalars):
     """One launch of the kernel on the boxes' card with front end ``mode``;
     ``tensors`` name its inputs, ``scalars`` its other fields. Returns
     (cand_bin, cand_count, cand_tnear, sat)."""
-    bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb = boxes
+    bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb, M, cm = boxes
     dev = bin_aabb.device
     if dev.type != "cuda":
         raise ValueError(f"the cull runs on cuda or cpu tensors, not {dev}")
@@ -491,17 +564,21 @@ def _launch(mode, Cb, R, boxes, tensors, **scalars):
         raise ValueError(f"the kernel takes at most {MAX_CONES} sub-blocks a block, not {R}")
     n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
     n_hyper = hyper_aabb.shape[0] if ch else 0
+    n_mid = mid_aabb.shape[0] if cm else 1
     outs = dict(cand_bin=torch.empty((Cb, cb), dtype=torch.int32, device=dev),
                 cand_count=torch.empty((Cb,), dtype=torch.int32, device=dev),
                 cand_tnear=torch.empty((Cb, cb), dtype=torch.float32, device=dev),
                 sat=torch.empty((Cb,), dtype=torch.bool, device=dev))
     args = _CullArgs(mode=_MODES[mode], Cb=Cb, R=R, n_bins=n_bins, n_super=n_super,
                      n_hyper=n_hyper, S=S, H=H, ch=ch, cs=cs, cb=cb,
+                     M=M, Sm=S // M if cm else 0, cm=cm, n_mid_ids=-(-n_bins // M) if cm else 0,
                      idm_hyp=_idm(max(n_hyper, 1)), idm_sup=_idm(n_super), idm_bin=_idm(n_bins),
-                     hyp_packed=int(_packs(max(n_hyper, 1))), sup_packed=int(_packs(n_super)),
-                     bin_packed=int(_packs(n_bins)), **scalars)
+                     idm_mid=_idm(n_mid), hyp_packed=int(_packs(max(n_hyper, 1))),
+                     sup_packed=int(_packs(n_super)), bin_packed=int(_packs(n_bins)),
+                     mid_packed=int(_packs(n_mid)), **scalars)
     ptrs = dict(tensors, bin_aabb=bin_aabb, super_aabb=super_aabb,
-                hyper_aabb=hyper_aabb if ch else None, **outs)
+                hyper_aabb=hyper_aabb if ch else None, mid_aabb=mid_aabb if cm else None,
+                **outs)
     for name, x in ptrs.items():
         setattr(args, name, None if x is None else x.data_ptr())
     with torch.cuda.device(dev):
@@ -513,19 +590,18 @@ def _launch(mode, Cb, R, boxes, tensors, **scalars):
 
 def cull_blocks(cones: Tensor, fat: Optional[Tensor], n_hi: Tensor, bin_aabb: Tensor,
                 super_aabb: Tensor, hyper_aabb: Optional[Tensor], S: int, H: int, ch: int,
-                cs: int, cb: int):
+                cs: int, cb: int, mid_aabb: Optional[Tensor] = None, M: int = 1, cm: int = 0):
     """Nearest-first candidate bins per block from cones computed
     beforehand (the back end alone; the module's contract).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`cull_blocks_reference`. ``cull_blocks.launches`` counts the
     kernel launches."""
-    _check_inputs(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb)
+    boxes = (bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb, M, cm)
+    _check_inputs(cones, fat, n_hi, *boxes)
     if cones.device.type == "cpu":
-        return cull_blocks_reference(cones, fat, n_hi, bin_aabb, super_aabb, hyper_aabb,
-                                     S, H, ch, cs, cb)
-    out = _launch("cones", cones.shape[0], cones.shape[1],
-                  (bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb),
+        return cull_blocks_reference(cones, fat, n_hi, *boxes)
+    out = _launch("cones", cones.shape[0], cones.shape[1], boxes,
                   dict(cones=cones, fat=fat if ch else None, n_hi=n_hi))
     cull_blocks.launches += 1
     return out
@@ -535,11 +611,11 @@ cull_blocks.launches = 0
 
 
 def cull_rays(bins, ob: Tensor, db: Tensor, t_min_b: Tensor, t_max_b: Tensor,
-              sub_blocks: int, cs: int, cb: int, ch: int = 0):
+              sub_blocks: int, cs: int, cb: int, ch: int = 0, cm: int = 0):
     """Nearest-first candidate bins of ray blocks ``(Cb, Rb, 3)`` with gates
     ``(Cb, Rb)`` (rays with t_max <= t_min are inert), each split into
     ``sub_blocks`` contiguous sub-blocks, on ``bins`` (TriangleBins): the
-    bounds and the cull in one launch.
+    bounds and the cull in one launch. ``cm`` > 0 adds the mid level.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`cull_rays_reference`. ``cull_rays.launches`` counts the kernel
@@ -551,10 +627,10 @@ def cull_rays(bins, ob: Tensor, db: Tensor, t_min_b: Tensor, t_max_b: Tensor,
     _check_tensors(dev, ob=(ob, (Cb, Rb, 3)), db=(db, (Cb, Rb, 3)), t_min_b=(t_min_b, (Cb, Rb)),
                    t_max_b=(t_max_b, (Cb, Rb)))
     _check_scene(dev, bins)
-    boxes = _bins_boxes(bins, ch, cs, cb)
+    boxes = _bins_boxes(bins, ch, cs, cb, cm)
     _check_boxes(dev, *boxes)
     if dev.type == "cpu":
-        return cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch)
+        return cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch, cm)
     out = _launch("rays", Cb, sub_blocks, boxes,
                   dict(o=ob, d=db, t_min=t_min_b, t_max=t_max_b, scene_min=bins.aabb_min,
                        scene_max=bins.aabb_max), Rb=Rb)
@@ -565,24 +641,25 @@ def cull_rays(bins, ob: Tensor, db: Tensor, t_min_b: Tensor, t_max_b: Tensor,
 cull_rays.launches = 0
 
 
-def cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch=0):
+def cull_rays_reference(bins, ob, db, t_min_b, t_max_b, sub_blocks, cs, cb, ch=0, cm=0):
     """:func:`cull_rays` in plain PyTorch tensor ops: the sub-block bounds,
     the scene cap, then :func:`cull_blocks_reference`. Runs on any device."""
     def one(ob, db, t_min_b, t_max_b):
         raw = lambda r: _subblock_bounds(ob, db, t_min_b, t_max_b, r)
-        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch))
+        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch, cm))
     step = max(1, _REF_RAYS_PER_STEP // ob.shape[1])
     return _by_blocks(one, step, ob, db, t_min_b, t_max_b)
 
 
 def cull_factored(bins, o_c: Tensor, d_c: Tensor, alive: Tensor, t_min: float, t_max: float,
                   sub_blocks: int, cs: int, cb: int, ch: int = 0, origin_margin: float = 0.0,
-                  dir_margin: float = 0.0):
+                  dir_margin: float = 0.0, cm: int = 0):
     """Nearest-first candidate bins of factored blocks: P pose origins
     ``o_c (Cb, P, 3)`` x G shared directions ``d_c (Cb, G, 3)`` (ray g*P +
     p), ``alive (Cb,)`` (0: a dead block), scalar gates, split into
     ``sub_blocks`` sub-blocks; ``origin_margin`` (per axis) and
-    ``dir_margin`` (radians) widen every cone for candidate reuse.
+    ``dir_margin`` (radians) widen every cone for candidate reuse; ``cm``
+    > 0 adds the mid level.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`cull_factored_reference`. ``cull_factored.launches`` counts the
@@ -594,11 +671,11 @@ def cull_factored(bins, o_c: Tensor, d_c: Tensor, alive: Tensor, t_min: float, t
     dev = o_c.device
     _check_tensors(dev, o_c=(o_c, (Cb, P, 3)), d_c=(d_c, (Cb, G, 3)), alive=(alive, (Cb,)))
     _check_scene(dev, bins)
-    boxes = _bins_boxes(bins, ch, cs, cb)
+    boxes = _bins_boxes(bins, ch, cs, cb, cm)
     _check_boxes(dev, *boxes)
     if dev.type == "cpu":
         return cull_factored_reference(bins, o_c, d_c, alive, t_min, t_max, sub_blocks, cs, cb,
-                                       ch, origin_margin, dir_margin)
+                                       ch, origin_margin, dir_margin, cm)
     out = _launch("factored" if G % sub_blocks == 0 else "expanded", Cb, sub_blocks, boxes,
                   dict(o=o_c, d=d_c, alive=alive, scene_min=bins.aabb_min,
                        scene_max=bins.aabb_max),
@@ -612,14 +689,14 @@ cull_factored.launches = 0
 
 
 def cull_factored_reference(bins, o_c, d_c, alive, t_min, t_max, sub_blocks, cs, cb, ch=0,
-                            origin_margin=0.0, dir_margin=0.0):
+                            origin_margin=0.0, dir_margin=0.0, cm=0):
     """:func:`cull_factored` in plain PyTorch tensor ops: the factored
     bounds with their margins, the scene cap, then
     :func:`cull_blocks_reference`. Runs on any device."""
     def one(o_c, d_c, alive):
         raw = _factored_bounds(o_c, d_c, alive, t_min, t_max, sub_blocks, origin_margin,
                                dir_margin)
-        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch))
+        return cull_blocks_reference(*_cull_args(bins, raw, sub_blocks, cs, cb, ch, cm))
     step = max(1, _REF_RAYS_PER_STEP // (o_c.shape[1] * d_c.shape[1]))
     return _by_blocks(one, step, o_c, d_c, alive)
 
@@ -630,7 +707,8 @@ _REF_TESTS_PER_STEP = 1 << 23
 
 def cull_blocks_reference(cones: Tensor, fat: Optional[Tensor], n_hi: Tensor,
                           bin_aabb: Tensor, super_aabb: Tensor, hyper_aabb: Optional[Tensor],
-                          S: int, H: int, ch: int, cs: int, cb: int):
+                          S: int, H: int, ch: int, cs: int, cb: int,
+                          mid_aabb: Optional[Tensor] = None, M: int = 1, cm: int = 0):
     """The same function in plain PyTorch tensor ops, in steps of blocks
     that bound its intermediates. Runs on any device."""
     Cb, R, _ = cones.shape
@@ -639,19 +717,22 @@ def cull_blocks_reference(cones: Tensor, fat: Optional[Tensor], n_hi: Tensor,
     if Cb > step:
         parts = [cull_blocks_reference(
             cones[s:s + step], None if fat is None else fat[s:s + step], n_hi[s:s + step],
-            bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb) for s in range(0, Cb, step)]
+            bin_aabb, super_aabb, hyper_aabb, S, H, ch, cs, cb, mid_aabb, M, cm)
+            for s in range(0, Cb, step)]
         return tuple(torch.cat(p) for p in zip(*parts))
     dev = cones.device
-    n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
-    sup_ids, sat0 = _level0(cones, fat, super_aabb, hyper_aabb, H, ch, cs)
-    # level 1: the sub-block cones x the selected supers' bins
-    safe = sup_ids.clamp(min=0)
-    boxes = _pad_rows(bin_aabb, n_super * S).reshape(n_super, S, 6)[safe]
-    any_bin, tn_bin = _group_box_tests(cones, boxes.reshape(Cb, cs * S, 6))
-    gbin = safe[..., None] * S + torch.arange(S, dtype=torch.int32, device=dev)
-    valid = (any_bin.reshape(Cb, cs, S) & (sup_ids >= 0)[..., None]
-             & (gbin < n_bins)).reshape(Cb, cs * S)
-    cand_bin, tn = _select(valid, tn_bin, gbin.reshape(Cb, cs * S), n_bins, cb, _packs(n_bins))
+    n_bins = bin_aabb.shape[0]
+    groups, g, n_groups, sat0 = _level1_groups(cones, fat, bin_aabb, super_aabb, hyper_aabb, S,
+                                               H, ch, cs, mid_aabb, M, cm)
+    # level 1: the sub-block cones x the selected groups' bins
+    k = groups.shape[1]
+    safe = groups.clamp(min=0)
+    boxes = _pad_rows(bin_aabb, n_groups * g).reshape(n_groups, g, 6)[safe]
+    any_bin, tn_bin = _group_box_tests(cones, boxes.reshape(Cb, k * g, 6))
+    gbin = safe[..., None] * g + torch.arange(g, dtype=torch.int32, device=dev)
+    valid = (any_bin.reshape(Cb, k, g) & (groups >= 0)[..., None]
+             & (gbin < n_bins)).reshape(Cb, k * g)
+    cand_bin, tn = _select(valid, tn_bin, gbin.reshape(Cb, k * g), n_bins, cb, _packs(n_bins))
     cand_tnear = torch.where(cand_bin >= 0, tn / n_hi[:, None], _BIG)
     cand_count = torch.sum(cand_bin >= 0, dim=1).to(torch.int32)
     sat = sat0 | (torch.sum(valid, dim=1) > cb)

@@ -9,8 +9,9 @@ int32 row gather of the winners, and the hit distance re-derived from the
 winner's plane, so that gradients flow exactly through ray origins and
 directions (the slot is discrete; it carries none).
 
-``cast_rays_seeded`` waits for the MCL slice (it needs the dense engine's
-lossless flags).
+:func:`cast_rays_seeded` is the exact query with a dense seed: the binned
+engine (K3 + K1) certifies the rays whose blocks no budget truncated, and
+only the others walk the BVH (K5), primed with the seed's hit.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ class RayHits:
     inst_id: Tensor  # (...,) int32 instance id (-1 when missed)
     point: Tensor  # (..., 3) hit point in ray frame (orig + t*dir)
     normal: Tensor  # (..., 3) geometric unit normal
+
+
+def _map_hits(fn, hits: RayHits) -> RayHits:
+    """``fn`` applied to every field of a hit record."""
+    return RayHits(**{f.name: fn(getattr(hits, f.name)) for f in dataclasses.fields(hits)})
 
 
 def _dot3(a: Tensor, b: Tensor) -> Tensor:
@@ -112,6 +118,67 @@ def cast_rays(bvh: BVH, orig: Tensor, dirs: Tensor, t_min=0.0, t_max=NO_HIT_T,
         point=point.reshape(batch_shape + (3,)),
         normal=torch.where(hit[:, None], normal, 0.0).reshape(batch_shape + (3,)),
     )
+
+
+def cast_rays_seeded(bvh: BVH, bins, orig: Tensor, dirs: Tensor, t_min=0.0, t_max=NO_HIT_T,
+                     chunk_size: int = 262144, flip_normals: bool = True,
+                     block_size: int = 128, c_super: int = 24, c_bin: int = 96,
+                     c_mid: int = 0, c_hyper: int = 0, sub_blocks: int = 4,
+                     sort: bool = True) -> RayHits:
+    """Exact closest-hit query with a dense-engine seed pass (trust or
+    refine).
+
+    The dense engine is exact for every ray whose block's candidate budgets
+    truncated nothing, so the seed pass runs with ``with_lossless=True``
+    and certified rays keep its result: their traversal bound is -1, and
+    the walk's entry rule (t_max <= t_min visits nothing) skips them. A
+    suspect ray walks the BVH with t_max at the seed's hit inflated by
+    1e-5 relative + 1e-6 (a dense hit is a real intersection, so an upper
+    bound on the closest t), or at its own t_max when the seed missed; a
+    per-ray fallback takes the seed's record where the walk found nothing
+    (a grazing hit whose traversal t passes the inflated bound).
+
+    ``sort`` orders the rays by bound before the walk and puts them back
+    after: on the card the certified rays fill warps that exit at once. It
+    changes no result. ``bins`` is the map's TriangleBins on the BVH's
+    device."""
+    from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+
+    dev = bvh.device
+    orig = torch.as_tensor(orig, dtype=torch.float32, device=dev)
+    dirs = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
+    orig, dirs = torch.broadcast_tensors(orig, dirs)
+    batch_shape = orig.shape[:-1]
+    o = orig.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    lo = _flat(t_min, batch_shape, dev)
+    hi = _flat(t_max, batch_shape, dev)
+    seed, lossless = cast_rays_binned(
+        bins, o, d, t_min=lo, t_max=hi, block_size=block_size, flip_normals=flip_normals,
+        c_super=c_super, c_bin=c_bin, c_mid=c_mid, c_hyper=c_hyper, with_lossless=True,
+        sub_blocks=sub_blocks)
+    bound = torch.where(seed.hit, seed.t * (1.0 + 1e-5) + 1e-6, hi)
+    bound = torch.minimum(bound, hi)
+    bound = torch.where(lossless, -1.0, bound)
+    if sort:
+        order = torch.argsort(bound, stable=True)
+        out = cast_rays(bvh, o[order], d[order], t_min=lo[order], t_max=bound[order],
+                        chunk_size=chunk_size, flip_normals=flip_normals)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=dev)
+        out = _map_hits(lambda x: x[inv], out)
+    else:
+        out = cast_rays(bvh, o, d, t_min=lo, t_max=bound, chunk_size=chunk_size,
+                        flip_normals=flip_normals)
+    # the seed's hit is a real surface intersection: never report a miss
+    # that the unseeded walk would not have reported
+    fb = seed.hit & ~out.hit
+    pick = lambda a, b: torch.where(fb if a.dim() == 1 else fb[:, None], a, b)
+    out = RayHits(t=pick(seed.t, out.t), hit=out.hit | seed.hit,
+                  prim_id=pick(seed.prim_id, out.prim_id),
+                  inst_id=pick(seed.inst_id, out.inst_id),
+                  point=pick(seed.point, out.point), normal=pick(seed.normal, out.normal))
+    return _map_hits(lambda x: x.reshape(batch_shape + tuple(x.shape[1:])), out)
 
 
 def cast_ranges(bvh: BVH, orig: Tensor, dirs: Tensor, t_min=0.0, t_max=NO_HIT_T,

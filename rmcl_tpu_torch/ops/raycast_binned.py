@@ -23,10 +23,10 @@ nearest-first selections — is one launch of the hand-written kernel K3:
 :func:`~rmcl_tpu_torch.ops.cull_cuda.cull_factored` for factored blocks.
 
 Budgets truncate candidate lists nearest-first: a block needing more than
-``c_hyper`` hypers, ``c_super`` supers or ``c_bin`` bins may miss geometry
-(the cull's ``sat`` flags say where). The JAX package's ``c_mid`` level,
-``dir_groups``, ``sort_blocks`` and ``with_lossless`` of the dense engine
-are not ported yet.
+``c_hyper`` hypers, ``c_super`` supers, ``c_mid`` mids or ``c_bin`` bins
+may miss geometry (the cull's ``sat`` flags say where; ``with_lossless``
+and :func:`block_cull_stats` hand them out). The JAX package's
+``dir_groups`` of the dense engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from rmcl_tpu_torch._device import resolve_device
 from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.builder import morton_codes_3d
 from rmcl_tpu_torch.ops.cull_cuda import _BIG, cull_factored, cull_rays
-from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits
+from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, _map_hits
 from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, plane_of
 
 Tensor = torch.Tensor
@@ -81,14 +81,25 @@ def _flat_rays(orig, dirs, t_min, t_max):
 
 
 def _resolve_budgets(bins, c_super, c_bin, c_mid=0):
-    """The cull budgets clamped to the structure's level sizes: (cs, cb),
-    shared by the casts and the standalone cull so that reused candidate
-    lists match the cast's shapes. The mid level (``c_mid``) is not ported
-    yet."""
-    if c_mid:
-        raise NotImplementedError("c_mid (the three-level cull) is not ported yet")
+    """The cull budgets clamped to the structure's level sizes: (cs, cb,
+    cm), shared by the casts and the standalone cull so that reused
+    candidate lists match the cast's shapes.
+
+    The mid level switches itself off (cm = 0) when the bins have none or a
+    super holds a single mid (S // M <= 1: the two-level cull is then
+    strictly better). Otherwise cm never under-covers the bin budget (cm >=
+    ceil(cb / M)), and cb never exceeds what cm mids hold."""
+    S = bins.bins_per_super
     cs = min(c_super, bins.n_super)
-    return cs, min(c_bin, bins.n_bins, cs * bins.bins_per_super)
+    cb = min(c_bin, bins.n_bins, cs * S)
+    cm = 0
+    if c_mid:
+        M = bins.bins_per_mid
+        Sm = S // max(M, 1)
+        if bins.mid_aabb is not None and Sm > 1:
+            cm = min(max(c_mid, -(-cb // M)), bins.n_mid, cs * Sm)
+            cb = min(cb, cm * M)
+    return cs, cb, cm
 
 
 def candidate_stats(bins: TriangleBins, orig: Tensor, dirs: Tensor,
@@ -98,7 +109,7 @@ def candidate_stats(bins: TriangleBins, orig: Tensor, dirs: Tensor,
     saturating at c_bin mean budget overflow, i.e. potential false
     misses)."""
     o, d, t_min_r, t_max_r, _ = _flat_rays(orig, dirs, t_min, t_max)
-    cs, cb = _resolve_budgets(bins, c_super, c_bin)
+    cs, cb, _ = _resolve_budgets(bins, c_super, c_bin)
     _, cand_count, _ = _build_candidates(
         bins, *_pad_rays(o, d, t_min_r, t_max_r, block_size), cs, cb)
     return cand_count
@@ -115,17 +126,18 @@ def _chunk_candidates(bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, c_mid=
     """Per-sub-block chunk cull: a union of R = ``sub_blocks`` narrow cones
     per block.
 
+    ``c_mid`` is the resolved mid budget (cm of :func:`_resolve_budgets`; 0:
+    two levels).
+
     Returns (cand_bin (Cb, cb), cand_count (Cb,), cand_tnear (Cb, cb), sat
     (Cb,) bool — True when a budget level truncated this block's candidate
     set)."""
-    if c_mid:
-        raise NotImplementedError("c_mid (the three-level cull) is not ported yet")
     rays = (x.contiguous() for x in (ob, db, t_min_b, t_max_b))
-    return cull_rays(bins, *rays, sub_blocks, cs, cb, _hyper_budget(bins, c_hyper))
+    return cull_rays(bins, *rays, sub_blocks, cs, cb, _hyper_budget(bins, c_hyper), c_mid)
 
 
 def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin, sub_blocks,
-                   c_hyper=0):
+                   c_hyper=0, c_mid=0):
     """Blocked rays and their candidate lists: exactly what
     :func:`cast_rays_binned` hands :func:`intersect_bins`.
 
@@ -138,10 +150,10 @@ def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin, sub
     B = bins.bin_size
     if B & (B - 1):
         raise ValueError("bin_size must be a power of two (packed-key min)")
-    cs, cb = _resolve_budgets(bins, c_super, c_bin)
+    cs, cb, cm = _resolve_budgets(bins, c_super, c_bin, c_mid)
     ob, db, t_min_b, t_max_b = _pad_rays(o, d, t_min_r, t_max_r, Rb)
     cand_bin, cand_count, cand_tnear, sat = _chunk_candidates(
-        bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, c_hyper=c_hyper)
+        bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, cm, c_hyper)
     return (ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear), sat
 
 
@@ -172,32 +184,50 @@ def cast_rays_binned(
     ``block_chunk`` (the JAX package's cull chunk) changes nothing here:
     the port culls every block in one launch.
     ``c_hyper`` > 0 (with bins built with a hyper level) routes the super
-    selection through the ``c_hyper`` nearest hyper boxes.
+    selection through the ``c_hyper`` nearest hyper boxes; ``c_mid`` > 0
+    (with bins built with a mid level) routes the bin tests through the
+    ``c_mid`` nearest mid boxes of the kept supers (see
+    :func:`_resolve_budgets` for when it switches itself off).
+    ``sort_blocks`` launches the intersection's blocks in ascending
+    candidate count (a stable argsort); it changes no result.
+    ``with_lossless=True`` returns ``(hits, lossless)``: per ray, True
+    where no budget level truncated its block's candidate set, i.e. its
+    result is certified exact.
     Rays should come in a spatially coherent order (scan grids are)."""
-    for name, value in (("dir_groups", dir_groups), ("sort_blocks", sort_blocks),
-                        ("c_mid", c_mid), ("with_lossless", with_lossless)):
-        if value:
-            raise NotImplementedError(f"cast_rays_binned: {name} is not ported yet")
+    if dir_groups:
+        raise NotImplementedError("cast_rays_binned: dir_groups is not ported yet")
     pmode = {True: "select", False: "none"}.get(payload, payload)
     if pmode not in ("select", "index", "none"):
         raise ValueError(f"unknown payload mode {payload!r}")
     o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
+    inputs, sat = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
+                                 sub_blocks, c_hyper, c_mid)
+    order = None
+    if sort_blocks:
+        order = torch.argsort(inputs[5], stable=True).to(torch.int32)
+    t_best_b, ref_b = intersect_bins(bins.tri, *inputs, order=order)
+    hits = _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode, flip_normals)
+    hits = _map_hits(lambda x: x.reshape(batch_shape + tuple(x.shape[1:])), hits)
+    if with_lossless:
+        lossless = (~sat)[:, None].expand(sat.shape[0], block_size).reshape(-1)[:o.shape[0]]
+        return hits, lossless.reshape(batch_shape)
+    return hits
+
+
+def _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode="index",
+                       flip_normals=True) -> RayHits:
+    """Flat hit records of n rays ``o, d (n, 3)`` from K1's blocked winners:
+    one row gather a ray resolves the winner's triangle, and t, point and
+    normal are re-derived from its plane (``pmode`` "none": the packed-key
+    t only)."""
     n = o.shape[0]
-    inputs, _ = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                               sub_blocks, c_hyper)
-    t_best_b, ref_b = intersect_bins(bins.tri, *inputs)
     t_best = t_best_b.reshape(-1)[:n]
     hit = (t_best < t_max_r) & (t_best < _BIG)
-    out_shape = lambda x: x.reshape(batch_shape + tuple(x.shape[1:]))
-
     if pmode == "none":
         neg1 = torch.full((n,), -1, dtype=torch.int32, device=o.device)
         zero3 = o.new_zeros((n, 3))
-        return RayHits(
-            t=out_shape(torch.where(hit, t_best, NO_HIT_T)), hit=out_shape(hit),
-            prim_id=out_shape(neg1), inst_id=out_shape(neg1),
-            point=out_shape(zero3), normal=out_shape(zero3),
-        )
+        return RayHits(t=torch.where(hit, t_best, NO_HIT_T), hit=hit, prim_id=neg1,
+                       inst_id=neg1, point=zero3, normal=zero3)
 
     # one row gather per ray resolves the winner's payload; misses read
     # zeros, like the JAX package's all-zero sentinel bin
@@ -221,11 +251,27 @@ def cast_rays_binned(
         normal = normal * torch.where(denom > 0, -1.0, 1.0)[..., None]
     normal = torch.where(hit[..., None], normal, 0.0)
     ids = lambda k: torch.where(hit, comp(k), -1.0).to(torch.int32)
-    return RayHits(
-        t=out_shape(t_out), hit=out_shape(hit),
-        prim_id=out_shape(ids(12)), inst_id=out_shape(ids(13)),
-        point=out_shape(point), normal=out_shape(normal),
-    )
+    return RayHits(t=t_out, hit=hit, prim_id=ids(12), inst_id=ids(13), point=point,
+                   normal=normal)
+
+
+def block_cull_stats(bins: TriangleBins, orig: Tensor, dirs: Tensor, t_min=0.0,
+                     t_max=NO_HIT_T, block_size: int = 128, c_super: int = 48,
+                     c_bin: int = 192, sub_blocks: int = 4, c_mid: int = 0, c_hyper: int = 0,
+                     block_chunk: int = 256) -> Tuple[Tensor, Tensor]:
+    """Per-block ``(candidate_count, saturated)`` through the engine's own
+    cull (one K3 launch) — the audit that matches what
+    :func:`cast_rays_binned` runs at the same configuration.
+
+    ``saturated[i]`` True means some budget level (hyper, super, mid or
+    bin) truncated block i's candidate set, so the block's results are not
+    certified exact. Budget audits must check ``saturated.any()``, not just
+    the counts. ``block_chunk`` changes nothing here (the port culls every
+    block in one launch)."""
+    o, d, t_min_r, t_max_r, _ = _flat_rays(orig, dirs, t_min, t_max)
+    inputs, sat = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
+                                 sub_blocks, c_hyper, c_mid)
+    return inputs[5], sat
 
 
 # --- the factored engine: (P pose origins x G shared directions) blocks ---
@@ -250,7 +296,7 @@ def _pad_factored_blocks(o_blk, d_blk, alive, block_chunk):
 
 
 def _factored_block_candidates(bins, o_blk, d_blk, alive_f, t_min_s, t_max_s, cs, cb,
-                               c_hyper, sub_blocks, origin_margin, dir_margin=0.0):
+                               c_hyper, sub_blocks, origin_margin, dir_margin=0.0, cm=0):
     """Cull phase of the factored cast: nearest-first candidate bins of
     (P pose origins x G shared directions) blocks, one launch of
     :func:`cull_factored`.
@@ -265,7 +311,7 @@ def _factored_block_candidates(bins, o_blk, d_blk, alive_f, t_min_s, t_max_s, cs
     Returns (cand (n_blk, cb), count (n_blk,), tnear (n_blk, cb), sat
     (n_blk,)) for the padded blocks."""
     return cull_factored(bins, o_blk, d_blk, alive_f, t_min_s, t_max_s, sub_blocks, cs, cb,
-                         _hyper_budget(bins, c_hyper), origin_margin, dir_margin)
+                         _hyper_budget(bins, c_hyper), origin_margin, dir_margin, cm)
 
 
 def factored_candidates(
@@ -295,11 +341,11 @@ def factored_candidates(
 
     Returns (cand (n_blk_padded, cb) int32 with -1 padding, count
     (n_blk_padded,) int32, tnear (n_blk_padded, cb) f32)."""
-    cs, cb = _resolve_budgets(bins, c_super, c_bin, c_mid)
+    cs, cb, cm = _resolve_budgets(bins, c_super, c_bin, c_mid)
     o_p, d_p, alive_f, *_ = _pad_factored_blocks(o_blk, d_blk, alive, block_chunk)
     return _factored_block_candidates(
         bins, o_p, d_p, alive_f, float(t_min), float(t_max), cs, cb, c_hyper, sub_blocks,
-        float(origin_margin), float(dir_margin))[:3]
+        float(origin_margin), float(dir_margin), cm)[:3]
 
 
 def cast_rays_binned_factored(
@@ -360,7 +406,7 @@ def cast_rays_binned_factored(
     B = bins.bin_size
     if B & (B - 1):
         raise ValueError("bin_size must be a power of two (packed-key min)")
-    cs, cb = _resolve_budgets(bins, c_super, c_bin, c_mid)
+    cs, cb, cm = _resolve_budgets(bins, c_super, c_bin, c_mid)
     o_p, d_p, alive_f, n_blk, chunk, n_chunks = _pad_factored_blocks(
         o_blk, d_blk, alive, block_chunk)
     n_blk_p = n_chunks * chunk
@@ -372,7 +418,7 @@ def cast_rays_binned_factored(
     else:
         cand, count, tnear, _ = _factored_block_candidates(
             bins, o_p, d_p, alive_f, t_min_s, t_max_s, cs, cb, c_hyper, sub_blocks,
-            float(origin_margin), float(dir_margin))
+            float(origin_margin), float(dir_margin), cm)
     order = None
     if sort_blocks:
         order = torch.argsort(count, descending=True, stable=True).to(torch.int32)

@@ -40,7 +40,7 @@ _EPS = 1e-7
 def _kernel():
     """The kernel's C entry point (``rmcl_intersect_bins``), built on first use."""
     fn = _build.load_library("intersect_bins").rmcl_intersect_bins
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -67,7 +67,8 @@ def _check_aligned(tri):
                          "cp.async copies): pass a fresh tensor, not an offset view")
 
 
-def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear):
+def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear,
+                  order=None):
     n_blk, Rb = ob.shape[0], ob.shape[1]
     cb = cand_bin.shape[1] if cand_bin.dim() == 2 else -1
     expect = {
@@ -80,6 +81,8 @@ def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnea
         "cand_count": (cand_count, torch.int32, (n_blk,)),
         "cand_tnear": (cand_tnear, torch.float32, (n_blk, cb)),
     }
+    if order is not None:
+        expect["order"] = (order, torch.int32, (n_blk,))
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
@@ -102,17 +105,21 @@ def _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnea
 
 def intersect_bins(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor,
                    t_max_b: Tensor, cand_bin: Tensor, cand_count: Tensor,
-                   cand_tnear: Tensor):
+                   cand_tnear: Tensor, order: "Tensor | None" = None):
     """Closest hit per ray over each block's candidate bins.
+
+    ``order`` (int32 (n_blk,), a permutation, optional) is the blocks'
+    launch order: CTA i works on block ``order[i]``. Outputs stay in block
+    order, and the order changes no result.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`intersect_bins_reference`. ``intersect_bins.launches`` counts the
     kernel launches."""
-    _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear)
+    _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear, order)
     dev = tri.device
     if dev.type == "cpu":
         return intersect_bins_reference(
-            tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear)
+            tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear, order)
     if dev.type != "cuda":
         raise ValueError(f"intersect_bins runs on cuda or cpu tensors, not {dev}")
     n_blk, Rb = ob.shape[0], ob.shape[1]
@@ -124,7 +131,7 @@ def intersect_bins(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor,
             tri.data_ptr(), ob.data_ptr(), db.data_ptr(),
             t_min_b.data_ptr(), t_max_b.data_ptr(),
             cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(),
-            t_best.data_ptr(), ref.data_ptr(),
+            0 if order is None else order.data_ptr(), t_best.data_ptr(), ref.data_ptr(),
             n_blk, Rb, cand_bin.shape[1], tri.shape[2], lane_split(Rb, tri.shape[2]),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -177,10 +184,12 @@ def winner_t(tri: Tensor, o: Tensor, d: Tensor, t_min: Tensor, ref: Tensor) -> T
 
 def intersect_bins_reference(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor,
                              t_max_b: Tensor, cand_bin: Tensor, cand_count: Tensor,
-                             cand_tnear: Tensor):
+                             cand_tnear: Tensor, order: "Tensor | None" = None):
     """The same function in plain PyTorch: one step per candidate slot over
     (n_blk, B, Rb) pair tensors, the same packed-key fold and the same
-    per-block nearest-first exit. Runs on any device."""
+    per-block nearest-first exit. Runs on any device. ``order`` is taken
+    and ignored: every block runs on its own, so a launch order changes
+    nothing here."""
     n_blk, Rb, _ = ob.shape
     B = tri.shape[2]
     cb = cand_bin.shape[1]

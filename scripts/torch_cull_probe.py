@@ -182,7 +182,7 @@ def phase_inputs():
     def dense(name, bins, tsm, Rb):
         blocks = _pad_rays(*_flat_rays(tsm.apply(o_s), tsm.rotate(d_s), model.range.min,
                                        model.range.max)[:4], Rb)
-        cs, cb = _resolve_budgets(bins, 24, 96)
+        cs, cb, _ = _resolve_budgets(bins, 24, 96)
         back = cc._cull_args(bins, lambda r: cc._subblock_bounds(*blocks, r), 4, cs, cb, 0)
         cases.append((name, cc.cull_rays, cc.cull_rays_reference, (bins, *blocks, 4, cs, cb, 0),
                       back))
@@ -202,7 +202,7 @@ def phase_inputs():
                                                None, cfg["block_chunk"])
     bins = bench.bins
     R = cfg["sub_blocks"]
-    cs, cb = _resolve_budgets(bins, cfg["c_super"], cfg["c_bin"])
+    cs, cb, _ = _resolve_budgets(bins, cfg["c_super"], cfg["c_bin"])
     ch = _hyper_budget(bins, cfg["c_hyper"])
     args = (bins, o_p, d_p, alive, 0.0, 3.0e38, R, cs, cb, ch, bench.margin, 0.0)
     raw = cc._factored_bounds(o_p, d_p, alive, 0.0, 3.0e38, R, bench.margin, 0.0)

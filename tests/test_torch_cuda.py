@@ -136,6 +136,27 @@ def test_kernel_matches_plain_version(card, mesh, B, Rb, case):
     torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
 
 
+def test_kernel_takes_a_launch_order(card):
+    """K1 with a random permutation as its launch order: bitwise what it
+    gives without one, and the plain version's (which ignores the order)."""
+    bins = build_bins(MESHES["sphere"](), bin_size=64, bins_per_super=8, device=card)
+    inputs, _ = trb._kernel_inputs(bins, *_vlp16_rays((0.5, -0.3, 1.0), card), 128, 24, 96, 4)
+    gen = torch.Generator(device=card).manual_seed(3)
+    order = torch.randperm(inputs[0].shape[0], generator=gen, device=card).to(torch.int32)
+    before = intersect_bins.launches
+    kt, kref = intersect_bins(bins.tri, *inputs)
+    ot, oref = intersect_bins(bins.tri, *inputs, order=order)
+    pt, pref = intersect_bins_reference(bins.tri, *inputs, order=order)
+    torch.cuda.synchronize()
+    assert intersect_bins.launches == before + 2
+    assert torch.equal(ot, kt) and torch.equal(oref, kref)
+    assert (pref >= 0).float().mean() > 0.9
+    torch.testing.assert_close(ot, pt, rtol=T_RTOL, atol=0.0)
+    mis = oref != pref
+    tie_t = winner_t(bins.tri, inputs[0][mis], inputs[1][mis], inputs[2][mis], oref[mis])
+    torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
+
+
 def test_misaligned_tri(card):
     """K4 stages bins with 16-byte copies: a view of tri that starts one
     float into its storage is refused, not read. K1 copies 4-byte words and
@@ -243,7 +264,7 @@ def _cull_case(card, case):
         o, d, t_min, t_max = _vlp16_rays((0.5, -0.3, 1.0), card)
         blocks = trb._pad_rays(o, d, t_min, t_max, 128)
         raw = lambda r: _subblock_bounds(*blocks, r)
-        return _cull_args(bins, raw, 4, *trb._resolve_budgets(bins, 24, 96), 0)
+        return _cull_args(bins, raw, 4, *trb._resolve_budgets(bins, 24, 96)[:2], 0)
     bins = _sphere_bins(card)
     o_blk, d_blk = _sweep_blocks(card)
     o_p, d_p, alive, *_ = _pad_factored_blocks(o_blk, d_blk, None, 512)
@@ -392,7 +413,7 @@ def _fused_case(card, case):
                               device=card)
         else:
             bins = build_bins(MESHES["room"](), bin_size=8, bins_per_super=4, device=card)
-        cs, cb = trb._resolve_budgets(bins, 24, 96)
+        cs, cb, _ = trb._resolve_budgets(bins, 24, 96)
         blocks = trb._pad_rays(*_vlp16_rays((0.5, -0.3, 1.0), card), Rb)
         if case.endswith("_dead"):  # dead blocks, and blocks with some inert rays
             blocks[3][::3] = 0.0
@@ -434,6 +455,63 @@ def test_fused_cull_matches_plain_version(card, case):
     assert float(p_out[1].float().mean()) > 1  # the lists are not trivial
     bad, _ = cull_disagreements(k_out, p_out)
     assert bad == 0
+
+
+def _mid_bins(dev):
+    """A 5 m sphere in 1,580 bins of 8: 99 supers of 16 bins, each 4 mids
+    of 4 bins (the last super partly padding), 13 hypers."""
+    return build_bins(make_sphere(80, 80, radius=5.0), bin_size=8, bins_per_super=16,
+                      bins_per_mid=4, supers_per_hyper=8, device=dev)
+
+
+@pytest.mark.parametrize("mode", ["rays", "factored", "expanded", "cones"])
+@pytest.mark.parametrize("keys,cm", [("packed", 40), ("float", 40), ("packed", 6)])
+def test_mid_cull_kernel_matches_plain_version(card, monkeypatch, mode, keys, cm):
+    """K3 with the mid level, bitwise its plain version in every front end:
+    packed mid keys (the ids fit 20 bits), the float keys of large maps (the
+    rule forced here), and a small mid budget that truncates (sat)."""
+    from rmcl_tpu_torch.ops import cull_cuda as cc
+    from rmcl_tpu_torch.ops.raycast_binned import _pad_factored_blocks
+    if keys == "float":
+        monkeypatch.setattr(cc, "_packs", lambda n: False)
+    bins = _mid_bins(card)
+    cs, cb = 16, min(64, cm * bins.bins_per_mid)
+    if mode in ("rays", "cones"):
+        blocks = trb._pad_rays(*_vlp16_rays((0.5, -0.3, 1.0), card), 128)
+        if mode == "rays":
+            fn, plain, args = cc.cull_rays, cc.cull_rays_reference, (
+                bins, *blocks, 4, cs, cb, 0, cm)
+        else:
+            fn, plain = cc.cull_blocks, cc.cull_blocks_reference
+            args = cc._cull_args(bins, lambda r: cc._subblock_bounds(*blocks, r), 4, cs, cb, 0,
+                                 cm)
+    else:
+        o, d = _sweep_blocks(card)
+        o_p, d_p, alive, *_ = _pad_factored_blocks(o, d, None, 512)
+        R = 4 if mode == "factored" else 32
+        fn, plain, args = cc.cull_factored, cc.cull_factored_reference, (
+            bins, o_p, d_p, alive, 0.0, 130.0, R, cs, cb, 2, 0.05, 0.01, cm)
+    before = fn.launches
+    k_out = fn(*args)
+    p_out = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1  # the plain version is not counted
+    assert float(p_out[1].float().mean()) > 2  # the lists are not trivial
+    if cm < 10:
+        assert bool(p_out[3].any())  # the mid budget truncates somewhere
+    for a, b in zip(k_out, p_out):
+        assert torch.equal(a, b)
+
+
+def test_cull_kernel_has_no_spills(card):
+    """K3's kernel as built, with the mid level, for 1, 2 and 4 cones a
+    lane: registers within the 255 a thread allows, no local memory."""
+    from rmcl_tpu_torch.ops.cull_cuda import kernel_registers
+
+    regs = kernel_registers()
+    assert len(regs) == 3
+    for r, local in regs.values():
+        assert 0 < r <= 255 and local == 0
 
 
 def test_card_casts_run_no_torch_bounds(card, monkeypatch):
@@ -747,3 +825,78 @@ def test_exact_paths_on_card_match_cpu(card):
     torch.testing.assert_close(g_cp.dist.cpu(), c_cp.dist, rtol=T_TOL, atol=T_TOL)
     for g, c in zip(g_poses, c_poses):
         torch.testing.assert_close(g.trans.cpu(), c.trans, rtol=0.0, atol=POSE_TOL)
+
+
+# --- the MCL slice: the seeded engine and the sensor update ---
+
+
+def _mcl_world(dev):
+    """The small building (4,136 faces): its BVH and bins of 8 (16 a super,
+    4 a mid) on ``dev``, and a scan at a pose in its rooms."""
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+
+    mesh = _exact_mesh("building")
+    bvh = build_bvh(mesh, device=dev)
+    bins = build_bins(mesh, bin_size=8, bins_per_super=16, bins_per_mid=4, device=dev)
+    model = SphericalModel.create(width=180, height=8, phi_min=-0.3, phi_max=0.2,
+                                  range_max=30.0)
+    hits = simulate(bvh, model, Transform.from_pose_tuple([3.1, 2.9, 1.5, 0, 0, 0.3],
+                                                          device=dev))
+    return bvh, bins, hits.point, hits.hit
+
+
+def _mcl_cloud(dev, n=2000, seed=4):
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+
+    rng = np.random.default_rng(seed)
+    xyz = np.float32([3.1, 2.9, 1.5]) + rng.normal(scale=[0.5, 0.5, 0.05], size=(n, 3))
+    eul = np.zeros((n, 3), np.float32)
+    eul[:, 2] = 0.3 + rng.normal(scale=0.2, size=n)
+    poses = Transform.from_xyz_euler(torch.from_numpy(xyz.astype(np.float32)).to(dev),
+                                     torch.from_numpy(eul).to(dev))
+    return ParticleCloud.create(n, device=dev).with_poses(poses)
+
+
+def test_cast_rays_seeded_on_card_matches_cpu(card):
+    """The seeded engine on the card (K3 with the lossless flags, K1 in
+    count order, K5 on the uncertified rays) against the CPU's plain
+    versions: hits and prim ids equal, t within T_TOL."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_rays
+    from rmcl_tpu_torch.ops.raycast import cast_rays_seeded
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    cpu = torch.device("cpu")
+    g_bvh, g_bins, *_ = _mcl_world(card)
+    c_bvh, c_bins, *_ = _mcl_world(cpu)
+    o, d = _scattered_rays(_exact_mesh("building"), cpu, n=20000, seed=3)
+    launches = (cull_rays.launches, intersect_bins.launches, traverse_rays.launches)
+    g = cast_rays_seeded(g_bvh, g_bins, o.to(card), d.to(card), t_max=12.0, c_mid=8)
+    c = cast_rays_seeded(c_bvh, c_bins, o, d, t_max=12.0, c_mid=8)
+    assert (cull_rays.launches, intersect_bins.launches, traverse_rays.launches) == tuple(
+        x + 1 for x in launches)
+    assert float(c.hit.float().mean()) > 0.5
+    assert torch.equal(g.hit.cpu(), c.hit) and torch.equal(g.prim_id.cpu(), c.prim_id)
+    torch.testing.assert_close(g.t.cpu(), c.t, rtol=T_TOL, atol=T_TOL)
+
+
+@pytest.mark.parametrize("engine", ["bvh", "seeded", "binned"])
+def test_sensor_update_on_card_matches_cpu(card, engine):
+    """One sensor update on one injected beam set, on the card and on the
+    CPU: the likelihoods agree within 1e-5 relative (the fold's sums run in
+    another order on the card)."""
+    from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig, sample_beams, sensor_update
+
+    cpu = torch.device("cpu")
+    out = {}
+    for dev in (card, cpu):
+        bvh, bins, points, mask = _mcl_world(dev)
+        beams = sample_beams(torch.Generator().manual_seed(6), points.cpu(), mask.cpu(), 48)
+        beams = tuple(x.to(dev) for x in beams)
+        accel = {"bvh": bvh, "binned": bins, "seeded": (bvh, bins)}[engine]
+        cfg = SensorUpdateConfig.create(samples=48, engine=engine, dist_sigma=0.4,
+                                        layout="particle", c_super=32, c_bin=256, c_mid=16)
+        lik = sensor_update(accel, _mcl_cloud(dev), None, None, None,
+                            Transform.identity(device=dev), cfg, beams=beams).likelihood
+        out[dev.type] = lik
+    torch.testing.assert_close(out["cuda"].mean.cpu(), out["cpu"].mean, rtol=1e-5, atol=1e-7)
+    assert torch.equal(out["cuda"].n_meas.cpu(), out["cpu"].n_meas)

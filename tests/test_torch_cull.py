@@ -4,6 +4,8 @@ tensors against the composition they stand for, one unchunked cull against
 the chunked one, and a model of the kernel's selection rule (compacted
 keys in any order, sorted) against ``_select``."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -247,3 +249,100 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):  # the hyper level needs cs <= ch * H
         cc.cull_factored(tb, o_c, d_c, alive, 0.0, 40.0, 4, 13, 48, 1)
     assert trb._hyper_budget(tb, 100) == tb.n_hyper
+
+
+# --- the mid level (c_mid): JAX's _chunk_cull_tests3 ---
+
+def _mid_bins():
+    """The 10 m sphere in 198 bins of 64: 13 supers of 16 bins, each 4 mids
+    of 4 bins (the last super partly padding), 4 hypers."""
+    jb = build_bins(make_sphere(80, 80, radius=10.0), bin_size=64, bins_per_super=16,
+                    bins_per_mid=4, supers_per_hyper=4)
+    return jb, _carry(jb)
+
+
+def _mid_lists_close(j_out, t_out):
+    """JAX's lists and the port's: the same bins, counts and flags; tnear to
+    TAN_RTOL (the bounds' rounding, see above); the order may differ only
+    between entries whose tnear agree to it."""
+    jc, jn, jt, js_ = (np.asarray(x) for x in j_out)
+    tc, tn, tt, ts_ = (x.numpy() for x in t_out)
+    np.testing.assert_array_equal(jn, tn)
+    np.testing.assert_array_equal(js_, ts_)
+    for i, k in enumerate(jn):
+        j_near = dict(zip(jc[i, :k].tolist(), jt[i, :k].tolist()))
+        t_near = dict(zip(tc[i, :k].tolist(), tt[i, :k].tolist()))
+        assert set(j_near) == set(t_near), i
+        for b, v in j_near.items():
+            np.testing.assert_allclose(t_near[b], v, rtol=TAN_RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("ch,cm", [(0, 12), (0, 40), (2, 12), (2, 40)])
+def test_mid_cull_matches_jax(ch, cm):
+    """cull_rays with the mid level against JAX's _chunk_cull_tests3 +
+    _chunk_select (through _chunk_candidates), at a mid budget that
+    truncates (12) and one that keeps every passing mid (40, clamped to
+    the 32 mids of the 8 kept supers), with and without the hyper level;
+    packed mid keys (the ids fit 20 bits)."""
+    jb, tb = _mid_bins()
+    rays = _ray_blocks(n_blk=12, Rb=32)
+    cs, cb, cm_ = trb._resolve_budgets(tb, 8, 48, cm)
+    assert cm_ == min(cm, cs * 4)
+    j_out = jrb._chunk_candidates(jb, *map(jnp.asarray, rays), cs, cb, 4, cm_, ch)
+    t_out = cc.cull_rays(tb, *map(torch.from_numpy, rays), 4, cs, cb, ch, cm_)
+    assert float(t_out[1].float().mean()) > 2
+    if cm == 12:
+        assert bool(t_out[3].any())  # the mid budget truncates some block
+    _mid_lists_close(j_out, t_out)
+
+
+def test_mid_cull_float_keys(monkeypatch):
+    """The float keys of large maps (mid ids past 20 bits), forced here:
+    the lists hold JAX's bins (their order may differ only between equal
+    tnear, the rule float keys break by position, packed ones by id), and
+    the plain version's selection is the kernel's model (compacted keys
+    sorted, ties to the lower position)."""
+    jb, tb = _mid_bins()
+    rays = tuple(map(torch.from_numpy, _ray_blocks(n_blk=12, Rb=32)))
+    cs, cb, cm = trb._resolve_budgets(tb, 8, 48, 40)
+    packed = cc.cull_rays(tb, *rays, 4, cs, cb, 0, cm)
+    monkeypatch.setattr(cc, "_packs", lambda n: False)
+    flt = cc.cull_rays(tb, *rays, 4, cs, cb, 0, cm)
+    j_out = jrb._chunk_candidates(jb, *(jnp.asarray(x.numpy()) for x in rays), cs, cb, 4, cm, 0)
+    _mid_lists_close(j_out, flt)
+    assert torch.equal(packed[1], flt[1]) and torch.equal(packed[3], flt[3])
+
+
+@pytest.mark.parametrize("cm", [12, 40])
+def test_mid_cull_wrappers_equal_the_composition(cm):
+    """The fused wrappers with the mid level on CPU tensors: the bounds,
+    then cull_blocks_reference with the mid arguments; the test count adds
+    the mids of the kept supers."""
+    _, tb = _mid_bins()
+    rays = tuple(map(torch.from_numpy, _ray_blocks(n_blk=9, Rb=20)))
+    cs, cb, cm_ = trb._resolve_budgets(tb, 8, 48, cm)
+    out = cc.cull_rays(tb, *rays, 4, cs, cb, 0, cm_)
+    args = cc._cull_args(tb, lambda r: cc._subblock_bounds(*rays, r), 4, cs, cb, 0, cm_)
+    ref = cc.cull_blocks_reference(*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    o_c, d_c, alive = map(torch.from_numpy, _factored_blocks())
+    fout = cc.cull_factored(tb, o_c, d_c, alive, 0.0, 40.0, 4, cs, cb, 2, MARGIN, DIR_MARGIN, cm_)
+    raw = cc._factored_bounds(o_c, d_c, alive, 0.0, 40.0, 4, MARGIN, DIR_MARGIN)
+    for a, b in zip(fout, cc.cull_blocks_reference(*cc._cull_args(tb, raw, 4, cs, cb, 2, cm_))):
+        assert torch.equal(a, b)
+    two = cc.cull_tests(*args[:2], *args[3:10])
+    three = cc.cull_tests(*args[:2], *args[3:10], *args[11:])
+    # the mid level tests each kept super's mids, then only the kept mids' bins
+    assert bool((three != two).any())
+    assert args[11] is tb.mid_aabb and args[12] == tb.bins_per_mid and args[13] == cm_
+
+
+def test_mid_level_rejects_bad_budgets():
+    _, tb = _mid_bins()
+    rays = tuple(map(torch.from_numpy, _ray_blocks(Rb=20)))
+    with pytest.raises(ValueError):  # cb exceeds what cm mids hold
+        cc.cull_rays(tb, *rays, 4, 8, 48, 0, 4)
+    bad = dataclasses.replace(tb, mid_aabb=None)
+    with pytest.raises(ValueError):  # no mid level to cull with
+        cc.cull_rays(bad, *rays, 4, 8, 48, 0, 12)

@@ -276,7 +276,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("bad", ["t_min", "paired_shape", "payload", "c_mid"])
 def test_factored_cast_rejects_bad_arguments(bad):
-    _, tb, *_, trans, _, _ = _world()
+    jb, tb, *_, trans, _, _ = _world()
     _, (to, td) = _blocks(trans)
     kw = dict(CAST_KW)
     err = ValueError
@@ -287,9 +287,34 @@ def test_factored_cast_rejects_bad_arguments(bad):
     elif bad == "payload":
         kw["payload"] = "select"
     else:
-        kw["c_mid"], err = 8, NotImplementedError
+        # c_mid is ported: no longer refused, the cast is JAX's at the
+        # same mid budget
+        kw["c_mid"] = 8
+        (jo, jd), _ = _blocks(trans)
+        _assert_same_hits(jrb.cast_rays_binned_factored(jb, jo, jd, payload="index", **kw),
+                          trb.cast_rays_binned_factored(tb, to, td, payload="index", **kw),
+                          "index")
+        return
     with pytest.raises(err):
         trb.cast_rays_binned_factored(tb, to, td, **kw)
+
+
+@pytest.mark.parametrize("c_mid", [2, 8, 26])
+def test_factored_mid_cull_matches_jax(c_mid):
+    """factored_candidates and the cast with the mid level (16-bin supers of
+    2 mids of 8) against JAX's: the same lists (the mid budget 2 is raised
+    to cover c_bin, 26 keeps every mid of the kept supers) and hits."""
+    jb, tb, *_, trans, _, _ = _world()
+    assert tb.mid_aabb is not None and tb.bins_per_super // tb.bins_per_mid == 2
+    (jo, jd), (to, td) = _blocks(trans)
+    kw = dict(CULL_KW, c_mid=c_mid)
+    j_out = jrb.factored_candidates(jb, jo, jd, **kw)
+    t_out = trb.factored_candidates(tb, to, td, **kw)
+    assert float(t_out[1].float().mean()) > 3  # the mids cull: shorter lists, not trivial
+    _assert_same_lists(j_out, t_out)
+    jh = jrb.cast_rays_binned_factored(jb, jo, jd, payload="full", **dict(CAST_KW, c_mid=c_mid))
+    th = trb.cast_rays_binned_factored(tb, to, td, payload="full", **dict(CAST_KW, c_mid=c_mid))
+    _assert_same_hits(jh, th, "full")
 
 
 def test_sweep_correction_matches_jax():

@@ -186,3 +186,103 @@ def test_umeyama_transform_matches_jax(rng):
     tI = tst.umeyama_transform(tg.CrossStatistics.empty(device="cpu"))
     _close(np.array([1.0, 0, 0, 0]), tI.rot)
     _close(np.zeros(3), tI.trans)
+
+
+# --- the MCL half of math/stats: Markley mean, pose covariance, samplers ---
+
+# eigh and the weighted sums run in other orders: the mean rotation agrees
+# to 1e-5 as a rotation (|<q_a, q_b>| within 1e-5 of 1), the covariance to
+# 1e-5 relative
+EIG_TOL = 1e-5
+
+
+def _cloud_pair(rng, n=200, spread=0.3):
+    """A cloud of poses around one random pose, and weights with zeros."""
+    base = _quats(rng, 1)
+    d = rng.normal(scale=spread, size=(n, 3)).astype(np.float32)
+    jq = js.Quaternion.mul(jnp.asarray(base), js.Quaternion.exp(jnp.asarray(d)))
+    rot = np.array(jq, np.float32)
+    trans = rng.normal(size=(n, 3)).astype(np.float32)
+    w = rng.uniform(size=n).astype(np.float32)
+    w[::7] = 0.0
+    return (js.Transform(jnp.asarray(rot), jnp.asarray(trans)),
+            ts.Transform(torch.from_numpy(rot), torch.from_numpy(trans)), w)
+
+
+def _same_rotation(jq, tq, tol=EIG_TOL):
+    dot = abs(float(np.dot(np.asarray(jq, np.float64), tq.numpy().astype(np.float64))))
+    assert abs(dot - 1.0) <= tol, dot
+    assert float(tq[0]) >= 0.0  # the sign rule
+
+
+@pytest.mark.parametrize("spread", [0.3, 1e-3])  # 1e-3: a tight, near-degenerate cloud
+def test_markley_mean_matches_jax(rng, spread):
+    jp, tp, w = _cloud_pair(rng, spread=spread)
+    _same_rotation(jst.markley_mean(jp.rot, jnp.asarray(w)),
+                   tst.markley_mean(tp.rot, torch.from_numpy(w)))
+    # all-zero weights fall back to the unweighted mean
+    z = np.zeros_like(w)
+    _same_rotation(jst.markley_mean(jp.rot, jnp.asarray(z)),
+                   tst.markley_mean(tp.rot, torch.from_numpy(z)))
+
+
+def test_weighted_pose_mean_and_covariance_match_jax(rng):
+    jp, tp, w = _cloud_pair(rng)
+    jm = jst.weighted_pose_mean(jp, jnp.asarray(w))
+    tm = tst.weighted_pose_mean(tp, torch.from_numpy(w))
+    _same_rotation(jm.rot, tm.rot)
+    _close(jm.trans, tm.trans, EIG_TOL)
+    jc = jst.pose_covariance_6x6(jp, jm, jnp.asarray(w))
+    tc = tst.pose_covariance_6x6(tp, tm, torch.from_numpy(w))
+    _close(jc, tc, EIG_TOL)
+
+
+def test_pose_samplers_match_jax_on_the_same_draws():
+    """The pure steps on JAX's own draws, regenerated from the key as the
+    JAX samplers draw them."""
+    import jax
+
+    key = jax.random.PRNGKey(4)
+    mean_j = js.Transform(jnp.asarray([0.9, 0.1, -0.2, 0.3]) / np.sqrt(0.95),
+                          jnp.asarray([1.0, -2.0, 0.5]))
+    mean_t = ts.Transform(torch.from_numpy(np.asarray(mean_j.rot)),
+                          torch.from_numpy(np.asarray(mean_j.trans)))
+    cov = np.diag([0.04, 0.04, 0.01, 1e-4, 1e-4, 3e-3]).astype(np.float32)
+    cov[0, 1] = cov[1, 0] = 0.01
+    jg_ = jst.sample_pose_gaussian(key, mean_j, jnp.asarray(cov), 300)
+    normals = np.asarray(jax.random.normal(key, (300, 6), dtype=jnp.float32))
+    tg_ = tst.pose_gaussian_from_normals(mean_t, torch.from_numpy(cov), torch.from_numpy(normals))
+    _close(jg_.rot, tg_.rot, 1e-5)  # the Cholesky factors round apart
+    _close(jg_.trans, tg_.trans, 1e-5)
+    lo, hi = [-1, -2, 0, -0.1, -0.1, -np.pi], [3, 2, 1, 0.1, 0.1, np.pi]
+    ju = jst.sample_pose_uniform(key, jnp.asarray(lo), jnp.asarray(hi), 300)
+    u = np.asarray(jax.random.uniform(key, (300, 6), minval=jnp.asarray(lo),
+                                      maxval=jnp.asarray(hi)))
+    tu = tst.pose_uniform_from_draws(torch.from_numpy(u))
+    _close(ju.rot, tu.rot)
+    _close(ju.trans, tu.trans)
+
+
+def test_pose_samplers_draw_from_the_generator():
+    """The draw steps: the same seed gives the same poses; uniform poses
+    stay in the box; Gaussian poses spread as the covariance says."""
+    gen = lambda: torch.Generator().manual_seed(11)
+    mean = ts.Transform.identity(device="cpu")
+    cov = torch.diag(torch.tensor([0.04, 0.01, 0.0001, 1e-4, 1e-4, 1e-2]))
+    a = tst.sample_pose_gaussian(gen(), mean, cov, 20000)
+    b = tst.sample_pose_gaussian(gen(), mean, cov, 20000)
+    assert torch.equal(a.trans, b.trans) and torch.equal(a.rot, b.rot)
+    np.testing.assert_allclose(a.trans.std(0).numpy(), [0.2, 0.1, 0.01], rtol=0.03)
+    lo, hi = [-1.0, -2.0, 0.0, 0.0, 0.0, -0.5], [3.0, 2.0, 1.0, 0.0, 0.0, 0.5]
+    u = tst.sample_pose_uniform(gen(), lo, hi, 5000, device="cpu")
+    assert bool((u.trans >= torch.tensor(lo[:3])).all() & (u.trans <= torch.tensor(hi[:3])).all())
+
+
+def test_gaussian_pdf_matches_jax(rng):
+    x = rng.normal(scale=2.0, size=500).astype(np.float32)
+    m = rng.normal(size=500).astype(np.float32)
+    for sigma in (0.4, 2.0):
+        _close(jst.gaussian_pdf(jnp.asarray(x), sigma),
+               tst.gaussian_pdf(torch.from_numpy(x), sigma))
+        _close(jst.gaussian_pdf(jnp.asarray(x), sigma, jnp.asarray(m)),
+               tst.gaussian_pdf(torch.from_numpy(x), sigma, torch.from_numpy(m)))

@@ -253,3 +253,63 @@ def test_simulate_on_bvh_matches_jax():
     assert ((jr_ < 0) != (tr_ < 0)).mean() < GRAZE_FRAC
     with pytest.raises(TypeError):
         t_simulate(object(), TSpherical.create(**kw), tt)
+
+
+# --- cast_rays_seeded: the dense seed (K3 + K1, lossless flags) and K5 ---
+
+def _seed_bins(name, S=16):
+    """The mesh's triangle bins (bins of 8, S a super, mids of 4) in both
+    packages."""
+    from rmcl_tpu.bvh.bins import build_bins as j_build_bins
+    from rmcl_tpu_torch.convert import bins_from_arrays
+
+    jb = j_build_bins(MESHES[name](), bin_size=8, bins_per_super=S, bins_per_mid=4)
+    tb = bins_from_arrays({f: None if getattr(jb, f) is None else np.asarray(getattr(jb, f))
+                           for f in ("tri", "bin_aabb", "super_aabb", "aabb_min", "aabb_max",
+                                     "mid_aabb", "hyper_aabb")},
+                          bins_per_super=jb.bins_per_super, bins_per_mid=jb.bins_per_mid,
+                          supers_per_hyper=jb.supers_per_hyper, device="cpu")
+    return jb, tb
+
+
+@pytest.mark.parametrize("name,kind,kw", [
+    ("building", "scan", dict()),  # small budgets: most rays uncertified, walked
+    ("building", "scan", dict(c_super=40, c_bin=600)),  # budgets past the map: all certified
+    ("building", "scattered", dict(c_mid=8)),
+    ("room", "scattered", dict(sort=False)),
+])
+def test_cast_rays_seeded_matches_jax(name, kind, kw):
+    from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+
+    mesh, jbvh, tbvh = _bvhs(name)
+    jbins, tbins = _seed_bins(name)
+    o, d = _rays(mesh, kind)
+    jh = jr.cast_rays_seeded(jbvh, jbins, jnp.asarray(o), jnp.asarray(d), t_max=20.0, **kw)
+    th = tr.cast_rays_seeded(tbvh, tbins, torch.from_numpy(o), torch.from_numpy(d), t_max=20.0,
+                             **kw)
+    _assert_hits_agree(jh, th)
+    # and the exact engine's result: the seed changes which rays are walked,
+    # not what they hit
+    ex = tr.cast_rays(tbvh, torch.from_numpy(o), torch.from_numpy(d), t_max=20.0)
+    assert torch.equal(th.hit, ex.hit)
+    torch.testing.assert_close(th.t, ex.t, rtol=T_RTOL, atol=T_ATOL)
+    dense = {k: v for k, v in kw.items() if k != "sort"}
+    _, certified = cast_rays_binned(tbins, torch.from_numpy(o), torch.from_numpy(d), t_max=20.0,
+                                    with_lossless=True, **dense)
+    if "c_bin" in kw:
+        assert bool(certified.all())
+    elif name == "building" and not dense:
+        assert float(certified.float().mean()) < 0.5
+
+
+def test_cast_rays_seeded_sort_changes_nothing():
+    mesh, _, tbvh = _bvhs("building")
+    _, tbins = _seed_bins("building")
+    o, d = (torch.from_numpy(x) for x in _rays(mesh, "scattered"))
+    a = tr.cast_rays_seeded(tbvh, tbins, o, d, t_max=20.0)
+    b = tr.cast_rays_seeded(tbvh, tbins, o, d, t_max=20.0, sort=False)
+    for f in ("t", "hit", "prim_id", "inst_id", "point", "normal"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    o3, d3 = o[:300].reshape(3, 100, 3), d[:300].reshape(3, 100, 3)
+    h3 = tr.cast_rays_seeded(tbvh, tbins, o3, d3, t_max=20.0)
+    assert h3.t.shape == (3, 100) and h3.normal.shape == (3, 100, 3)
