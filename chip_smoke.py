@@ -7,10 +7,11 @@ Phases (any failure ends the run with a nonzero exit code):
 
 1. device: the card's name and power limit (nvidia-smi) and the float32
    matmul flags — the normal equations must not run in TF32;
-2. build: the port's six CUDA kernels, compiled by nvcc from
+2. build: the port's seven CUDA kernels, compiled by nvcc from
    ``rmcl_tpu_torch/csrc`` in parallel (K1 candidate-bin intersection, K3
    block cull with its bounds, K4 factored pair loop, K5 BVH traversal, K6
-   closest point over the BVH, K6b closest point over candidate bins);
+   closest point over the BVH, K6b closest point over candidate bins, K7
+   the closest-point candidate cull);
 3. K1 vs plain version: the intersection kernel against its plain PyTorch
    version on the same CUDA tensors, for 14,400 VLP-16 rays on the room
    scene (128-ray blocks, and 100-ray blocks whose last warp is partly
@@ -38,22 +39,23 @@ Phases (any failure ends the run with a nonzero exit code):
    timings and bounds;
 8. MICP-L on the exact engine and with closest-point correspondences:
    phase 4's map (now with its BVH), sensor and start pose, ten
-   ``correct_once`` each with CP correspondences on the bins (K6b), RC on
-   the BVH (K5) and CP on the BVH (K6), each held to the JAX package's final
-   error and to one launch a correction; K5, K6 and K6b against their plain
-   versions on the last corrections' inputs (bitwise, K6 at the split P
-   its wrapper takes, and also against the serial walk), the lanes each
-   launch takes (K6's P, K6b's G), the registers of the exact engine's
-   kernels (none may spill), the divisions K6b's pairs run, the candidate
-   cull (``binned_inputs``) timed beside its bound, and the exact engine's
-   hits against the unbudgeted dense engine's;
+   ``correct_once`` each with CP correspondences on the bins (K7 + K6b), RC
+   on the BVH (K5) and CP on the BVH (K6), each held to the JAX package's
+   final error and to one launch a correction; K5, K6, K6b and K7 against
+   their plain versions on the last corrections' inputs (bitwise, K6 at the
+   split P its wrapper takes, and also against the serial walk), the lanes
+   each launch takes (K6's P, K6b's G), the registers of the closest-point
+   and exact engines' kernels (none may spill), the divisions K6b's pairs
+   run, K7 timed by the profiler's device trace beside its bound, and the
+   exact engine's hits against the unbudgeted dense engine's;
 9. the exact engine at the reference benchmark's size: the ~1M-face
    sphere's BVH, phase 5's 14.4M rays through ``cast_rays`` (K5; t against
    the dense cast), the noisy hit points' closest points through both
-   engines (K6b, K6; they must agree), ``occluded`` on 1000 particle moves,
-   each kernel against its plain version on a 262,144-ray or -query slice,
-   and the binned query split by CUDA events into its steps (the Morton
-   order, the candidate cull, K6b, the winners and un-permute);
+   engines (K7 + K6b, K6; they must agree), ``occluded`` on 1000 particle
+   moves, each kernel against its plain version on a 262,144-ray or -query
+   slice (K7 on the first 2,048 query blocks), and the binned query split
+   by CUDA events into its steps (the Morton order, the candidate cull K7,
+   K6b, the winners and un-permute);
 10. MCL's sensor-update cast at the reference's size: 1,048,576 particles
    uniform over phase 4's building floor x 100 beams sampled from phase
    4's scan (104,857,600 rays, t_max = range + 12 m) through ``cast_rays``
@@ -74,7 +76,18 @@ Phases (any failure ends the run with a nonzero exit code):
    particles, mid level = two levels, K3 with the mid level bitwise its
    plain version, K5's refine launch in the seeded pass, and a CP update
    per engine (K6, K6b); (c) ``MCLNode`` at 100,000 particles with engine
-   "auto", ten steps of +0.2 m, its final error below 0.25 m.
+   "auto", ten steps of +0.2 m, its final error below 0.25 m;
+12. the MICP-L node and the command-line tools at full width: phase 4's
+   building written as OBJ under the git-ignored ``build/``, a 20-scan
+   VLP-16 message log along a 2 m arc with odometry drifting 0.01 m and
+   0.004 rad a scan, replayed by ``python -m
+   rmcl_tpu_torch.tools.micp_localization`` (its ``main``) three times: RC
+   on the bins (engine auto: K3 + K1), CP on the bins (K7 + K6b) and RC on
+   the BVH (K5); each run's last pose within 0.02 m of the truth, its
+   kernels launched, the budget audit's adoption printed (binned runs) and
+   its ms per correction; K7 against its plain version on the CP run's
+   last query blocks; then ``map_segmentation`` and ``rmcl_localization``
+   on the log's first scans at a small size.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -259,12 +272,31 @@ OPS_PER_BOX_VISIT = 15
 OPS_PER_CP_VISIT = 72
 OPS_PER_CP_PAIR = 71
 OPS_PER_CP_TRI = 12
-# _cp_candidates (torch ops): float operations per box-box distance test
-# (per axis two differences, a max and a clamp; three squares, two adds;
-# the compare with the block's bound) and per query for the block's box
-# (three minima and three maxima)
+# K7 (the closest-point candidate cull): float operations per box-box
+# distance test (per axis two differences, a max and a clamp; three squares,
+# two adds; the compare with the block's bound) and per query for the
+# block's box and bound (three minima, three maxima, the bound's maximum)
 OPS_PER_BOX_BOX = 18
-OPS_PER_BLOCK_QUERY = 6
+OPS_PER_BLOCK_QUERY = 7
+K7_PLAIN_BLOCKS = 2048  # phase 9: K7 against its plain version on this many blocks
+LOOP_LAUNCHES = 20  # launches between two events where the device trace records none
+# phase 12: the node and the tools. A 20-scan VLP-16 log at 10 Hz along a
+# 2 m arc (radius 2 m over 1 rad) in phase 4's building, odometry drifting
+# 0.01 m along x and 0.004 rad of yaw a scan (the golden MICP track's
+# drift, tests/golden/gen_micp_track.py), three corrections a scan; the
+# last pose within 2 cm of the truth. The small runs: the first scans,
+# MCL at a few thousand particles, held to a sane estimate (finite, within
+# the initial cloud's 0.5 m spread of the truth)
+NODE_DIR = "build/phase12"
+NODE_SCANS = 20
+NODE_START = (8.0, 2.5, 1.5)
+NODE_RADIUS = 2.0
+NODE_DRIFT = (0.01, 0.004)
+NODE_STEPS_PER_SCAN = 3
+NODE_ERR_MAX = 0.02
+SMALL_SCANS = 4
+SMALL_PARTICLES = 4096
+SMALL_ERR_MAX = 0.5
 
 
 def log(msg):
@@ -383,16 +415,16 @@ def compare_kernel(name, tri, inputs):
 def wrappers():
     """The kernels' wrappers by name: K3 fused on ray blocks (K3r) and on
     factored blocks (K3f), and its back end alone (K3b); the exact engine's
-    traversal (K5) and closest-point walk (K6), and the binned closest-point
-    loop (K6b)."""
-    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh
+    traversal (K5) and closest-point walk (K6), the binned closest-point
+    loop (K6b) and its candidate cull (K7)."""
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates
     from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_factored, cull_rays
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored
     from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
 
     return {"K1": intersect_bins, "K3r": cull_rays, "K3f": cull_factored, "K3b": cull_blocks,
             "K4": intersect_factored, "K5": traverse_rays, "K6": closest_bvh,
-            "K6b": closest_bins}
+            "K6b": closest_bins, "K7": cp_candidates}
 
 
 def reset_counts():
@@ -1290,20 +1322,73 @@ def cp_budget_need(bins, q, max_dist, Rq=128, chunk=2048):
     return torch.cat(need[0]), torch.cat(need[1])
 
 
-def cp_candidates_bound(bins, inputs, need_super):
-    """Least time for _cp_candidates' work on these blocks: the box-box
-    tests (every super, then the bins of the supers a block keeps, at most
-    its c_super) at OPS_PER_BOX_BOX and the blocks' boxes, against reading
-    the queries, their bounds and the boxes once and writing the lists."""
-    qb, _, cand, _, _ = inputs
+def cp_candidates_bound(bins, qb, d2b, cs, cb, chunk=2048):
+    """Least time for K7's work on these blocks: the box-box tests it runs
+    (every super, then the bins of the supers a block keeps: those within
+    its bound, at most cs) at OPS_PER_BOX_BOX and each block's box and bound
+    at OPS_PER_BLOCK_QUERY a query, against reading the queries, their
+    bounds and the boxes once and writing the lists."""
+    from rmcl_tpu_torch.ops.closest_point import _box_box_d2
+
     n_blk, Rq = qb.shape[0], qb.shape[1]
-    cs = min(cand.shape[1], bins.n_super)
-    kept = float(torch.clamp(need_super, max=cs).double().sum())
+    kept = 0.0
+    for s in range(0, n_blk, chunk):
+        lo, hi = qb[s:s + chunk].amin(dim=1)[:, None], qb[s:s + chunk].amax(dim=1)[:, None]
+        d2 = _box_box_d2(lo, hi, bins.super_aabb[None, :, :3], bins.super_aabb[None, :, 3:])
+        within = (d2 <= d2b[s:s + chunk].amax(dim=1)[:, None]).sum(dim=1)
+        kept += float(torch.clamp(within, max=cs).double().sum())
     tests = n_blk * bins.n_super + kept * bins.bins_per_super
     ops = tests * OPS_PER_BOX_BOX + n_blk * Rq * OPS_PER_BLOCK_QUERY
     bytes_moved = ((bins.n_super + bins.n_bins) * 24 + n_blk * Rq * 16
-                   + n_blk * (cand.shape[1] * 8 + 4))
+                   + n_blk * (cb * 8 + 4))
     return bound_of(bytes_moved, ops) + (tests,)
+
+
+def check_cp_candidates(name, bins, qb, d2b, cs, cb, plain_blocks=None, path_lists=None):
+    """K7 against its plain version (lists, counts and bounds bitwise) on
+    the first ``plain_blocks`` query blocks (all by default), and against
+    the path's own lists ``path_lists`` where given; the kernel timed on
+    every block by the profiler's device trace (where the trace holds no
+    launch, by events around LOOP_LAUNCHES launches), its call by events,
+    the plain version by events on the compared blocks, with the bound."""
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+    from rmcl_tpu_torch.ops.closest_point import _cp_candidates
+
+    n = qb.shape[0] if plain_blocks is None else min(plain_blocks, qb.shape[0])
+    plain = lambda: _cp_candidates(bins, qb[:n], torch.amax(d2b[:n], dim=1), cs, cb)
+    launches = cp_candidates.launches
+    k = cp_candidates(bins, qb[:n].contiguous(), d2b[:n].contiguous(), cs, cb)
+    p = plain()
+    torch.cuda.synchronize()
+    if cp_candidates.launches != launches + 1:
+        fail(f"{name}: K7 did not launch")
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        fail(f"{name}: K7 and its plain version disagree ({int((k[0] != p[0]).any(1).sum())} "
+             f"lists, {int((k[1] != p[1]).sum())} counts, {int((k[2] != p[2]).any(1).sum())} "
+             f"bounds)")
+    if path_lists is not None and not all(torch.equal(a[:n], b) for a, b in zip(path_lists, k)):
+        fail(f"{name}: the path's candidate lists differ from K7's")
+    launch = lambda: cp_candidates(bins, qb, d2b, cs, cb)
+    out = dict(max_abs_err=0.0, bitwise=True, blocks=qb.shape[0], plain_blocks=n,
+               mean_count=float(k[1].float().mean()), max_count=int(k[1].max()),
+               saturated=int((p[1] == cb).sum()), timed_by="device trace")
+    out["call_ms"] = cuda_ms(launch, reps=3)
+    out["ms"] = device_ms(launch, "cull_boxes_kernel")
+    if out["ms"] is None:
+        out["ms"] = cuda_ms(lambda: [launch() for _ in range(LOOP_LAUNCHES)], reps=3) / LOOP_LAUNCHES
+        out["timed_by"] = f"events around {LOOP_LAUNCHES} launches"
+    out["plain_ms"] = cuda_ms(plain, reps=1)
+    out["bound_ms"], out["bound_by"], out["tests"] = cp_candidates_bound(bins, qb, d2b, cs, cb)
+    return out
+
+
+def k7_line(name, r):
+    return (f"{name}: K7 = plain version bitwise on {r['plain_blocks']} of {r['blocks']} blocks; "
+            f"kernel {r['ms']:.4f} ms by the {r['timed_by']} (the call {r['call_ms']:.4f} ms by "
+            f"events), plain {r['plain_ms']:.3f} ms ({r['plain_blocks']} blocks), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['tests']:.0f} box-box tests), roofline "
+            f"{r['bound_ms'] / r['ms']:.2%}; candidates mean {r['mean_count']:.2f}, max "
+            f"{r['max_count']}, {r['saturated']} blocks at the budget")
 
 
 def binned_breakdown(bins, q, max_dist, **budgets):
@@ -1329,7 +1414,7 @@ def binned_breakdown(bins, q, max_dist, **budgets):
     out = binned_winners(bins, qs, md, key, best_bin, inv)
     ev[4].record()
     torch.cuda.synchronize()
-    steps = ("cluster_order", "binned_inputs", "K6b", "winners")
+    steps = ("cluster_order", "binned_inputs (K7)", "K6b", "winners")
     return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(steps)}, out
 
 
@@ -1346,7 +1431,7 @@ def phase_exact_main_path(main_r):
     from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
 
     regs = {**traverse_cuda.kernel_registers(), **closest_cuda.kernel_registers()}
-    log("phase 8 exact-engine kernels as built (registers, local bytes a thread; local bytes "
+    log("phase 8 exact-engine and closest-point kernels as built (registers, local bytes a thread; local bytes "
         "are spills): " + ", ".join(f"{k} {r} regs {b} B" for k, (r, b) in regs.items()))
     if any(b for _, b in regs.values()):
         fail("phase 8: a kernel spills to local memory")
@@ -1383,11 +1468,12 @@ def phase_exact_main_path(main_r):
             + ", ".join(f"{k} {v}{split.get(k, '')}" for k, v in counts.items() if v))
         if not (err <= EXACT_ERR_JAX[key] + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
             fail(f"phase 8 {label}: final translation error {err} m, JAX's {EXACT_ERR_JAX[key]} m")
-        if counts[kernel] != N_CORRECTIONS:
-            fail(f"phase 8 {label}: {kernel} launched {counts[kernel]} times in "
-                 f"{N_CORRECTIONS} corrections (one a correction expected)")
+        for k in (kernel, "K7") if key == "cp_bins" else (kernel,):
+            if counts[k] != N_CORRECTIONS:
+                fail(f"phase 8 {label}: {k} launched {counts[k]} times in "
+                     f"{N_CORRECTIONS} corrections (one a correction expected)")
         runs[key] = dict(tom=tom, ms=statistics.median(times), err=err, launches=counts[kernel],
-                         sensor=s)
+                         sensor=s, k7_launches=counts["K7"])
 
     # K5 on the last RC correction's rays
     o_s, d_s = model.rays("cuda")
@@ -1417,13 +1503,13 @@ def phase_exact_main_path(main_r):
     r6b = check_closest_bins("phase 8 K6b", bmap.bins.tri, inputs)
     log(exact_line(f"phase 8 K6b (G={r6b['groups']}) on the last CP-on-bins correction's "
                    f"{inputs[0].shape[0]} blocks", r6b, ""))
-    cand = dict(ms=cuda_ms(lambda: binned_inputs(bmap.bins, qs, md, **budgets), reps=3))
-    need_s, _ = cp_budget_need(bmap.bins, q, EXACT_MAX_DIST)
-    cand["bound_ms"], cand["bound_by"], cand["tests"] = cp_candidates_bound(bmap.bins, inputs,
-                                                                            need_s)
-    log(f"phase 8 _cp_candidates (binned_inputs, torch ops) on the same blocks: "
-        f"{cand['ms']:.4f} ms by events, bound {cand['bound_ms']:.4f} ms ({cand['bound_by']}; "
-        f"{cand['tests']:.0f} box-box tests), {cand['bound_ms'] / cand['ms']:.2%}")
+    cs = min(config.c_super, bmap.bins.n_super)
+    r7 = check_cp_candidates("phase 8 K7", bmap.bins, inputs[0], inputs[1], cs,
+                             inputs[2].shape[1], path_lists=inputs[2:])
+    r7.update(launches=runs["cp_bins"]["k7_launches"], correction_ms=runs["cp_bins"]["ms"],
+              inputs_ms=cuda_ms(lambda: binned_inputs(bmap.bins, qs, md, **budgets), reps=3))
+    log(k7_line("phase 8 K7 on the last CP-on-bins correction's blocks", r7)
+        + f"; binned_inputs (blocks + K7) {r7['inputs_ms']:.4f} ms a call by events")
 
     # the exact engine recovers what the dense engine's budgets drop
     o, d = true_pose.apply(o_s), true_pose.rotate(d_s)
@@ -1444,7 +1530,7 @@ def phase_exact_main_path(main_r):
                  err=runs[key]["err"])
     return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit, hit_frac_unbudgeted=hit_free,
                 runs={k: dict(ms=v["ms"], err=v["err"]) for k, v in runs.items()},
-                cp_candidates=cand, registers=regs)
+                k7=r7, registers=regs)
 
 
 def reference_scan_rays(model):
@@ -2251,7 +2337,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
         f"{exact_ms:.2f} ms; launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     if not hit_frac >= 0.999:
         fail(f"phase 9: only {hit_frac:.6f} of rays hit the sphere")
-    for k, want in (("K5", 2), ("K6b", 1), ("K6", 1)):  # K5: the cast and occluded
+    for k, want in (("K5", 2), ("K6b", 1), ("K7", 1), ("K6", 1)):  # K5: the cast and occluded
         if counts[k] != want:
             fail(f"phase 9: {k} launched {counts[k]} times ({want} expected)")
 
@@ -2319,14 +2405,207 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
     log(exact_line(f"phase 9 K6b ({inputs[0].shape[0]} blocks at G={r6b['groups']}; plain "
                    f"version on the first {r6b['plain_queries']} queries)", r6b,
                    f"{r6b['plain_queries']} queries"))
-    cand = dict(ms=cuda_ms(lambda: binned_inputs(sphere_bins, qs, md, **budgets), reps=3))
-    cand["bound_ms"], cand["bound_by"], cand["tests"] = cp_candidates_bound(sphere_bins, inputs,
-                                                                            need_s)
-    log(f"phase 9 _cp_candidates (binned_inputs, torch ops): {cand['ms']:.3f} ms by events, "
-        f"bound {cand['bound_ms']:.4f} ms ({cand['bound_by']}; {cand['tests']:.0f} box-box "
-        f"tests), {cand['bound_ms'] / cand['ms']:.2%}")
-    return dict(k5=r5, k6=r6, k6b=r6b, hit_frac=hit_frac, cast_ms=cast_ms, bins_ms=bins_ms,
-                exact_ms=exact_ms, binned_steps=steps, cp_candidates=cand)
+    r7 = check_cp_candidates("phase 9 K7", sphere_bins, inputs[0], inputs[1],
+                             min(c_super, sphere_bins.n_super), inputs[2].shape[1],
+                             plain_blocks=K7_PLAIN_BLOCKS, path_lists=inputs[2:])
+    r7.update(launches=counts["K7"],
+              inputs_ms=cuda_ms(lambda: binned_inputs(sphere_bins, qs, md, **budgets), reps=3))
+    log(k7_line(f"phase 9 K7 ({inputs[0].shape[0]} blocks, cs={min(c_super, sphere_bins.n_super)}, "
+                f"cb={inputs[2].shape[1]})", r7)
+        + f"; binned_inputs (blocks + K7) {r7['inputs_ms']:.3f} ms a call by events")
+    return dict(k5=r5, k6=r6, k6b=r6b, k7=r7, hit_frac=hit_frac, cast_ms=cast_ms,
+                bins_ms=bins_ms, exact_ms=exact_ms, binned_steps=steps)
+
+
+def node_log(model, bvh):
+    """Phase 12's world: phase 4's building and a VLP-16 driven along the
+    arc. Returns the truth's pose tuples and the message logs (every scan
+    with its odometry; the first SMALL_SCANS also with their clouds)."""
+    from rmcl_tpu_torch.io import msgs
+    from rmcl_tpu_torch.io.conversions import model_to_scan_info
+    from rmcl_tpu_torch.io.replay import MessageLog
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.sensors.simulate import simulate
+
+    info = model_to_scan_info(model)
+    truth, full, small = [], MessageLog(), MessageLog()
+    x0, y0, z0 = NODE_START
+    for k in range(NODE_SCANS):
+        a = k / (NODE_SCANS - 1)  # 1 rad of arc: 2 m at radius 2 m
+        pose = [x0 + NODE_RADIUS * np.sin(a), y0 + NODE_RADIUS * (1 - np.cos(a)), z0, 0.0, 0.0, a]
+        true = Transform.from_pose_tuple(pose)
+        drift = Transform.from_pose_tuple([NODE_DRIFT[0] * k, 0.0, 0.0, 0.0, 0.0,
+                                           NODE_DRIFT[1] * k])
+        tbo = drift @ true
+        hits = simulate(bvh, model, true)
+        ranges = torch.where(hits.hit, hits.t, 0.0).cpu().numpy()
+        mask = hits.hit.cpu().numpy()
+        stamp = 0.1 * k
+        scan = msgs.ScanStamped(msgs.Header(stamp), info, msgs.RangeData(ranges=ranges, mask=mask))
+        for log in (full, small) if k < SMALL_SCANS else (full,):
+            log.add_odometry(stamp, tbo)
+            log.add(stamp, "scan", "lidar", scan)
+        if k < SMALL_SCANS:
+            points = torch.where(hits.hit[:, None], hits.point, float("nan")).cpu().numpy()
+            small.add(stamp, "cloud", "lidar", {"points": points, "mask": mask})
+        truth.append(pose)
+    return truth, full, small
+
+
+def run_cli(name, main, args):
+    """A tool's main(args) with its standard output captured (and logged);
+    fails unless it returns 0. Returns the output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"{name} | {line}")
+    if rc != 0:
+        fail(f"{name}: exit {rc}")
+    return out
+
+
+def phase_node_and_tools():
+    import os
+
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.geom.mesh import make_building_scene, save_obj
+    from rmcl_tpu_torch.micp.node import MICPLocalization
+    from rmcl_tpu_torch.ops import closest_point
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+    from rmcl_tpu_torch.tools import map_segmentation, micp_localization, rmcl_localization
+
+    os.makedirs(NODE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh = make_building_scene(subdiv=BUILDING_SUBDIV)
+    map_path = os.path.join(NODE_DIR, "building.obj")
+    save_obj(mesh, map_path)
+    model = SphericalModel.vlp16()
+    truth, full, small = node_log(model, build_bvh(mesh))
+    log_path, small_path = os.path.join(NODE_DIR, "run.npz"), os.path.join(NODE_DIR, "small.npz")
+    full.save(log_path)
+    small.save(small_path)
+    log(f"phase 12 files: {map_path} ({mesh.n_faces} faces), {log_path} ({NODE_SCANS} scans x "
+        f"{model.n_rays} rays, a {NODE_RADIUS:.0f} m radius arc of 1 rad), {small_path} "
+        f"({SMALL_SCANS} scans with clouds), written in {time.perf_counter() - t0:.2f} s")
+    guess = [f"{v:.6f}" for v in truth[0]]
+    runs = {}
+    variants = (("rc", "RC, engine auto (binned)", None, ("K3r", "K1")),
+                ("cp", "CP on the bins", "sensors:\n  lidar:\n    correspondences:\n"
+                                          "      type: CP\n", ("K7", "K6b")),
+                ("bvh", "RC, engine bvh", "engine: bvh\n", ("K5",)))
+    for key, label, cfg, kernels in variants:
+        args = ["--device", "cuda", "--map", map_path, "--log", log_path, "--steps-per-scan",
+                str(NODE_STEPS_PER_SCAN), "--out", os.path.join(NODE_DIR, f"track_{key}.npz"),
+                "--initial-pose-guess", *guess]
+        if cfg is not None:
+            with open(os.path.join(NODE_DIR, f"{key}.yaml"), "w") as f:
+                f.write(cfg)
+            args += ["--config", os.path.join(NODE_DIR, f"{key}.yaml")]
+        # each correction timed on the host clock after a synchronize; the
+        # CP run's last K7 inputs recorded (a launch through the wrapper)
+        times, recorded = [], {}
+        step, cp_candidates = MICPLocalization.step, closest_point.cp_candidates
+
+        def timed_step(self):
+            t = time.perf_counter()
+            out = step(self)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def recording(*a):
+            recorded["args"] = a
+            return cp_candidates(*a)
+
+        MICPLocalization.step, closest_point.cp_candidates = timed_step, recording
+        reset_counts()
+        t = time.perf_counter()
+        try:
+            out = run_cli(f"phase 12 micp_localization [{key}]", micp_localization.main, args)
+        finally:
+            MICPLocalization.step, closest_point.cp_candidates = step, cp_candidates
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        track = np.load(os.path.join(NODE_DIR, f"track_{key}.npz"))
+        err = float(np.linalg.norm(track["trans"][-1] - np.float32(truth[-1][:3])))
+        adopted = "auto-adopting" in out
+        runs[key] = dict(ms=statistics.median(times), min_ms=min(times), err=err,
+                         corrections=len(times), launches={k: v for k, v in counts.items() if v},
+                         adopted=adopted, wall_s=wall)
+        log(f"phase 12 {label}: {len(times)} corrections ({NODE_SCANS} scans x "
+            f"{NODE_STEPS_PER_SCAN}), median {runs[key]['ms']:.3f} ms/correction (min "
+            f"{min(times):.3f}; host clock after a synchronize), last pose {err:.3e} m from the "
+            f"truth, poses {track['trans'].shape[0]}, audit adopted {adopted}, launches "
+            + ", ".join(f"{k} {v}" for k, v in runs[key]["launches"].items())
+            + f"; the CLI run {wall:.1f} s (map load included)")
+        if not (err <= NODE_ERR_MAX and np.isfinite(track["trans"]).all()):
+            fail(f"phase 12 {label}: the last pose is {err} m from the truth")
+        if track["trans"].shape[0] != NODE_SCANS:
+            fail(f"phase 12 {label}: {track['trans'].shape[0]} poses for {NODE_SCANS} scans")
+        for k in kernels:
+            if counts[k] < 1:
+                fail(f"phase 12 {label}: the run never launched {k}")
+        if key != "bvh" and not adopted:
+            fail(f"phase 12 {label}: the budget audit adopted no budgets")
+        if key == "cp":
+            bins, qb, d2b, cs, cb = recorded["args"][:5]
+            r7 = check_cp_candidates("phase 12 K7", bins, qb, d2b, cs, cb)
+            r7.update(launches=counts["K7"], correction_ms=runs[key]["ms"])
+            log(k7_line(f"phase 12 K7 on the CP run's last {qb.shape[0]} blocks (cs={cs}, "
+                        f"cb={cb})", r7))
+            # K6b on the same lists: what the larger adopted budgets cost it,
+            # and the candidates each block visits (slot < count, bound <=
+            # the block's final worst key), which its one CTA walks in turn
+            lists = cp_candidates(bins, qb, d2b, cs, cb)
+            k6b = lambda: closest_bins(bins.tri, qb, d2b, *lists)
+            k6b_ms = device_ms(k6b, "closest_bins")
+            runs[key]["k6b_ms"] = k6b_ms if k6b_ms is not None else cuda_ms(k6b)
+            jmask = bins.bin_size - 1
+            worst = (k6b()[0].amax(dim=1) | jmask).view(torch.float32)[:, None]
+            slot = torch.arange(cb, device=qb.device)[None, :]
+            visits = ((slot < lists[1][:, None]) & (lists[2] <= worst)).sum(dim=1)
+            top = torch.topk(visits, 3).values.tolist()
+            log(f"phase 12 K6b on the same blocks: {runs[key]['k6b_ms']:.4f} ms "
+                f"({'device trace' if k6b_ms is not None else 'events'}); candidates visited a "
+                f"block: mean {float(visits.float().mean()):.1f}, the three most {top}")
+
+    # the other tools on the log's first scans, at a small size
+    reset_counts()
+    seg_out = os.path.join(NODE_DIR, "segmentation.npz")
+    run_cli("phase 12 map_segmentation", map_segmentation.main,
+            ["--device", "cuda", "--map", map_path, "--log", small_path, "--pose", *guess,
+             "--out", seg_out])
+    seg = np.load(seg_out)
+    seg_counts = read_counts()
+    outliers = int(seg["s0_scan_outlier"].sum() + seg["s0_map_outlier"].sum())
+    if int(seg["n_scans"]) != SMALL_SCANS or outliers or seg_counts["K5"] < SMALL_SCANS:
+        fail(f"phase 12 map_segmentation: {int(seg['n_scans'])} scans, {outliers} outliers in "
+             f"the scan rendered from its own pose, K5 launched {seg_counts['K5']} times")
+    with open(os.path.join(NODE_DIR, "rmcl.yaml"), "w") as f:
+        f.write(f"max_particles: {SMALL_PARTICLES}\n")
+    reset_counts()
+    rmcl_out = os.path.join(NODE_DIR, "track_rmcl.npz")
+    run_cli("phase 12 rmcl_localization", rmcl_localization.main,
+            ["--device", "cuda", "--map", map_path, "--log", small_path, "--config",
+             os.path.join(NODE_DIR, "rmcl.yaml"), "--initial-pose", *guess, "--out", rmcl_out])
+    rmcl = np.load(rmcl_out)
+    rmcl_counts = read_counts()
+    rmcl_err = float(np.linalg.norm(rmcl["trans"][-1] - np.float32(truth[SMALL_SCANS - 1][:3])))
+    log(f"phase 12 small runs: map_segmentation {int(seg['n_scans'])} scans (first scan "
+        f"{outliers} outliers), launches K5 {seg_counts['K5']}; rmcl_localization "
+        f"{SMALL_PARTICLES} particles, {rmcl['trans'].shape[0]} estimates, last {rmcl_err:.3f} m "
+        f"from the truth, launches " + ", ".join(f"{k} {v}" for k, v in rmcl_counts.items() if v))
+    if (rmcl["trans"].shape[0] != SMALL_SCANS or not np.isfinite(rmcl["trans"]).all()
+            or rmcl_err > SMALL_ERR_MAX or not any(rmcl_counts.values())):
+        fail(f"phase 12 rmcl_localization: {rmcl['trans'].shape[0]} estimates, last "
+             f"{rmcl_err} m from the truth")
+    return dict(runs=runs, k7=r7, rmcl_err=rmcl_err)
 
 
 def main():
@@ -2357,6 +2636,7 @@ def main():
     r11 = phase_mcl_cycle()
     r11b = phase_mcl_engines(r11)
     r11c = phase_mcl_node(r11)
+    r12 = phase_node_and_tools()
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -2401,7 +2681,15 @@ def main():
         dict(row("closest_bins", "rmcl_tpu_torch/csrc/closest_bins.cu",
                  "rmcl_tpu/ops/closest_point.py:445", exact_r["k6b"]), bitwise=True,
              groups=exact_r["k6b"]["groups"], registers=exact_r["registers"]["K6b"][0]),
+        dict(row("cp_candidates", "rmcl_tpu_torch/csrc/cull_boxes.cu",
+                 "rmcl_tpu/ops/closest_point.py:305", exact_r["k7"]), bitwise=True,
+             timed_by=exact_r["k7"]["timed_by"], registers=exact_r["registers"]["K7"][0],
+             phases={ph: {k: r[k] for k in ("ms", "timed_by", "call_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "launches", "blocks", "plain_blocks")}
+                     for ph, r in (("8", exact_r["k7"]), ("9", ref_r["k7"]), ("12", r12["k7"]))}),
     ]}))
+    log("phase 12 ms per correction (median, host clock): " + json.dumps(
+        {k: round(v["ms"], 4) for k, v in r12["runs"].items()}))
     log(f"card: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,14 @@ def bvh_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> BVH:
                          arrays["n_tris"], device=device)
 
 
+def to_numpy(x, dtype=None) -> np.ndarray:
+    """``x`` (a tensor on any device, a numpy array or a sequence) as a
+    numpy array, the way back from the port's objects to plain arrays."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
 def transform_from_arrays(rot: np.ndarray, trans: np.ndarray, device="cuda") -> Transform:
     """``Transform`` from a [w,x,y,z] quaternion array and a translation."""
     dev = resolve_device(device)

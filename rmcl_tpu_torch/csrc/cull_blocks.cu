@@ -62,6 +62,8 @@
 
 #include <algorithm>
 
+#include "key_sort.cuh"
+
 // the kernel's arguments, mirrored field for field by ops/cull_cuda.py::_CullArgs
 // (outside the anonymous namespace: the exported entry point takes it)
 struct CullArgs {
@@ -94,12 +96,10 @@ struct CullArgs {
 namespace {
 
 constexpr float kBig = 3.0e38f;
-constexpr unsigned long long kSentinel = ~0ULL;
 constexpr unsigned kNoPass = 0xffffffffu;
 constexpr int kThreads = 256;        // the largest CTA (its launch bounds)
 constexpr int kBigGridThreads = 128; // the CTA when the grid fills the card many times over
 constexpr int kBigGrid = 1024;       // blocks from which a grid counts as big
-constexpr int kWarpSortMax = 32;     // key counts that one warp sorts by shuffles
 constexpr int kMinBlocks = 2;        // CTAs of kThreads an SM with 2-4 cones a lane (no spills)
 constexpr int kTestRepeat = 1;       // tests a (box, cone) pair; 2 measures their cost
 constexpr int kConeIn = 11;  // oc(3) oh(3) axis(3) tan_th t_hi
@@ -176,12 +176,6 @@ __device__ __forceinline__ bool cone_box(const Cone& c, const float* bmin, const
   tn_out = tn > 0.0f ? tn : 0.0f;
   tf_out = tf;
   return (tn <= tf) & (tf >= 0.0f) & (tn <= c.t_hi) & (d_near <= c.t_hi);
-}
-
-__host__ __device__ int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
 }
 
 // --- bounds ---
@@ -417,45 +411,6 @@ __device__ void test_level(const Cone (&cn)[CPL], unsigned cmask, int L, int n,
   }
 }
 
-// ascending order of the m compacted keys, padded to a power of two: up to
-// kWarpSortMax by one warp's shuffles (no block barrier a step), else by a
-// bitonic sort in shared memory
-__device__ void sort_keys(unsigned long long* keys, int m) {
-  const int p2 = pow2_at_least(m);
-  if (p2 <= kWarpSortMax) {
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      unsigned long long key = lane < m ? keys[lane] : kSentinel;
-      for (int k = 2; k <= 32; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, j);
-          key = ((lane & j) == 0) == ((lane & k) == 0) ? min(key, other) : max(key, other);
-        }
-      }
-      keys[lane] = key;
-    }
-    __syncthreads();
-    return;
-  }
-  for (int i = m + threadIdx.x; i < p2; i += blockDim.x) keys[i] = kSentinel;
-  __syncthreads();
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p2; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = keys[i], b = keys[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // id and tn of sorted key k of m (id -1 and tn 3e38 past m)
 __device__ void decode(const unsigned long long* keys, int k, int m, int packed, unsigned idm,
                        const int* group_sel, int Gs, int* id, float* tn) {
@@ -474,15 +429,6 @@ __device__ void decode(const unsigned long long* keys, int k, int m, int packed,
     *id = group_sel ? group_sel[pos / Gs] * Gs + pos % Gs : pos;
     *tn = __uint_as_float((unsigned)(key >> 32));
   }
-}
-
-// the passes of the last level, and a fresh count for the next
-__device__ int take_count(int* s_count) {
-  __syncthreads();
-  const int m = *s_count;
-  __syncthreads();
-  if (threadIdx.x == 0) *s_count = 0;
-  return m;
 }
 
 // floats of the shared region that holds the keys, or the bounds tree

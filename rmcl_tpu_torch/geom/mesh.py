@@ -93,6 +93,17 @@ def load_obj(path: str) -> TriangleMesh:
     return TriangleMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32))
 
 
+def save_obj(mesh: TriangleMesh, path: str) -> None:
+    """Write ``mesh`` as an OBJ file (the JAX package's writer: numpy's
+    shortest float repr, so :func:`load_obj` reads the vertices back bit
+    for bit)."""
+    with open(path, "w") as f:
+        for v in mesh.vertices:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for face in mesh.faces + 1:
+            f.write(f"f {face[0]} {face[1]} {face[2]}\n")
+
+
 # ---------------------------------------------------------------------------
 # Procedural meshes
 # ---------------------------------------------------------------------------

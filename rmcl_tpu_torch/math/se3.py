@@ -133,6 +133,21 @@ class Quaternion:
         return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
     @staticmethod
+    def slerp(a: Tensor, b: Tensor, t: Tensor) -> Tensor:
+        """Spherical interpolation from ``a`` (t = 0) to ``b`` (t = 1) along
+        the shorter arc; t outside [0, 1] extrapolates."""
+        dot = torch.sum(a * b, dim=-1, keepdim=True)
+        b = torch.where(dot < 0, -b, b)
+        dot = torch.abs(dot)
+        theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+        sin_theta = torch.sin(theta)
+        small = sin_theta < 1e-6
+        safe = torch.where(small, 1.0, sin_theta)
+        w_a = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+        w_b = torch.where(small, t, torch.sin(t * theta) / safe)
+        return Quaternion.normalize(w_a * a + w_b * b)
+
+    @staticmethod
     def log(q: Tensor) -> Tensor:
         """Rotation-vector (axis*angle) log map, (...,4) → (...,3)."""
         q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)  # shortest arc
@@ -239,6 +254,18 @@ class Transform:
     def normalized(self) -> "Transform":
         """Re-normalize the quaternion."""
         return Transform(rot=Quaternion.normalize(self.rot), trans=self.trans)
+
+    @staticmethod
+    def interp(a: "Transform", b: "Transform", alpha) -> "Transform":
+        """Pose interpolation: quaternion slerp + translation lerp.
+        ``alpha`` broadcasts against the batch shapes ((N,) alpha with
+        scalar a and b gives an (N,) batch); values outside [0, 1]
+        extrapolate along the same path."""
+        al = torch.as_tensor(alpha, dtype=torch.float32, device=a.trans.device)[..., None]
+        return Transform(
+            rot=Quaternion.slerp(a.rot, b.rot, al),
+            trans=a.trans + al * (b.trans - a.trans),
+        )
 
     # -- conversions --------------------------------------------------------
 

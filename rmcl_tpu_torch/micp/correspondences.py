@@ -32,12 +32,15 @@ class Correspondences:
 
 
 def find_rcc(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
-             chunk_size: int = 262144, c_super: int = 24, c_bin: int = 96) -> Correspondences:
+             chunk_size: int = 262144, c_super: int = 24, c_bin: int = 96, c_mid: int = 0,
+             c_hyper: int = 0) -> Correspondences:
     """Ray-cast correspondences: one simulated hit per sensor pixel from the
-    current pose estimate ``tsm`` (sensor→map). ``c_super``/``c_bin`` tune
-    the dense engine when ``bvh`` is bins."""
+    current pose estimate ``tsm`` (sensor→map). ``c_super``/``c_bin``/
+    ``c_mid``/``c_hyper`` tune the dense engine when ``bvh`` is bins
+    (``c_mid > 0``: the mid level; ``c_hyper > 0``: the hyper level)."""
     if isinstance(bvh, TriangleBins):
-        hits = simulate(bvh, model, tsm, c_super=c_super, c_bin=c_bin)
+        hits = simulate(bvh, model, tsm, c_super=c_super, c_bin=c_bin, c_mid=c_mid,
+                        c_hyper=c_hyper)
     else:
         hits = simulate(bvh, model, tsm, chunk_size=chunk_size)
     return Correspondences(

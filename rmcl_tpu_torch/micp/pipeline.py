@@ -74,7 +74,9 @@ class MICPConfig:
     solver: "p2l_gn" (point-to-plane Gauss-Newton about the correspondence
     centroid, the default) or "umeyama" (project onto the model planes,
     then a point-to-point Umeyama/Kabsch solve — the reference's scheme).
-    ``c_super``/``c_bin`` are the binned engine's candidate budgets."""
+    ``c_super``/``c_bin`` are the binned engine's candidate budgets;
+    ``c_mid`` > 0 adds the ray cull's mid level and ``c_hyper`` > 0 its
+    hyper level (bins built with one), 0 leaving each off."""
 
     optimization_iterations: int = 5
     adaptive_max_dist: bool = True
@@ -83,6 +85,8 @@ class MICPConfig:
     gn_damping: float = 1e-6
     c_super: int = 24
     c_bin: int = 96
+    c_mid: int = 0
+    c_hyper: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,10 +151,12 @@ def _annealed_max_dist(cfg: MICPSensorConfig, progress: Tensor, enabled: bool):
 
 def find_correspondences(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
                          tbm: Transform, chunk_size: int = 262144, c_super: int = 24,
-                         c_bin: int = 96) -> Tuple[Correspondences, ...]:
+                         c_bin: int = 96, c_mid: int = 0,
+                         c_hyper: int = 0) -> Tuple[Correspondences, ...]:
     """One correspondence search per sensor from the pose estimate: closest
     points for a ``"CP"`` sensor (gated at its ``max_dist``), a ray cast
-    otherwise."""
+    otherwise (``c_mid``/``c_hyper`` reach only the ray cast, as in the JAX
+    package)."""
     out = []
     for s in sensors:
         tsm = tbm @ s.tsb
@@ -159,7 +165,7 @@ def find_correspondences(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensor
                                 chunk_size=chunk_size, c_super=c_super, c_bin=c_bin))
         else:
             out.append(find_rcc(bvh, s.model, tsm, chunk_size=chunk_size, c_super=c_super,
-                                c_bin=c_bin))
+                                c_bin=c_bin, c_mid=c_mid, c_hyper=c_hyper))
     return tuple(out)
 
 
@@ -170,7 +176,8 @@ def correct_once(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
     """One full correction: correspondences → K solver iterations → new Tom.
     ``bvh`` is the map's ``BVH`` or its ``TriangleBins``."""
     corrs = find_correspondences(bvh, sensors, tom @ tbo, chunk_size=chunk_size,
-                                 c_super=config.c_super, c_bin=config.c_bin)
+                                 c_super=config.c_super, c_bin=config.c_bin,
+                                 c_mid=config.c_mid, c_hyper=config.c_hyper)
     return correct_from_correspondences(sensors, corrs, tom, tbo,
                                         convergence_progress, config)
 

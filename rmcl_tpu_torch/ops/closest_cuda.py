@@ -5,7 +5,11 @@ PyTorch versions.
 closest-point walk, ``rmcl_tpu/ops/closest_point.py::_query_batch`` (:154,
 loop :172-225); source ``rmcl_tpu_torch/csrc/closest_bvh.cu``.
 ``closest_bins`` (K6b) ports the chunk loop of ``closest_points_binned``
-(:445-511); source ``rmcl_tpu_torch/csrc/closest_bins.cu``. Each source's
+(:445-511); source ``rmcl_tpu_torch/csrc/closest_bins.cu``.
+``cp_candidates`` (K7) ports the candidate cull that feeds it,
+``_cp_candidates`` (:305, with ``_box_box_d2`` at :299); source
+``rmcl_tpu_torch/csrc/cull_boxes.cu``, plain version
+:func:`rmcl_tpu_torch.ops.closest_point._cp_candidates`. Each source's
 header says what bounds it on the card and what the design does about it.
 Both kernels spread a query over several lanes where queries are few
 (:func:`walk_split`, :func:`bins_groups`): K6 walks P subtrees of the BVH
@@ -28,6 +32,12 @@ cb)`` int32 (-1 padding, valid entries first), ``cand_count (n_blk,)`` and
 ``cand_dlb (n_blk, cb)`` (squared-distance lower bounds, ascending).
 Returns ``best_key (n_blk, Rq)`` int32 ((bits(d2) & ~(B-1)) | j, or the
 bound's bits | (B-1)) and ``best_bin (n_blk, Rq)`` int32 (-1).
+
+Contract of ``cp_candidates``: the bins' ``super_aabb (n_super, 6)`` and
+``bin_aabb (n_bins, 6)``; query blocks ``qb (n_blk, Rq, 3)`` and bounds
+``d2b (n_blk, Rq)``; budgets ``cs <= n_super`` supers and ``1 <= cb <= cs
+x S`` bins. Returns K6b's candidate lists ``cand_bin (n_blk, cb)`` int32,
+``cand_count (n_blk,)`` int32 and ``cand_dlb (n_blk, cb)`` float32.
 """
 
 from __future__ import annotations
@@ -60,6 +70,25 @@ def _bvh_kernel():
     return fn
 
 
+class _BoxArgs(ctypes.Structure):
+    """K7's argument struct (``BoxArgs`` in ``csrc/cull_boxes.cu``), field
+    for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("qb", "d2b", "super_aabb", "bin_aabb",
+                                                 "cand_bin", "cand_count", "cand_dlb")]
+                + [(n, ctypes.c_int) for n in ("n_blk", "Rq", "n_super", "n_bins", "S", "cs",
+                                               "cb")]
+                + [("idm", ctypes.c_uint), ("packed", ctypes.c_int), ("key_cap", ctypes.c_int)])
+
+
+@functools.lru_cache(maxsize=None)
+def _boxes_kernel():
+    """K7's C entry point (``rmcl_cull_boxes``), built on first use."""
+    fn = _build.load_library("cull_boxes").rmcl_cull_boxes
+    fn.argtypes = [ctypes.POINTER(_BoxArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _bins_kernel():
     """K6b's C entry point (``rmcl_closest_bins``), built on first use."""
@@ -72,7 +101,8 @@ def _bins_kernel():
 def kernel_registers() -> dict:
     """Registers and local-memory bytes a thread (spills show as local
     memory) of each closest-point kernel as built, by ``cudaFuncGetAttributes``:
-    ``{"K6 P=1": (regs, local), ..., "K6b": (regs, local)}``. Needs a card."""
+    ``{"K6 P=1": (regs, local), ..., "K6b": (regs, local), "K7": (regs,
+    local)}``. Needs a card."""
     out = {}
     regs, local = ctypes.c_int(), ctypes.c_int()
     bvh = _build.load_library("closest_bvh").rmcl_closest_bvh_attrs
@@ -86,6 +116,11 @@ def kernel_registers() -> dict:
     if bins(ctypes.byref(regs), ctypes.byref(local)):
         raise RuntimeError("cudaFuncGetAttributes failed for K6b")
     out["K6b"] = (regs.value, local.value)
+    boxes = _build.load_library("cull_boxes").rmcl_cull_boxes_attrs
+    boxes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    if boxes(ctypes.byref(regs), ctypes.byref(local)):
+        raise RuntimeError("cudaFuncGetAttributes failed for K7")
+    out["K7"] = (regs.value, local.value)
     return out
 
 
@@ -521,3 +556,68 @@ def _closest_bins_slice(tri, qb, d2b, cand_bin, cand_count, cand_dlb):
         best_key[live] = torch.where(better, key_min, bk)
         best_bin[live] = torch.where(better, bid[:, None], best_bin[live])
     return best_key, best_bin
+
+
+# --- K7: the candidate cull of the binned query --------------------------
+
+# shared memory one CTA may hold on an H100 (232,448 bytes)
+_SMEM_CAP = 232448
+
+
+def cp_key_cap(n_super: int, cs: int, S: int) -> int:
+    """K7's shared key slots: the widest level (every super, or the kept
+    supers' bins) rounded up to a power of two, at least a warp's 32."""
+    return 1 << (max(n_super, cs * S, 32) - 1).bit_length()
+
+
+def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: int = 256):
+    """Nearest-first candidate bins per query block of the binned
+    closest-point query: the cs nearest supers of each block's query box
+    within its greatest bound, then the cb nearest of their bins.
+
+    CUDA tensors launch K7 once for every block (or raise); CPU tensors take
+    the plain version, :func:`rmcl_tpu_torch.ops.closest_point._cp_candidates`,
+    ``block_chunk`` blocks at a time (memory only: each block's list is its
+    own). ``cp_candidates.launches`` counts the kernel launches."""
+    from rmcl_tpu_torch.ops import closest_point
+
+    n_blk, Rq = qb.shape[0], qb.shape[1]
+    S, n_super, n_bins = bins.bins_per_super, bins.n_super, bins.n_bins
+    dev = qb.device
+    if not 1 <= cs <= n_super or not 1 <= cb <= cs * S:
+        raise ValueError(f"budgets cs={cs}, cb={cb} must satisfy 1 <= cs <= {n_super} and "
+                         f"1 <= cb <= cs x {S}")
+    check_rows(dev, qb=(qb, torch.float32, (n_blk, Rq, 3)),
+               d2b=(d2b, torch.float32, (n_blk, Rq)),
+               super_aabb=(bins.super_aabb, torch.float32, (n_super, 6)),
+               bin_aabb=(bins.bin_aabb, torch.float32, (n_bins, 6)))
+    if dev.type == "cpu":
+        d2cap = torch.amax(d2b, dim=1)
+        step = max(1, int(block_chunk))
+        parts = [closest_point._cp_candidates(bins, qb[s:s + step], d2cap[s:s + step], cs, cb)
+                 for s in range(0, max(n_blk, 1), step)]
+        return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
+    if dev.type != "cuda":
+        raise ValueError(f"cp_candidates runs on cuda or cpu tensors, not {dev}")
+    key_cap = cp_key_cap(n_super, cs, S)
+    if key_cap * 8 + cs * 4 > _SMEM_CAP:
+        raise ValueError(f"{key_cap} candidate keys do not fit a CTA's shared memory "
+                         f"(n_super {n_super}, cs x S = {cs * S})")
+    id_bits = max(1, (n_bins - 1).bit_length())
+    packed = id_bits <= closest_point._PACKED_ID_BITS
+    cand_bin = torch.empty((n_blk, cb), dtype=torch.int32, device=dev)
+    cand_count = torch.empty((n_blk,), dtype=torch.int32, device=dev)
+    cand_dlb = torch.empty((n_blk, cb), dtype=torch.float32, device=dev)
+    args = _BoxArgs(qb.data_ptr(), d2b.data_ptr(), bins.super_aabb.data_ptr(),
+                    bins.bin_aabb.data_ptr(), cand_bin.data_ptr(), cand_count.data_ptr(),
+                    cand_dlb.data_ptr(), n_blk, Rq, n_super, n_bins, S, cs, cb,
+                    (1 << id_bits) - 1 if packed else 0, int(packed), key_cap)
+    with torch.cuda.device(dev):
+        err = _boxes_kernel()(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"cp_candidates kernel launch failed: cudaError {err}")
+    cp_candidates.launches += 1
+    return cand_bin, cand_count, cand_dlb
+
+
+cp_candidates.launches = 0

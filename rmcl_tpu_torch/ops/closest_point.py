@@ -5,8 +5,9 @@ Counterpart of ``rmcl_tpu.ops.closest_point``. :func:`closest_points` walks
 the threaded BVH with the K6 kernel
 (:func:`rmcl_tpu_torch.ops.closest_cuda.closest_bvh`), pruned by the
 point-to-AABB distance; :func:`closest_points_binned` culls query blocks
-against the bins by box-box distance lower bounds (:func:`_cp_candidates`,
-torch ops) and tests the surviving bins with the K6b kernel
+against the bins by box-box distance lower bounds with the K7 kernel
+(:func:`rmcl_tpu_torch.ops.closest_cuda.cp_candidates`, whose plain version
+is :func:`_cp_candidates`) and tests the surviving bins with the K6b kernel
 (:func:`rmcl_tpu_torch.ops.closest_cuda.closest_bins`);
 :func:`closest_points_seeded` seeds the exact walk with the binned result.
 """
@@ -20,7 +21,7 @@ import torch
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.types import BVH
-from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, walk_split
+from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates, walk_split
 from rmcl_tpu_torch.ops.order import cluster_order
 
 Tensor = torch.Tensor
@@ -158,7 +159,9 @@ def _topk_stable(x: Tensor, k: int) -> tuple[Tensor, Tensor]:
 
 
 def _cp_candidates(bins: TriangleBins, q_blk: Tensor, d2cap: Tensor, cs: int, cb: int):
-    """Distance-ordered candidate bins per query block.
+    """Distance-ordered candidate bins per query block: K7's plain version
+    (:func:`rmcl_tpu_torch.ops.closest_cuda.cp_candidates` takes it for CPU
+    tensors; it runs on any device).
 
     Two-level cull by box-box distance lower bounds. Returns (cand_bin (Cb,
     cb) int32 -1-padded, cand_count (Cb,) int32, cand_dlb (Cb, cb)
@@ -215,9 +218,10 @@ def binned_inputs(bins: TriangleBins, q: Tensor, max_d2: Tensor, block_size: int
                   c_super: int = 24, c_bin: int = 96, block_chunk: int = 256):
     """K6b's inputs for queries ``q (n, 3)`` in the order given: the query
     blocks (the last padded with origin queries at max_d2 = 0, as the JAX
-    package pads) and their candidate lists. Returns ``(qb, d2b, cand_bin,
-    cand_count, cand_dlb)``; ``block_chunk`` blocks at a time go through
-    the candidate cull (memory only: each block's list is its own)."""
+    package pads) and their candidate lists, from one K7 launch on the
+    card. Returns ``(qb, d2b, cand_bin, cand_count, cand_dlb)``; on the CPU
+    ``block_chunk`` blocks at a time go through the plain cull (memory
+    only: each block's list is its own)."""
     B = bins.bin_size
     if B & (B - 1):
         raise ValueError("bin_size must be a power of two (packed-key min)")
@@ -232,12 +236,7 @@ def binned_inputs(bins: TriangleBins, q: Tensor, max_d2: Tensor, block_size: int
     d2b = max_d2.reshape(n_blk, Rq).contiguous()
     cs = min(c_super, bins.n_super)
     cb = min(c_bin, bins.n_bins, cs * bins.bins_per_super)
-    d2cap = torch.amax(d2b, dim=1)
-    step = max(1, int(block_chunk))
-    parts = [_cp_candidates(bins, qb[s:s + step], d2cap[s:s + step], cs, cb)
-             for s in range(0, n_blk, step)]
-    cand_bin, cand_count, cand_dlb = (torch.cat([p[k] for p in parts]) for k in range(3))
-    return qb, d2b, cand_bin, cand_count, cand_dlb
+    return (qb, d2b) + cp_candidates(bins, qb, d2b, cs, cb, block_chunk)
 
 
 def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
@@ -254,7 +253,7 @@ def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
     Candidate budgets (c_super, c_bin) follow the binned ray caster's
     contract: a block needing more candidates than the budget may return a
     farther-than-true point. ``block_chunk`` blocks at a time go through the
-    candidate cull (memory only)."""
+    candidate cull on the CPU (memory only)."""
     dev = bins.device
     queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     batch_shape = queries.shape[:-1]

@@ -163,6 +163,16 @@ class PinholeModel:
         dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
         return torch.zeros((self.n_rays, 3), dtype=torch.float32, device=dev), dirs.reshape(-1, 3)
 
+    def depth_to_cartesian(self, depth: Tensor) -> Tensor:
+        """z-depth image (H*W,) → (H*W, 3) points on the depth's device.
+        Depth is along +z (not along the ray), the depth-image convention."""
+        u = torch.arange(self.width, dtype=torch.float32, device=depth.device)[None, :]
+        v = torch.arange(self.height, dtype=torch.float32, device=depth.device)[:, None]
+        z = depth.reshape(self.height, self.width)
+        x = (u - self.cx) / self.fx * z
+        y = (v - self.cy) / self.fy * z
+        return torch.stack([x, y, z], -1).reshape(-1, 3)
+
 
 @dataclasses.dataclass(frozen=True)
 class O1DnModel:

@@ -900,3 +900,159 @@ def test_sensor_update_on_card_matches_cpu(card, engine):
         out[dev.type] = lik
     torch.testing.assert_close(out["cuda"].mean.cpu(), out["cpu"].mean, rtol=1e-5, atol=1e-7)
     assert torch.equal(out["cuda"].n_meas.cpu(), out["cpu"].n_meas)
+
+
+# --- the closest-point candidate cull (K7) and the MICP node ---
+
+def _cp_blocks(mesh, dev, B, S, n, max_dist, Rq=128, seed=9):
+    """Query blocks (cluster order, the last partly padding) of n points in
+    the mesh's box, and the bins they are culled against."""
+    from rmcl_tpu_torch.ops.closest_point import _max_d2
+    from rmcl_tpu_torch.ops.order import cluster_order
+
+    bins = build_bins(mesh, bin_size=B, bins_per_super=S, device=dev)
+    q = _points_in(mesh, dev, n, seed, 0.1)
+    q = q[cluster_order(q, None)[0].long()]
+    md = _max_d2(max_dist, q.shape[:1], dev, cap=1.7e19)
+    pad = (-n) % Rq
+    qb = torch.cat([q, q.new_zeros((pad, 3))]).reshape(-1, Rq, 3).contiguous()
+    d2b = torch.cat([md, md.new_zeros((pad,))]).reshape(-1, Rq).contiguous()
+    return bins, qb, d2b
+
+
+@pytest.mark.parametrize("mesh,B,S,max_dist,cs,cb,case", [
+    ("room", 8, 8, 3.0e38, 24, 96, "packed"),  # every box within reach
+    ("room", 8, 8, 0.25, 24, 96, "float"),  # the float keys of large maps (rule forced)
+    ("building", 16, 16, 0.5, 24, 96, "packed"),
+    ("building", 16, 16, 0.5, 3, 20, "packed"),  # saturating budgets
+    ("building", 16, 16, 0.5, 3, 20, "float"),
+    ("building", 8, 64, 1.0, 24, 96, "zero_bound"),  # blocks with max_d2 = 0
+    ("sphere", 16, 16, 0.5, 39, 624, "packed"),  # phase 9's widest list shape
+    ("sphere", 16, 16, 2.0, 8, 128, "float"),
+])
+def test_cp_candidates_kernel_matches_plain_version(card, monkeypatch, mesh, B, S, max_dist, cs,
+                                                    cb, case):
+    """K7 bitwise its plain version (lists, counts, bounds), 3,000 queries:
+    23 blocks of 128, the last partly padding."""
+    from rmcl_tpu_torch.ops import closest_point
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+
+    if case == "float":
+        monkeypatch.setattr(closest_point, "_PACKED_ID_BITS", 0)
+    bins, qb, d2b = _cp_blocks(_exact_mesh(mesh), card, B, S, 3000, max_dist)
+    if case == "zero_bound":
+        d2b[::3] = 0.0  # whole blocks that reach nothing but their own box
+        d2b[1, :64] = 0.0  # and half of a block
+    cs, cb = min(cs, bins.n_super), min(cb, bins.n_bins, min(cs, bins.n_super) * S)
+    before = cp_candidates.launches
+    k = cp_candidates(bins, qb, d2b, cs, cb)
+    p = closest_point._cp_candidates(bins, qb, torch.amax(d2b, dim=1), cs, cb)
+    torch.cuda.synchronize()
+    assert cp_candidates.launches == before + 1  # the plain version is not counted
+    assert float(p[1].float().mean()) > 1  # the lists are not trivial
+    if cs == 3:
+        assert bool((p[1] == cb).any())  # the budget truncates somewhere
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_cp_candidates_kernel_has_no_spills(card):
+    from rmcl_tpu_torch.ops.closest_cuda import kernel_registers
+
+    regs, local = kernel_registers()["K7"]
+    assert 0 < regs <= 255 and local == 0
+
+
+def test_cp_candidates_refuses_what_it_cannot_hold(card):
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+
+    bins, qb, d2b = _cp_blocks(_exact_mesh("building"), card, 8, 8, 300, 1.0)
+    cs = bins.n_super
+    with pytest.raises(ValueError, match="budgets"):
+        cp_candidates(bins, qb, d2b, cs + 1, 8)
+    with pytest.raises(ValueError, match="budgets"):
+        cp_candidates(bins, qb, d2b, cs, cs * 8 + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cp_candidates(bins, qb.transpose(0, 1).contiguous().transpose(0, 1), d2b, cs, 8)
+    with pytest.raises(ValueError, match="is on"):
+        cp_candidates(bins, qb.cpu(), d2b, cs, 8)
+
+
+def test_closest_points_binned_on_card_matches_cpu(card, monkeypatch):
+    """The binned query on the card: one K7 launch a query and no torch
+    candidate cull; the winners equal the CPU's, distances within 1e-6
+    relative (each device takes its own square root)."""
+    from rmcl_tpu_torch.ops import closest_point
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+
+    m = _exact_mesh("building")
+    q = _points_in(m, torch.device("cpu"), 20000, 4, 0.1)
+    cpu_out = closest_point.closest_points_binned(
+        build_bins(m, bin_size=16, bins_per_super=16, device="cpu"), q, max_dist=0.5)
+
+    def no_plain(*_args):
+        raise AssertionError("the torch candidate cull ran on the card")
+
+    monkeypatch.setattr(closest_point, "_cp_candidates", no_plain)
+    before = cp_candidates.launches
+    out = closest_point.closest_points_binned(
+        build_bins(m, bin_size=16, bins_per_super=16, device=card), q.to(card), max_dist=0.5)
+    torch.cuda.synchronize()
+    assert cp_candidates.launches == before + 1
+    for f in ("prim_id", "found"):
+        assert torch.equal(getattr(out, f).cpu(), getattr(cpu_out, f))
+    assert 0.05 < float(cpu_out.found.float().mean()) < 1.0
+    torch.testing.assert_close(out.dist.cpu(), cpu_out.dist, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(out.point.cpu(), cpu_out.point, rtol=0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine,corr", [("binned", "RC"), ("binned", "CP"), ("bvh", "CP")])
+def test_node_step_on_card_matches_cpu(card, engine, corr):
+    """MICPLocalization on the card and on the CPU, fed the same scans: Tom
+    after every step within POSE_TOL (the reductions run in another order
+    on the card); the card's node built the kernels at construction and its
+    corrections launch them."""
+    from rmcl_tpu_torch.config.tree import ParamTree
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.io import msgs
+    from rmcl_tpu_torch.io.conversions import model_to_scan_info
+    from rmcl_tpu_torch.micp.node import MICPLocalization
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates
+
+    mesh = MESHES["room"]()
+    cpu = torch.device("cpu")
+    model = SphericalModel.create(width=180, height=8, phi_min=-0.4, phi_max=0.3,
+                                  range_max=30.0)
+    cpu_map = MeshMap.from_mesh(mesh, bin_size=32, bins_per_super=8, device=cpu)
+    scans = []
+    for k in range(4):
+        true = [0.5 + 0.02 * k, -0.3, 1.0, 0.0, 0.0, 0.3 + 0.01 * k]
+        hits = simulate(cpu_map.bvh, model, Transform.from_pose_tuple(true, device=cpu))
+        ranges = torch.where(hits.hit, hits.t, 0.0).numpy()
+        scans.append((0.1 * k, true, ranges, hits.hit.numpy()))
+    config = {"engine": engine, "initial_pose_guess": [0.5, -0.3, 1.2, 0.0, 0.0, 0.35],
+              "sensors": {"lidar": {"correspondences": {"type": corr, "max_dist": 0.5}}}}
+    trails = {}
+    launches = {}
+    for dev in (card, cpu):
+        node = MICPLocalization(MeshMap.from_mesh(mesh, bin_size=32, bins_per_super=8,
+                                                  device=dev), ParamTree(config))
+        before = {k: f.launches for k, f in (("K7", cp_candidates), ("K6b", closest_bins),
+                                             ("K6", closest_bvh), ("K1", intersect_bins))}
+        trail = []
+        for stamp, true, ranges, mask in scans:
+            node.on_odometry(Transform.from_pose_tuple(true, device=cpu), stamp=stamp)
+            node.on_scan("lidar", msgs.ScanStamped(msgs.Header(stamp), model_to_scan_info(model),
+                                                   msgs.RangeData(ranges=ranges, mask=mask)))
+            node.step()
+            trail.append(node.tom)
+        trails[dev.type] = trail
+        launches[dev.type] = {k: f.launches - before[k] for k, f in (
+            ("K7", cp_candidates), ("K6b", closest_bins), ("K6", closest_bvh),
+            ("K1", intersect_bins))}
+    for g, c in zip(trails["cuda"], trails["cpu"]):
+        torch.testing.assert_close(g.trans.cpu(), c.trans, rtol=0.0, atol=POSE_TOL)
+    want = {("binned", "RC"): "K1", ("binned", "CP"): "K7", ("bvh", "CP"): "K6"}[(engine, corr)]
+    assert launches["cuda"][want] == len(scans) and launches["cpu"][want] == 0
+    if want == "K7":
+        assert launches["cuda"]["K6b"] == len(scans)
