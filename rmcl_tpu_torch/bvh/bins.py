@@ -1,7 +1,7 @@
 """Two-level triangle binning for the dense binned ray caster.
 
-Counterpart of ``rmcl_tpu.bvh.bins``. The bins are built on the host in
-numpy — the same arrays, bit for bit, as the JAX package's numpy path — and
+Counterpart of ``rmcl_tpu.bvh.bins``. The bins are built on the host —
+the same arrays, bit for bit, as the JAX package's ``build_bins`` — and
 then copied to ``device``:
 
   hyper / super / mid  grouped AABBs            (n_*, 6) [min(3), max(3)]
@@ -10,9 +10,12 @@ then copied to ``device``:
                        major: [v0(3), e1(3), e2(3), unit normal(3),
                        prim_id.f32, inst_id.f32]
 
-Only the numpy kd median order is ported. The JAX package prefers its
-native C++ order when that library is built; the two split ties
-differently, so the bins agree bitwise only with JAX's numpy path.
+The kd median order follows the JAX package's rule: the native C++ order
+(:mod:`rmcl_tpu_torch.bvh.native`, built by g++ at first use) wherever that
+library builds, the numpy order otherwise. The two split ties differently
+(``std::nth_element`` against ``np.argpartition``), so a map's bins depend
+on which one built them; both packages take the native one on a machine
+with g++.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from rmcl_tpu_torch._device import resolve_device
+from rmcl_tpu_torch.bvh import native
+from rmcl_tpu_torch.bvh.builder import morton_codes_3d
 from rmcl_tpu_torch.geom.mesh import TriangleMesh
 
 Tensor = torch.Tensor
@@ -128,9 +133,11 @@ def build_bins(
 ) -> TriangleBins:
     """Build compact triangle bins on the host, then copy them to ``device``.
 
-    Only ``method="median"`` (the numpy kd median split) is ported."""
-    if method != "median":
-        raise NotImplementedError(f"bin order '{method}' is not ported yet")
+    method: "median" (kd median split, tight AABBs — the default; the
+    native order where :func:`native.available`, else the numpy one) or
+    "morton" (fixed runs along the Morton curve)."""
+    if method not in ("median", "morton"):
+        raise ValueError(f"unknown bin order {method!r}")
     dev = resolve_device(device)
     tri = np.asarray(mesh.triangles(), dtype=np.float32)
     T = tri.shape[0]
@@ -145,7 +152,13 @@ def build_bins(
     scene_min = prim_min.min(axis=0)
     scene_max = prim_max.max(axis=0)
 
-    order = _median_split_order(centroid, bin_size)
+    if method == "morton":
+        extent = np.maximum(scene_max - scene_min, 1e-12)
+        order = np.argsort(morton_codes_3d((centroid - scene_min) / extent), kind="stable")
+    elif native.available():
+        order = native.bin_order(centroid, bin_size)
+    else:
+        order = _median_split_order(centroid, bin_size)
     tri = tri[order]
     prim_min = prim_min[order]
     prim_max = prim_max[order]

@@ -7,8 +7,11 @@ preorder-threaded slot layout (:mod:`rmcl_tpu_torch.bvh.types`) with
 vectorised per-level passes. It emits the same slots as the JAX package's
 ``build_bvh``, bit for bit; the slot table is then copied to ``device``.
 
-``build_bvh_sah`` and ``build_bvh_auto`` need the JAX package's native C++
-binned-SAH library (``rmcl_tpu/bvh/native``), which is not ported.
+``build_bvh_sah`` builds the same slot layout with the native C++
+binned-SAH builder (:mod:`rmcl_tpu_torch.bvh.native`, the JAX package's
+source built by g++ at first use): fewer node visits a ray than the Morton
+LBVH. ``build_bvh_auto`` takes it where the library builds, the LBVH
+otherwise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from rmcl_tpu_torch._device import resolve_device
+from rmcl_tpu_torch.bvh import native
 from rmcl_tpu_torch.bvh.types import BVH, SENTINEL_LINK
 from rmcl_tpu_torch.geom.mesh import TriangleMesh
 
@@ -247,15 +251,21 @@ def build_bvh(mesh: TriangleMesh, prim_ids: Optional[np.ndarray] = None,
 
 
 def build_bvh_sah(mesh: TriangleMesh, device="cuda") -> BVH:
-    raise NotImplementedError(
-        "build_bvh_sah needs the JAX package's native C++ binned-SAH library "
-        "(rmcl_tpu/bvh/native/librmcl_native.so), which is not ported; use build_bvh")
+    """Build the threaded BVH with the native binned-SAH builder on
+    ``device``: the JAX package's ``build_bvh_sah`` slots, bit for bit.
+    Raises RuntimeError where the native library is unavailable; see
+    :func:`build_bvh_auto`."""
+    resolve_device(device)  # refuse a missing card before the host build
+    nodes, root, _leaf_order, aabb = native.build_bvh_sah_arrays(mesh.vertices, mesh.faces)
+    return bvh_on_device(nodes, root, aabb[:3], aabb[3:], mesh.n_faces, device=device)
 
 
 def build_bvh_auto(mesh: TriangleMesh, device="cuda") -> BVH:
-    raise NotImplementedError(
-        "build_bvh_auto picks the JAX package's native C++ binned-SAH library "
-        "(rmcl_tpu/bvh/native/librmcl_native.so), which is not ported; use build_bvh")
+    """The native SAH BVH where the library is available, the numpy LBVH
+    otherwise."""
+    if native.available():
+        return build_bvh_sah(mesh, device=device)
+    return build_bvh(mesh, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ Two engines share the cull:
 
 * :func:`cast_rays_binned`, rays in any coherent order: Möller-Trumbore in
   the hand-written kernel :func:`rmcl_tpu_torch.ops.raycast_cuda.intersect_bins`
-  (K1); the winner's triangle row is gathered once per ray and t, point and
+  (K1), or with ``dir_groups=G`` (blocks of G groups of rays sharing one
+  direction, :func:`tiled_sweep_order` with ``dir_major=True``) its hoisted
+  form in :func:`~rmcl_tpu_torch.ops.raycast_cuda.intersect_groups` (K2g);
+  the winner's triangle row is gathered once per ray and t, point and
   normal are re-derived from its plane;
 * :func:`cast_rays_binned_factored`, blocks of P pose origins x G shared
   directions (the pose sweep of :class:`TiledSweep`, the tracking loop):
@@ -25,8 +28,7 @@ nearest-first selections — is one launch of the hand-written kernel K3:
 Budgets truncate candidate lists nearest-first: a block needing more than
 ``c_hyper`` hypers, ``c_super`` supers, ``c_mid`` mids or ``c_bin`` bins
 may miss geometry (the cull's ``sat`` flags say where; ``with_lossless``
-and :func:`block_cull_stats` hand them out). The JAX package's
-``dir_groups`` of the dense engine is not ported yet.
+and :func:`block_cull_stats` hand them out).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.builder import morton_codes_3d
 from rmcl_tpu_torch.ops.cull_cuda import _BIG, cull_factored, cull_rays
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, _map_hits
-from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, plane_of
+from rmcl_tpu_torch.ops.raycast_cuda import (intersect_bins, intersect_factored, intersect_groups,
+                                             plane_of)
 
 Tensor = torch.Tensor
 
@@ -175,6 +178,7 @@ def cast_rays_binned(
     c_mid: int = 0,
     c_hyper: int = 0,
     with_lossless: bool = False,
+    shared_dir: bool = False,
 ) -> RayHits:
     """Dense closest-hit query; rays (..., 3) on the bins' device.
 
@@ -193,9 +197,19 @@ def cast_rays_binned(
     ``with_lossless=True`` returns ``(hits, lossless)``: per ray, True
     where no budget level truncated its block's candidate set, i.e. its
     result is certified exact.
+    ``dir_groups=G`` promises that each block's rays form G contiguous
+    groups sharing ONE exact direction per group (pose sweeps ordered by
+    :func:`tiled_sweep_order` with ``dir_major=True``, or
+    :meth:`TiledSweep.rays`): the intersection then runs K2g, which forms
+    the direction terms once a (triangle, group). Results are undefined
+    where the promise is broken. ``shared_dir=True`` is the alias for
+    ``dir_groups=1``.
     Rays should come in a spatially coherent order (scan grids are)."""
-    if dir_groups:
-        raise NotImplementedError("cast_rays_binned: dir_groups is not ported yet")
+    if shared_dir and not dir_groups:
+        dir_groups = 1
+    if dir_groups and block_size % dir_groups:
+        raise ValueError(f"block_size ({block_size}) must be a multiple of dir_groups "
+                         f"({dir_groups})")
     pmode = {True: "select", False: "none"}.get(payload, payload)
     if pmode not in ("select", "index", "none"):
         raise ValueError(f"unknown payload mode {payload!r}")
@@ -205,7 +219,10 @@ def cast_rays_binned(
     order = None
     if sort_blocks:
         order = torch.argsort(inputs[5], stable=True).to(torch.int32)
-    t_best_b, ref_b = intersect_bins(bins.tri, *inputs, order=order)
+    if dir_groups:
+        t_best_b, ref_b = intersect_groups(bins.tri, *inputs, dir_groups, order=order)
+    else:
+        t_best_b, ref_b = intersect_bins(bins.tri, *inputs, order=order)
     hits = _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode, flip_normals)
     hits = _map_hits(lambda x: x.reshape(batch_shape + tuple(x.shape[1:])), hits)
     if with_lossless:
@@ -216,10 +233,10 @@ def cast_rays_binned(
 
 def _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode="index",
                        flip_normals=True) -> RayHits:
-    """Flat hit records of n rays ``o, d (n, 3)`` from K1's blocked winners:
-    one row gather a ray resolves the winner's triangle, and t, point and
-    normal are re-derived from its plane (``pmode`` "none": the packed-key
-    t only)."""
+    """Flat hit records of n rays ``o, d (n, 3)`` from K1's or K2g's
+    blocked winners: one row gather a ray resolves the winner's triangle,
+    and t, point and normal are re-derived from its plane (``pmode``
+    "none": the packed-key t only)."""
     n = o.shape[0]
     t_best = t_best_b.reshape(-1)[:n]
     hit = (t_best < t_max_r) & (t_best < _BIG)
@@ -621,7 +638,7 @@ class TiledSweep:
         -> (n_poses, *k), excluding padded duplicate dirs and pose slots."""
         k = tuple(vals.shape[1:])
         v = vals.reshape((self.n_pt, self.n_at, self.n_et, self.at, self.et, self.pt) + k)
-        dmask = torch.from_numpy(np.ascontiguousarray(self.dir_valid)).to(
+        dmask = torch.from_numpy(np.array(self.dir_valid)).to(
             device=vals.device, dtype=vals.dtype).reshape(
             (1, self.n_at, self.n_et, self.at, self.et, 1) + (1,) * len(k))
         s = torch.sum(v * dmask, dim=(1, 2, 3, 4)).reshape((self.n_pt * self.pt,) + k)

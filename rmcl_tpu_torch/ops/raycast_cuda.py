@@ -8,6 +8,11 @@ runs in its place (``rmcl_tpu/ops/raycast_binned.py:951-1114``). The kernel
 source is ``rmcl_tpu_torch/csrc/intersect_bins.cu``; its header says what
 bounds it on the card and what the design does about that.
 
+``intersect_groups`` (K2g) ports the same chunk loop's ``dir_groups``
+variant (``rmcl_tpu/ops/raycast_binned.py:967-1015``): blocks whose rays
+form G groups sharing one direction, the direction terms hoisted out of
+the pairs. Its kernel is in the same source and shares K1's candidate walk.
+
 ``intersect_factored`` (K4) ports the Baldwin-Weber pair loop of
 ``rmcl_tpu/ops/raycast_binned.py::cast_rays_binned_factored`` (:1650-1771),
 source ``rmcl_tpu_torch/csrc/intersect_factored.cu``; its contract is in
@@ -43,6 +48,21 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_registers() -> dict:
+    """Registers and local-memory bytes a thread (spills show as local
+    memory) of K1 and K2g as built, by ``cudaFuncGetAttributes``: ``{"K1":
+    (regs, local), "K2g": (regs, local)}``. Needs a card."""
+    fn = _build.load_library("intersect_bins").rmcl_intersect_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = {}
+    for which, name in enumerate(("K1", "K2g")):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        if fn(which, ctypes.byref(regs), ctypes.byref(local)):
+            raise RuntimeError(f"cudaFuncGetAttributes failed for {name}")
+        out[name] = (regs.value, local.value)
+    return out
 
 
 def lane_split(n_rays: int, B: int) -> int:
@@ -217,6 +237,154 @@ def intersect_bins_reference(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tenso
             t_min)
         key = (t_cand.view(torch.int32) & ~jmask) | j_iota
         key_min = torch.min(key, dim=1).values  # (n_blk, Rb)
+        t_bin = (key_min | jmask).view(torch.float32)
+        better = running[:, None] & (t_bin < t_best)
+        t_best = torch.where(better, t_bin, t_best)
+        ref = torch.where(better, bid[:, None] * B + (key_min & jmask), ref)
+    return t_best, ref
+
+
+# --- K2g: blocks of G groups of rays sharing one direction ---
+
+
+@functools.lru_cache(maxsize=None)
+def _groups_kernel():
+    """K2g's C entry point (``rmcl_intersect_groups``), built on first use."""
+    fn = _build.load_library("intersect_bins").rmcl_intersect_groups
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def intersect_groups(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor, t_max_b: Tensor,
+                     cand_bin: Tensor, cand_count: Tensor, cand_tnear: Tensor, groups: int,
+                     order: "Tensor | None" = None):
+    """Closest hit per ray over each block's candidate bins, for blocks whose
+    Rb rays form ``groups`` = G contiguous groups of P = Rb / G rays that
+    share one direction: the group's first ray's (``db[:, ::P]``). The
+    result is undefined where a group's rays do not share it. Inputs,
+    ``order`` and outputs as :func:`intersect_bins`.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`intersect_groups_reference`. ``intersect_groups.launches`` counts
+    the kernel launches."""
+    _check_inputs(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear, order)
+    G = int(groups)
+    n_blk, Rb = ob.shape[0], ob.shape[1]
+    if not 1 <= G <= Rb or Rb % G:
+        raise ValueError(f"groups ({G}) must divide the block size ({Rb})")
+    dev = tri.device
+    if dev.type == "cpu":
+        return intersect_groups_reference(tri, ob, db, t_min_b, t_max_b, cand_bin, cand_count,
+                                          cand_tnear, G, order)
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_groups runs on cuda or cpu tensors, not {dev}")
+    t_best = torch.empty((n_blk, Rb), dtype=torch.float32, device=dev)
+    ref = torch.empty((n_blk, Rb), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _groups_kernel()(
+            tri.data_ptr(), ob.data_ptr(), db.data_ptr(),
+            t_min_b.data_ptr(), t_max_b.data_ptr(),
+            cand_bin.data_ptr(), cand_count.data_ptr(), cand_tnear.data_ptr(),
+            0 if order is None else order.data_ptr(), t_best.data_ptr(), ref.data_ptr(),
+            n_blk, Rb, cand_bin.shape[1], tri.shape[2], G,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"intersect_groups kernel launch failed: cudaError {err}")
+    intersect_groups.launches += 1
+    return t_best, ref
+
+
+intersect_groups.launches = 0
+
+
+def group_terms(tw: Tensor, dg: Tensor):
+    """The hoisted terms of every (triangle, group): ``tw (n, 9, B)``
+    triangles' v0/e1/e2 and ``dg (n, G, 3)`` group directions give (pux,
+    puy, puz, cu, qvx, qvy, qvz, cv, ntx, nty, ntz, ct), each (n, B, G, 1),
+    with which a ray o of the group gets u = o.pu - cu, v = cv - o.qv, t =
+    o.nt - ct. The JAX package's arithmetic, operation by operation."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tw[:, k, :, None, None] for k in range(9))
+    sdx, sdy, sdz = (dg[:, None, :, k, None] for k in range(3))
+    pvx = sdy * e2z - sdz * e2y  # d x e2
+    pvy = sdz * e2x - sdx * e2z
+    pvz = sdx * e2y - sdy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    qdx = sdy * e1z - sdz * e1y  # d x e1
+    qdy = sdz * e1x - sdx * e1z
+    qdz = sdx * e1y - sdy * e1x
+    ngx = e1y * e2z - e1z * e2y  # e1 x e2
+    ngy = e1z * e2x - e1x * e2z
+    ngz = e1x * e2y - e1y * e2x
+    pux, puy, puz = pvx * inv, pvy * inv, pvz * inv
+    qvx, qvy, qvz = qdx * inv, qdy * inv, qdz * inv
+    ntx, nty, ntz = ngx * inv, ngy * inv, ngz * inv
+    cu = v0x * pux + v0y * puy + v0z * puz
+    cv = v0x * qvx + v0y * qvy + v0z * qvz
+    ct = v0x * ntx + v0y * nty + v0z * ntz
+    return pux, puy, puz, cu, qvx, qvy, qvz, cv, ntx, nty, ntz, ct
+
+
+def _group_t(terms, ox, oy, oz, t_min):
+    """Hit distance (3e38 where the ray misses) of rays o against the
+    hoisted terms (broadcast); the kernel's arithmetic, term for term."""
+    pux, puy, puz, cu, qvx, qvy, qvz, cv, ntx, nty, ntz, ct = terms
+    u = (ox * pux + oy * puy + oz * puz) - cu
+    v = cv - (ox * qvx + oy * qvy + oz * qvz)
+    t = (ox * ntx + oy * nty + oz * ntz) - ct
+    ok = (torch.minimum(torch.minimum(u, v), (1.0 + _EPS) - (u + v)) >= -_EPS) & (t > t_min)
+    return torch.where(ok, t, _BIG)
+
+
+# plain-version pair elements per step of K2g's plain version (blocks x B x Rb)
+_GROUP_PAIRS_PER_STEP = 1 << 24
+
+
+def intersect_groups_reference(tri: Tensor, ob: Tensor, db: Tensor, t_min_b: Tensor,
+                               t_max_b: Tensor, cand_bin: Tensor, cand_count: Tensor,
+                               cand_tnear: Tensor, groups: int, order: "Tensor | None" = None):
+    """The same function in plain PyTorch: one step per candidate slot over
+    (blocks, B, G, P) pair tensors with the (triangle, group) terms of
+    :func:`group_terms`, the same packed-key fold and the same per-block
+    nearest-first exit, in steps of blocks that bound memory. Runs on any
+    device; ``order`` is taken and ignored."""
+    n_blk, Rb, _ = ob.shape
+    B = tri.shape[2]
+    step = max(1, _GROUP_PAIRS_PER_STEP // (B * Rb))
+    # zero sentinel row for finished blocks: all-zero triangles give inv = 0
+    # -> t = 0, which fails the strict t > t_min gate
+    tri9 = torch.cat([tri[:, :9], tri.new_zeros((1, 9, B))], 0)
+    outs = [_groups_slice(tri9, ob[s:s + step], db[s:s + step], t_min_b[s:s + step],
+                          t_max_b[s:s + step], cand_bin[s:s + step], cand_count[s:s + step],
+                          cand_tnear[s:s + step], int(groups))
+            for s in range(0, n_blk, step)]
+    return torch.cat([x[0] for x in outs]), torch.cat([x[1] for x in outs])
+
+
+def _groups_slice(tri9, ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear, G):
+    n, Rb, _ = ob.shape
+    B = tri9.shape[2]
+    P = Rb // G
+    jmask = B - 1
+    sentinel = tri9.shape[0] - 1
+    dg = db[:, ::P]  # (n, G, 3): one direction a group, its first ray's
+    ox, oy, oz = (ob.reshape(n, 1, G, P, 3)[..., k] for k in range(3))  # (n, 1, G, P)
+    t_min = t_min_b.reshape(n, 1, G, P)
+    j_iota = torch.arange(B, dtype=torch.int32, device=tri9.device)[None, :, None, None]
+    t_best = t_max_b.clone()
+    ref = torch.full((n, Rb), -1, dtype=torch.int32, device=tri9.device)
+    running = torch.ones(n, dtype=torch.bool, device=tri9.device)
+    for c in range(cand_bin.shape[1]):
+        running = running & (c < cand_count) & (
+            cand_tnear[:, c] <= torch.max(t_best, dim=1).values)
+        if not bool(running.any()):
+            break
+        bid = torch.where(running, cand_bin[:, c], sentinel)
+        t_cand = _group_t(group_terms(tri9[bid], dg), ox, oy, oz, t_min)  # (n, B, G, P)
+        key = (t_cand.view(torch.int32) & ~jmask) | j_iota
+        key_min = torch.amin(key, dim=1).reshape(n, Rb)
         t_bin = (key_min | jmask).view(torch.float32)
         better = running[:, None] & (t_bin < t_best)
         t_best = torch.where(better, t_bin, t_best)

@@ -10,8 +10,8 @@ by side on the CPU, at the geometry of ``chip_smoke.py``'s phases:
   poses (uniform in +-5 m, identity rotations), 128- and 32-ray blocks at
   the default budgets.
 
-Both packages cast on the same bins: the JAX package is held to its numpy
-kd order, which the port copies, and its bins are carried across. Each
+Both packages cast on the same bins: the JAX package's, in its default
+(native) order, which the port's default takes too, carried across. Each
 case prints one JSON line: per package, the blocks whose candidate set a
 budget truncated, the mean and largest candidate count, and the hit
 fraction of ``cast_rays_binned``; and how many blocks' counts and rays'
@@ -31,7 +31,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import rmcl_tpu.bvh.native  # noqa: E402
 from rmcl_tpu.bvh.bins import build_bins  # noqa: E402
 from rmcl_tpu.geom.mesh import make_building_scene, make_sphere  # noqa: E402
 from rmcl_tpu.ops import raycast_binned as jrb  # noqa: E402
@@ -42,10 +41,6 @@ from rmcl_tpu_torch.sensors.models import SphericalModel  # noqa: E402
 
 C_SUPER, C_BIN = 24, 96  # the defaults of cast_rays_binned and MICPConfig
 SPHERE_POSES = 3
-
-
-def _numpy_order_only(*_args, **_kwargs):
-    raise RuntimeError("native bin order disabled: use the numpy kd order the port copies")
 
 
 def _scene(name):
@@ -111,7 +106,6 @@ def probe(name, block_sizes, unbudgeted):
 
 def main():
     torch.set_num_threads(4)
-    rmcl_tpu.bvh.native.bin_order = _numpy_order_only
     probe("building", [128], unbudgeted=True)
     probe("sphere", [128, 32], unbudgeted=False)
 

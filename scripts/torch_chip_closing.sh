@@ -8,8 +8,12 @@
 #    inside this one, e.g. `git archive HEAD~1 | tar -x -C build/parent`)
 #    the parent's and this tree's in turns: parent, change, change, parent;
 # 3. the card tests, tests/test_torch_cuda.py (marker cuda);
-# 4. scripts/torch_cp_split_probe.py and scripts/torch_k5_probe.py (each
-#    with --parent PARENT_DIR if given).
+# 4. python -m rmcl_tpu_torch.bench with the factored engine, the dense
+#    engine (BENCH_ENGINE=dense) and the fused reduction (BENCH_FUSED=1);
+# 5. scripts/torch_cp_split_probe.py and scripts/torch_k5_probe.py (each
+#    with --parent PARENT_DIR if given), and scripts/torch_trace_probe.py
+#    (K2g and K1 at phase 13's inputs by the device trace, in a process of
+#    their own).
 #
 # Each step's output goes to $CLOSING_OUT/closing_<step>.log (by default
 # the git-ignored build/closing/) and its exit code is printed; the script
@@ -41,6 +45,12 @@ fi
 step cardtests . python3 -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -m cuda -q \
   -p no:cacheprovider
 tail -n 3 "$out/closing_cardtests.log"
+# the corrector benchmark's three variants: factored, dense (K2g), fused
+for pair in factored:BENCH_ENGINE=factored dense:BENCH_ENGINE=dense fused:BENCH_FUSED=1; do
+  name=bench_${pair%%:*}
+  step "$name" . env "${pair#*:}" python3 -m rmcl_tpu_torch.bench
+  tail -n 1 "$out/closing_$name.log"
+done
 for probe in cp_split k5; do
   if [ -n "$parent" ]; then
     step "probe_$probe" . python3 -m "scripts.torch_${probe}_probe" --parent "$parent"
@@ -49,4 +59,6 @@ for probe in cp_split k5; do
   fi
   cat "$out/closing_probe_$probe.log"
 done
+step probe_trace . python3 -m scripts.torch_trace_probe
+grep '"step"' "$out/closing_probe_trace.log"
 exit $status

@@ -1,11 +1,15 @@
 """Parity of the port's host-side geometry with the JAX package: meshes,
 triangle bins (bitwise), the map container and the sensor models' rays.
 
-The JAX ``build_bins`` prefers its native C++ kd order when that library
-is built; its ``std::nth_element`` splits ties differently from numpy's
-``argpartition``, so even the per-bin triangle sets differ. The port copies
-the numpy order, so the bitwise test forces the JAX package onto its numpy
-path from inside the test (nothing in the JAX package changes)."""
+Both packages' ``build_bins`` take the native C++ kd order where its
+library builds (g++ at first use) and the numpy order otherwise; the two
+split ties differently (``std::nth_element`` against ``np.argpartition``),
+so even the per-bin triangle sets differ. The default path is compared
+with both packages on the native order; the numpy path with both forced
+onto it from inside the test (nothing in the JAX package changes)."""
+
+import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +20,7 @@ import rmcl_tpu.bvh.native
 from rmcl_tpu.bvh.bins import build_bins as j_build_bins
 from rmcl_tpu.geom import mesh as jm
 from rmcl_tpu.sensors import models as jmodels
+from rmcl_tpu_torch.bvh import native as t_native
 from rmcl_tpu_torch.bvh.bins import build_bins as t_build_bins
 from rmcl_tpu_torch.bvh.builder import validate_bvh
 from rmcl_tpu_torch.geom import mesh as tm
@@ -34,7 +39,12 @@ def _no_native_order(*_args, **_kwargs):
 
 @pytest.fixture
 def numpy_bin_order(monkeypatch):
+    """Both packages on the numpy order: JAX's native call raises (its
+    build_bins then falls to numpy), the port's library reads as
+    unavailable (its rule for taking numpy)."""
     monkeypatch.setattr(rmcl_tpu.bvh.native, "bin_order", _no_native_order)
+    monkeypatch.setattr(t_native, "bin_order", _no_native_order)
+    monkeypatch.setattr(t_native, "available", lambda: False)
 
 
 @pytest.mark.parametrize("scene", ["room", "building", "sphere"])
@@ -61,18 +71,15 @@ def test_load_obj_matches_jax(tmp_path):
         tm.load_mesh(str(tmp_path / "x.ply"))
 
 
-@pytest.mark.parametrize("scene,bin_size,bps", [
-    ("room", 32, 8),
-    ("room", 8, 4),
-    ("building", 32, 16),
-    ("building", 64, 8),
-])
-def test_build_bins_bitwise(numpy_bin_order, scene, bin_size, bps):
-    mesh = (jm.make_room_scene(n_pillars=4, seed=3) if scene == "room"
+BIN_CASES = [("room", 32, 8), ("room", 8, 4), ("building", 32, 16), ("building", 64, 8)]
+
+
+def _scene(scene):
+    return (jm.make_room_scene(n_pillars=4, seed=3) if scene == "room"
             else jm.make_building_scene(subdiv=4))
-    jb = j_build_bins(mesh, bin_size=bin_size, bins_per_super=bps, supers_per_hyper=2)
-    tb = t_build_bins(tm.TriangleMesh(mesh.vertices, mesh.faces), bin_size=bin_size,
-                      bins_per_super=bps, supers_per_hyper=2, device="cpu")
+
+
+def _assert_same_bins(jb, tb):
     for f in ("tri", "bin_aabb", "super_aabb", "aabb_min", "aabb_max", "mid_aabb", "hyper_aabb"):
         a, b = getattr(jb, f), getattr(tb, f)
         assert (a is None) == (b is None), f
@@ -82,6 +89,46 @@ def test_build_bins_bitwise(numpy_bin_order, scene, bin_size, bps):
     for f in ("bins_per_super", "bins_per_mid", "supers_per_hyper", "n_bins", "n_super",
               "bin_size", "n_mid", "n_hyper"):
         assert getattr(jb, f) == getattr(tb, f), f
+
+
+def _both(mesh, **kw):
+    return (j_build_bins(mesh, **kw),
+            t_build_bins(tm.TriangleMesh(mesh.vertices, mesh.faces), device="cpu", **kw))
+
+
+@pytest.mark.parametrize("scene,bin_size,bps", BIN_CASES)
+def test_build_bins_bitwise(numpy_bin_order, scene, bin_size, bps):
+    """The numpy kd order, both packages forced onto it."""
+    _assert_same_bins(*_both(_scene(scene), bin_size=bin_size, bins_per_super=bps,
+                             supers_per_hyper=2))
+
+
+@pytest.mark.parametrize("scene,bin_size,bps", BIN_CASES + [("sphere", 64, 16)])
+def test_default_build_bins_matches_jax(scene, bin_size, bps):
+    """Each package's default, as users call it: the native order on both
+    sides wherever g++ builds the libraries."""
+    mesh = jm.make_sphere(60, 60) if scene == "sphere" else _scene(scene)
+    _assert_same_bins(*_both(mesh, bin_size=bin_size, bins_per_super=bps, supers_per_hyper=2))
+
+
+@pytest.mark.parametrize("scene,bin_size,bps", BIN_CASES[::2])
+def test_morton_build_bins_bitwise(scene, bin_size, bps):
+    _assert_same_bins(*_both(_scene(scene), bin_size=bin_size, bins_per_super=bps,
+                             supers_per_hyper=2, method="morton"))
+    with pytest.raises(ValueError, match="bin order"):
+        t_build_bins(tm.make_room_scene(), method="hilbert", device="cpu")
+
+
+def test_native_library_builds_where_gpp_is():
+    """A broken build must fail here rather than quietly change the bins:
+    the library is available wherever g++ is on PATH, and its source is
+    the JAX package's, byte for byte."""
+    assert t_native.available() == (shutil.which("g++") is not None), \
+        t_native.unavailable_reason()
+    jax_src = Path(rmcl_tpu.bvh.native.__file__).parent / "builder.cpp"
+    assert t_native.SOURCE.read_bytes() == jax_src.read_bytes()
+    if t_native.available():
+        assert t_native.library_path().is_file()
 
 
 def test_mesh_map_bins_and_device_rule(monkeypatch):

@@ -1,5 +1,6 @@
-"""The threaded BVH: the port's ``build_bvh`` against the JAX package's, bit
-for bit, its validation, and the BVH carried across as arrays.
+"""The threaded BVH: the port's ``build_bvh`` and ``build_bvh_sah`` against
+the JAX package's, bit for bit, their validation, and the BVH carried
+across as arrays.
 
 The slot tables are compared as int32 views: words 12-14 hold int32 bit
 patterns (links, ids) that are NaN or denormal as floats, so only a bitwise
@@ -10,9 +11,12 @@ import pytest
 import torch
 
 from rmcl_tpu.bvh.builder import build_bvh as j_build_bvh
+from rmcl_tpu.bvh.builder import build_bvh_auto as j_build_bvh_auto
+from rmcl_tpu.bvh.builder import build_bvh_sah as j_build_bvh_sah
 from rmcl_tpu.bvh.builder import validate_bvh as j_validate_bvh
 from rmcl_tpu.geom import mesh as jm
 from rmcl_tpu_torch.bvh import builder as tb
+from rmcl_tpu_torch.bvh import native
 from rmcl_tpu_torch.bvh.types import SENTINEL_LINK, decode_link
 from rmcl_tpu_torch.convert import bvh_from_arrays
 from rmcl_tpu_torch.geom import mesh as tm
@@ -109,11 +113,41 @@ def test_mesh_map_bvh_and_device_rule(monkeypatch):
         tb.build_bvh(_t_mesh(mesh))
 
 
-def test_native_builders_raise():
-    mesh = _t_mesh(MESHES["room"]())
-    for fn in (tb.build_bvh_sah, tb.build_bvh_auto):
-        with pytest.raises(NotImplementedError, match="native"):
-            fn(mesh, device="cpu")
+def test_native_builders_raise(monkeypatch):
+    """Without the native library, build_bvh_sah raises as JAX's does and
+    build_bvh_auto takes the LBVH; with it, auto is the SAH build."""
+    mesh = MESHES["room"]()
+    if native.available():
+        np.testing.assert_array_equal(_bits(tb.build_bvh_auto(_t_mesh(mesh), device="cpu")),
+                                      _bits(tb.build_bvh_sah(_t_mesh(mesh), device="cpu")))
+    monkeypatch.setattr(native, "load", lambda: None)
+    assert not native.available()
+    with pytest.raises(RuntimeError, match="native builder library unavailable"):
+        tb.build_bvh_sah(_t_mesh(mesh), device="cpu")
+    np.testing.assert_array_equal(_bits(tb.build_bvh_auto(_t_mesh(mesh), device="cpu")),
+                                  np.asarray(j_build_bvh(mesh, as_numpy=True).nodes).view(np.int32))
+
+
+def _bits(bvh):
+    return bvh.nodes.view(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_build_bvh_sah_bitwise(name):
+    """The native binned-SAH build, slot for slot as JAX's (its threads
+    build subtrees in parallel, but the preorder slots depend only on the
+    tree), a valid threaded tree; build_bvh_auto picks as JAX's does."""
+    mesh = MESHES[name]()
+    want = j_build_bvh_sah(mesh, as_numpy=True)
+    got = tb.build_bvh_sah(_t_mesh(mesh), device="cpu")
+    np.testing.assert_array_equal(_bits(got), np.asarray(want.nodes).view(np.int32))
+    assert int(got.root_link) == int(want.root_link) and int(got.n_tris) == mesh.n_faces
+    np.testing.assert_array_equal(got.aabb_min.numpy(), np.asarray(want.aabb_min))
+    np.testing.assert_array_equal(got.aabb_max.numpy(), np.asarray(want.aabb_max))
+    assert tb.validate_bvh(got)["n_leaves"] == mesh.n_faces
+    np.testing.assert_array_equal(_bits(tb.build_bvh_auto(_t_mesh(mesh), device="cpu")),
+                                  np.asarray(j_build_bvh_auto(mesh, as_numpy=True).nodes)
+                                  .view(np.int32))
 
 
 def test_decode_link():

@@ -157,6 +157,92 @@ def test_kernel_takes_a_launch_order(card):
     torch.testing.assert_close(tie_t, pt[mis], rtol=T_RTOL, atol=0.0)
 
 
+def _sweep_rays(tiles, device, n_poses=32, seed=4):
+    """Pose-sweep rays in TiledSweep order (blocks of at * et directions
+    sharing one direction a group x pt poses) inside the 5 m sphere."""
+    pt, at, et = tiles
+    model = SphericalModel.vlp16(width=180)
+    dirs = model.rays(device)[1]
+    trans = np.random.default_rng(seed).uniform(-1, 1, size=(n_poses, 3)).astype(np.float32)
+    sweep = trb.TiledSweep(trans, model.width, model.height, pt, at, et)
+    o, d = sweep.rays(torch.from_numpy(trans).to(device), dirs)
+    n = o.shape[0]
+    lim = (torch.zeros(n, device=device), torch.full((n,), 30.0, device=device))
+    return (o, d) + lim, sweep.block_size, sweep.dir_groups
+
+
+@pytest.mark.parametrize("B,tiles,case", [
+    (64, (16, 8, 1), None),  # the bench's blocks: G = 8 groups of 16 rays
+    (32, (32, 1, 1), None),  # G = 1 (shared_dir)
+    (64, (16, 2, 2), None),  # G = 4 (el_tile 2), 64-ray blocks
+    (64, (1, 128, 1), None),  # G = Rb = 128: the table in tiles of 4 triangles
+    (128, (16, 8, 1), None),
+    (8, (4, 8, 1), None),  # 32-ray blocks, bins of 8
+    (64, (16, 8, 1), "counts"),
+    (64, (16, 8, 1), "exit_last"),
+    (64, (16, 8, 1), "dead"),
+    (32, (16, 8, 1), "t_min"),
+    (64, (16, 8, 1), "order"),
+])
+def test_groups_kernel_matches_plain_version(card, B, tiles, case):
+    """K2g against its plain version, bitwise: t_best and the winners."""
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_groups, intersect_groups_reference
+
+    bins = build_bins(MESHES["sphere"](), bin_size=B, bins_per_super=8, device=card)
+    rays, Rb, G = _sweep_rays(tiles, card)
+    inputs, _ = trb._kernel_inputs(bins, *rays, Rb, 24, 96, 4)
+    tri = bins.tri
+    _edit_candidates(*inputs[4:], case)
+    if case == "dead":
+        inputs[3][::3] = 0.0
+    if case == "t_min":
+        tri = _degenerate_half(tri)
+        inputs[2].fill_(0.5)
+    order = None
+    if case == "order":
+        gen = torch.Generator(device=card).manual_seed(3)
+        order = torch.randperm(inputs[0].shape[0], generator=gen, device=card).to(torch.int32)
+    before = intersect_groups.launches
+    kt, kref = intersect_groups(tri, *inputs, G, order=order)
+    pt, pref = intersect_groups_reference(tri, *inputs, G)
+    torch.cuda.synchronize()
+    assert intersect_groups.launches == before + 1  # the plain version is not counted
+    # the rays really hit geometry (half of it, where half the triangles are zeroed)
+    assert (pref >= 0).float().mean() > {None: 0.9, "t_min": 0.3}.get(case, 0.5)
+    assert torch.equal(kt, pt) and torch.equal(kref, pref)
+
+
+def test_groups_kernel_has_no_spills(card):
+    from rmcl_tpu_torch.ops.raycast_cuda import kernel_registers
+
+    for r, local in kernel_registers().values():
+        assert 0 < r <= 255 and local == 0
+
+
+def test_dir_groups_cast_on_card_matches_cpu(card):
+    """cast_rays_binned with dir_groups on the card (K3 + K2g) against the
+    same cast on the CPU, and against the K1 path on the card."""
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_groups
+
+    mesh = MESHES["sphere"]()
+    rays, Rb, G = _sweep_rays((16, 8, 1), card)
+    b_gpu = build_bins(mesh, bin_size=64, bins_per_super=8, device=card)
+    b_cpu = build_bins(mesh, bin_size=64, bins_per_super=8, device="cpu")
+    kw = dict(block_size=Rb, dir_groups=G, sort_blocks=True)
+    before = intersect_groups.launches
+    hg = trb.cast_rays_binned(b_gpu, *rays[:2], rays[2], rays[3], **kw)
+    hc = trb.cast_rays_binned(b_cpu, *(x.cpu() for x in rays), **kw)
+    h1 = trb.cast_rays_binned(b_gpu, *rays[:2], rays[2], rays[3], block_size=Rb)
+    assert intersect_groups.launches == before + 1
+    for a, b in ((hc, hg), (h1, hg)):
+        a_hit, b_hit = a.hit.cpu(), b.hit.cpu()
+        assert (a_hit == b_hit).float().mean() >= HIT_MIN_AGREE
+        both = a_hit & b_hit
+        assert both.float().mean() > 0.9
+        torch.testing.assert_close(b.t.cpu()[both], a.t.cpu()[both], rtol=T_TOL, atol=T_TOL)
+        assert (a.prim_id.cpu()[both] == b.prim_id.cpu()[both]).float().mean() >= PRIM_MIN_AGREE
+
+
 def test_misaligned_tri(card):
     """K4 stages bins with 16-byte copies: a view of tri that starts one
     float into its storage is refused, not read. K1 copies 4-byte words and

@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-import rmcl_tpu.bvh.native
 from rmcl_tpu.config.tree import ParamTree as JPT
 from rmcl_tpu.geom import mesh as jm
 from rmcl_tpu.geom.map import MeshMap as JMap
@@ -53,21 +52,12 @@ DESKEW_TOL = 1e-6
 FIRST_CP_TOL = 1e-3
 
 
-def _no_native_order(*_args, **_kwargs):
-    raise RuntimeError("native bin order disabled: compare against the numpy path")
-
-
 @pytest.fixture(scope="module")
 def maps():
-    """The room scene as a MeshMap in both packages, the JAX one on its
-    numpy bin order (bitwise the port's)."""
-    native = rmcl_tpu.bvh.native.bin_order
-    rmcl_tpu.bvh.native.bin_order = _no_native_order
-    try:
-        jmap = JMap.from_mesh(jm.make_room_scene(n_pillars=4, seed=3), bin_size=32,
-                              bins_per_super=8)
-    finally:
-        rmcl_tpu.bvh.native.bin_order = native
+    """The room scene as a MeshMap in both packages, each in its default
+    bin order (the native one on both sides: bitwise the same bins)."""
+    jmap = JMap.from_mesh(jm.make_room_scene(n_pillars=4, seed=3), bin_size=32,
+                          bins_per_super=8)
     tmap = TMap.from_mesh(tm.make_room_scene(n_pillars=4, seed=3), bin_size=32,
                           bins_per_super=8, device="cpu")
     return jmap, tmap
@@ -153,13 +143,8 @@ def test_node_steps_match_jax(maps, scans, engine, corr):
 def building():
     """A small building floor, bins of 16 in supers of 8: the default
     budgets (c_super 24, c_bin 96) saturate a VLP-16-like scan's blocks."""
-    native = rmcl_tpu.bvh.native.bin_order
-    rmcl_tpu.bvh.native.bin_order = _no_native_order
     kw = dict(rooms_x=2, rooms_y=2, subdiv=6, n_clutter=1, seed=1)
-    try:
-        jmap = JMap.from_mesh(jm.make_building_scene(**kw), bin_size=16, bins_per_super=8)
-    finally:
-        rmcl_tpu.bvh.native.bin_order = native
+    jmap = JMap.from_mesh(jm.make_building_scene(**kw), bin_size=16, bins_per_super=8)
     tmap = TMap.from_mesh(tm.make_building_scene(**kw), bin_size=16, bins_per_super=8,
                           device="cpu")
     return jmap, tmap

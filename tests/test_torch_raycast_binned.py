@@ -11,6 +11,7 @@ import torch
 
 from rmcl_tpu.bvh.bins import build_bins
 from rmcl_tpu.geom.mesh import make_building_scene, make_room_scene, make_sphere
+from rmcl_tpu.ops.raycast_binned import TiledSweep
 from rmcl_tpu.ops.raycast_binned import cast_rays_binned as j_cast
 from rmcl_tpu_torch.convert import bins_from_arrays
 from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned as t_cast
@@ -135,18 +136,22 @@ def _assert_hits_match_jax(jh, th):
     assert same_prim.mean() >= PRIM_MIN_AGREE
 
 
-@pytest.mark.parametrize("option", [dict(dir_groups=2), dict(sort_blocks=True),
+@pytest.mark.parametrize("option", [dict(dir_groups=2, block_size=16), dict(sort_blocks=True),
                                     dict(c_mid=16), dict(c_mid=8, c_hyper=8),
                                     dict(with_lossless=True)])
 def test_unported_options_raise(option):
-    """dir_groups is still not ported and raises; the options ported since
-    (sort_blocks, c_mid with and without the hyper level, with_lossless)
-    now cast as JAX's cast_rays_binned does with the same option."""
+    """No option raises any more: each ported option (dir_groups, which
+    runs K2g's plain version here, sort_blocks, c_mid with and without the
+    hyper level, with_lossless) casts as JAX's cast_rays_binned does with
+    the same option. dir_groups casts the sphere's 8 poses in sweep order
+    (JAX's TiledSweep: blocks of 2 directions x 8 poses), the rays its
+    promise needs."""
     jb, tb, o, d = _case("building")
     if "dir_groups" in option:
-        with pytest.raises(NotImplementedError):
-            t_cast(tb, torch.from_numpy(o[:128]), torch.from_numpy(d[:128]), **option)
-        return
+        jb, tb, o, d = _case("sphere")
+        sweep = TiledSweep(o[::o.shape[0] // 8], 180, 8, poses_per_tile=8, az_tile=2)
+        o, d = (np.array(x) for x in sweep.rays(jnp.asarray(o[::o.shape[0] // 8]),
+                                                 jnp.asarray(d[:180 * 8])))
     jh = j_cast(jb, jnp.asarray(o), jnp.asarray(d), t_min=0.1, t_max=30.0, **option)
     th = t_cast(tb, torch.from_numpy(o), torch.from_numpy(d), t_min=0.1, t_max=30.0, **option)
     if "with_lossless" in option:

@@ -3,8 +3,9 @@
 Every CLI runs with ``--device cpu`` on the world and message log of
 ``tests/test_tools.py`` (a room map written as OBJ, six drifting scans with
 clouds); the JAX tool runs on the same files. The JAX map's bins are built
-in the numpy order (its native C++ order splits ties differently), so both
-tools cast on the identical packing. Also the golden MICP track
+by each package in its default order (the native C++ one on both sides
+wherever g++ builds the libraries), so both tools cast on the identical
+packing. Also the golden MICP track
 (``tests/golden/micp_track.npz``) through the port's pipeline."""
 
 import os
@@ -14,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-import rmcl_tpu.bvh.native
 from rmcl_tpu.io import msgs as jmsgs
 from rmcl_tpu.io.conversions import pointcloud_to_o1dn as j_pointcloud_to_o1dn
 from rmcl_tpu.io.replay import MessageLog as JMessageLog
@@ -30,15 +30,6 @@ GOLDEN_TOL = 2e-3
 GUESS = ["--initial-pose-guess", "0.4", "-0.3", "1.0", "0", "0", "0.3"]
 
 
-def _no_native_order(*_args, **_kwargs):
-    raise RuntimeError("native bin order disabled: compare against the numpy path")
-
-
-@pytest.fixture
-def numpy_bin_order(monkeypatch):
-    monkeypatch.setattr(rmcl_tpu.bvh.native, "bin_order", _no_native_order)
-
-
 def _tracks(a, b, tol):
     za, zb = np.load(a), np.load(b)
     np.testing.assert_array_equal(za["stamps"], zb["stamps"])
@@ -49,7 +40,7 @@ def _tracks(a, b, tol):
 
 
 @pytest.mark.parametrize("steps", ["1", "3"])
-def test_micp_cli_matches_jax(world_and_log, numpy_bin_order, tmp_path, steps):
+def test_micp_cli_matches_jax(world_and_log, tmp_path, steps):
     from rmcl_tpu.tools.micp_localization import main as j_main
     from rmcl_tpu_torch.tools.micp_localization import main as t_main
 
@@ -64,7 +55,7 @@ def test_micp_cli_matches_jax(world_and_log, numpy_bin_order, tmp_path, steps):
         assert np.linalg.norm(z["trans"][-1] - np.asarray(true_poses[-1].trans)) < 0.05
 
 
-def test_micp_cli_cp_and_bvh_match_jax(world_and_log, numpy_bin_order, tmp_path):
+def test_micp_cli_cp_and_bvh_match_jax(world_and_log, tmp_path):
     """The same CLI with a config: CP correspondences on the bins, then RC
     on the BVH (engine: bvh)."""
     from rmcl_tpu.tools.micp_localization import main as j_main
@@ -106,7 +97,7 @@ def test_micp_cli_o1dn_records(world_and_log, tmp_path):
     assert np.linalg.norm(z["trans"][-1] - np.asarray(true_poses[-1].trans)) < 0.05
 
 
-def test_map_segmentation_cli_matches_jax(world_and_log, numpy_bin_order, tmp_path):
+def test_map_segmentation_cli_matches_jax(world_and_log, tmp_path):
     """Equal outputs, but at a beam whose plane distance sits at the 0.15 m
     threshold: scan k was rendered 0.05 k m from the odometry pose along x,
     so at k = 3 the walls facing x lie 0.15 m off, and float32 rounding in
