@@ -49,8 +49,11 @@ Phases (any failure ends the run with a nonzero exit code):
    split P its wrapper takes, and also against the serial walk), the lanes
    each launch takes (K6's P, K6b's G), the registers of the closest-point
    and exact engines' kernels (none may spill), the divisions K6b's pairs
-   run, K7 timed by the profiler's device trace beside its bound, and the
-   exact engine's hits against the unbudgeted dense engine's;
+   run, K7 timed by the profiler's device trace beside its bound and the
+   device time of an empty launch at its grid (the floor under a bound
+   below a microsecond), K7 on levels wider than 16,384 keys (phase 4's
+   building at 16 faces a bin: cs x S = 19,200, and 30,409 supers), and
+   the exact engine's hits against the unbudgeted dense engine's;
 9. the exact engine at the reference benchmark's size: the ~1M-face
    sphere's BVH, phase 5's 14.4M rays through ``cast_rays`` (K5; t against
    the dense cast), the noisy hit points' closest points through both
@@ -334,6 +337,12 @@ OPS_PER_CP_TRI = 12
 OPS_PER_BOX_BOX = 18
 OPS_PER_BLOCK_QUERY = 7
 K7_PLAIN_BLOCKS = 2048  # phase 9: K7 against its plain version on this many blocks
+# phase 8: K7 on levels wider than the 16,384 keys its shared memory once
+# held, on phase 4's building binned at 16 faces a bin: (bins_per_super,
+# cs, cb), the first with 476 supers of 64 (cs x S = 19,200 positions at
+# the cb of phase 12's audit), the second with 30,409 supers of one bin
+K7_WIDE_BIN_SIZE = 16
+K7_WIDE_LEVELS = ((64, 300, 4000), (1, 96, 96))
 LOOP_LAUNCHES = 20  # launches between two events where the device trace records none
 # phase 12: the node and the tools. A 20-scan VLP-16 log at 10 Hz along a
 # 2 m arc (radius 2 m over 1 rad) in phase 4's building, odometry drifting
@@ -1398,6 +1407,28 @@ def exact_line(name, r, what):
             f"{r['bound_ms'] / r['ms']:.2%}")
 
 
+def launch_floor_ms(n_blk, threads):
+    """Device ms of one launch of an empty kernel at n_blk CTAs of threads
+    on the current stream (csrc/cull_boxes.cu's launch_floor_kernel): by
+    the profiler's device trace, else by events around LOOP_LAUNCHES."""
+    import ctypes
+
+    from rmcl_tpu_torch import _build
+
+    fn = _build.load_library("cull_boxes").rmcl_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        if fn(n_blk, threads, torch.cuda.current_stream().cuda_stream):
+            fail("the empty kernel did not launch")
+
+    ms = device_ms(launch, "launch_floor_kernel")
+    if ms is None:
+        ms = cuda_ms(lambda: [launch() for _ in range(LOOP_LAUNCHES)], reps=3) / LOOP_LAUNCHES
+    return ms
+
+
 def cp_budget_need(bins, q, max_dist, Rq=128, chunk=2048):
     """Per query block of the binned closest-point engine (cluster order,
     blocks of Rq): how many supers and bins lie within max_dist of its box,
@@ -1449,8 +1480,10 @@ def check_cp_candidates(name, bins, qb, d2b, cs, cb, plain_blocks=None, path_lis
     the path's own lists ``path_lists`` where given; the kernel timed on
     every block by the profiler's device trace (where the trace holds no
     launch, by events around LOOP_LAUNCHES launches), its call by events,
-    the plain version by events on the compared blocks, with the bound."""
-    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+    the plain version by events on the compared blocks, with the bound, the
+    launch plan (threads a CTA, dynamic shared bytes) and the device time of
+    an empty launch at the same grid."""
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates, cp_launch_plan, fill_threads
     from rmcl_tpu_torch.ops.closest_point import _cp_candidates
 
     n = qb.shape[0] if plain_blocks is None else min(plain_blocks, qb.shape[0])
@@ -1478,16 +1511,20 @@ def check_cp_candidates(name, bins, qb, d2b, cs, cb, plain_blocks=None, path_lis
         out["timed_by"] = f"events around {LOOP_LAUNCHES} launches"
     out["plain_ms"] = cuda_ms(plain, reps=1)
     out["bound_ms"], out["bound_by"], out["tests"] = cp_candidates_bound(bins, qb, d2b, cs, cb)
+    out["threads"], _, out["shared_bytes"] = cp_launch_plan(
+        qb.shape[0], bins.n_super, bins.bins_per_super, cs, cb, fill_threads(qb.device))
+    out["floor_ms"] = launch_floor_ms(qb.shape[0], out["threads"])
     return out
 
 
 def k7_line(name, r):
     return (f"{name}: K7 = plain version bitwise on {r['plain_blocks']} of {r['blocks']} blocks; "
             f"kernel {r['ms']:.4f} ms by the {r['timed_by']} (the call {r['call_ms']:.4f} ms by "
-            f"events), plain {r['plain_ms']:.3f} ms ({r['plain_blocks']} blocks), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['tests']:.0f} box-box tests), roofline "
-            f"{r['bound_ms'] / r['ms']:.2%}; candidates mean {r['mean_count']:.2f}, max "
-            f"{r['max_count']}, {r['saturated']} blocks at the budget")
+            f"events; {r['threads']} threads a CTA, {r['shared_bytes']} B of shared memory), plain "
+            f"{r['plain_ms']:.3f} ms ({r['plain_blocks']} blocks), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['tests']:.0f} box-box tests), an empty launch at this grid "
+            f"{r['floor_ms']:.4f} ms, roofline {r['bound_ms'] / r['ms']:.2%}; candidates mean "
+            f"{r['mean_count']:.2f}, max {r['max_count']}, {r['saturated']} blocks at the budget")
 
 
 def binned_breakdown(bins, q, max_dist, **budgets):
@@ -1520,6 +1557,7 @@ def binned_breakdown(bins, q, max_dist, **budgets):
 def phase_exact_main_path(main_r):
     import dataclasses
 
+    from rmcl_tpu_torch.bvh.bins import build_bins
     from rmcl_tpu_torch.math.se3 import Transform
     from rmcl_tpu_torch.micp.pipeline import MICPSensorConfig, correct_once
     from rmcl_tpu_torch.ops import closest_cuda, traverse_cuda
@@ -1652,6 +1690,18 @@ def phase_exact_main_path(main_r):
               inputs_ms=cuda_ms(lambda: binned_inputs(bmap.bins, qs, md, **budgets), reps=3))
     log(k7_line("phase 8 K7 on the last CP-on-bins correction's blocks", r7)
         + f"; binned_inputs (blocks + K7) {r7['inputs_ms']:.4f} ms a call by events")
+    # K7 on levels wider than 16,384 keys, on the same queries
+    qb, d2b = inputs[:2]
+    wide = []
+    for S, cs, cb in K7_WIDE_LEVELS:
+        bins = build_bins(bmap.mesh, bin_size=K7_WIDE_BIN_SIZE, bins_per_super=S)
+        rw = check_cp_candidates(f"phase 8 K7 wide (S {S})", bins, qb, d2b, cs, cb)
+        rw.update(n_super=bins.n_super, S=S, cs=cs, cb=cb)
+        log(k7_line(f"phase 8 K7 on a level wider than 16,384 keys ({bins.n_super} supers of {S}, "
+                    f"cs={cs}, cb={cb}: {max(bins.n_super, cs * S)} keys)", rw))
+        wide.append({k: rw[k] for k in ("n_super", "S", "cs", "cb", "ms", "bound_ms", "threads",
+                                        "shared_bytes", "max_count")})
+    r7["wide_levels"] = wide
 
     # the exact engine recovers what the dense engine's budgets drop
     o, d = true_pose.apply(o_s), true_pose.rotate(d_s)
@@ -3158,9 +3208,14 @@ def main():
         dict(row("cp_candidates", "rmcl_tpu_torch/csrc/cull_boxes.cu",
                  "rmcl_tpu/ops/closest_point.py:305", exact_r["k7"]), bitwise=True,
              timed_by=exact_r["k7"]["timed_by"], registers=exact_r["registers"]["K7"][0],
+             registers_wide=exact_r["registers"]["K7 wide"][0],
+             threads=exact_r["k7"]["threads"], shared_bytes=exact_r["k7"]["shared_bytes"],
+             floor_ms=exact_r["k7"]["floor_ms"],
              phases={ph: {k: r[k] for k in ("ms", "timed_by", "call_ms", "plain_ms", "bound_ms",
-                                            "bound_by", "launches", "blocks", "plain_blocks")}
-                     for ph, r in (("8", exact_r["k7"]), ("9", ref_r["k7"]), ("12", r12["k7"]))}),
+                                            "bound_by", "launches", "blocks", "plain_blocks",
+                                            "threads", "shared_bytes", "floor_ms")}
+                     for ph, r in (("8", exact_r["k7"]), ("9", ref_r["k7"]), ("12", r12["k7"]))},
+             wide_levels=exact_r["k7"]["wide_levels"]),
     ]}))
     log("phase 13 dense and fused sweeps: " + json.dumps(
         {k: r13[k] for k in ("ms", "rays_per_s", "hit_frac", "sat_share", "iter_err", "steps",

@@ -1,5 +1,5 @@
-// Selection of the compacted keys of a level: shared by the culls that keep
-// a block's nearest boxes (cull_blocks.cu, K3; cull_boxes.cu, K7). A level's
+// Selection of the compacted keys of a level in the block cull
+// (cull_blocks.cu, K3; K7 selects its own way, cull_boxes.cu). A level's
 // passing boxes are appended to a shared key array in any order, each key
 // unique (it carries the box's id or position), then sorted ascending, so
 // the kept prefix is the plain version's whatever order the warps appended

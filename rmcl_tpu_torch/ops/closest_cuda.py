@@ -77,7 +77,8 @@ class _BoxArgs(ctypes.Structure):
                                                  "cand_bin", "cand_count", "cand_dlb")]
                 + [(n, ctypes.c_int) for n in ("n_blk", "Rq", "n_super", "n_bins", "S", "cs",
                                                "cb")]
-                + [("idm", ctypes.c_uint), ("packed", ctypes.c_int), ("key_cap", ctypes.c_int)])
+                + [("idm", ctypes.c_uint), ("packed", ctypes.c_int), ("threads", ctypes.c_int),
+                   ("key_slots", ctypes.c_int)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +103,8 @@ def kernel_registers() -> dict:
     """Registers and local-memory bytes a thread (spills show as local
     memory) of each closest-point kernel as built, by ``cudaFuncGetAttributes``:
     ``{"K6 P=1": (regs, local), ..., "K6b": (regs, local), "K7": (regs,
-    local)}``. Needs a card."""
+    local), "K7 wide": (regs, local)}`` (K7 at 128 and at 512 threads a
+    CTA). Needs a card."""
     out = {}
     regs, local = ctypes.c_int(), ctypes.c_int()
     bvh = _build.load_library("closest_bvh").rmcl_closest_bvh_attrs
@@ -117,10 +119,15 @@ def kernel_registers() -> dict:
         raise RuntimeError("cudaFuncGetAttributes failed for K6b")
     out["K6b"] = (regs.value, local.value)
     boxes = _build.load_library("cull_boxes").rmcl_cull_boxes_attrs
-    boxes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    if boxes(ctypes.byref(regs), ctypes.byref(local)):
-        raise RuntimeError("cudaFuncGetAttributes failed for K7")
-    out["K7"] = (regs.value, local.value)
+    boxes.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    static = ctypes.c_int()
+    for name, threads in (("K7", K7_NARROW), ("K7 wide", K7_WIDE)):
+        if boxes(threads, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static)):
+            raise RuntimeError(f"cudaFuncGetAttributes failed for {name}")
+        if static.value > _K7_STATIC_SMEM:
+            raise RuntimeError(f"{name} holds {static.value} bytes of static shared memory, "
+                               f"more than the launch plan's {_K7_STATIC_SMEM}")
+        out[name] = (regs.value, local.value)
     return out
 
 
@@ -562,12 +569,42 @@ def _closest_bins_slice(tri, qb, d2b, cand_bin, cand_count, cand_dlb):
 
 # shared memory one CTA may hold on an H100 (232,448 bytes)
 _SMEM_CAP = 232448
+# K7's static shared memory (its scratch and the warps' partial boxes, ~1.5
+# KB at 512 threads), with room to spare; kernel_registers checks it
+_K7_STATIC_SMEM = 2048
+# K7's CTA widths, and the keys (a level's width or a kept list) past which
+# a block takes the wide CTA when the grid fits the card at that width
+K7_NARROW, K7_WIDE = 128, 512
+_K7_WIDE_KEYS = 1024
+# the most keys a level's stage holds; a level that passes more is streamed
+_K7_STAGE_MAX = 16384
 
 
-def cp_key_cap(n_super: int, cs: int, S: int) -> int:
-    """K7's shared key slots: the widest level (every super, or the kept
-    supers' bins) rounded up to a power of two, at least a warp's 32."""
-    return 1 << (max(n_super, cs * S, 32) - 1).bit_length()
+def cp_launch_plan(n_blk: int, n_super: int, S: int, cs: int, cb: int,
+                   fill: int = _H100_THREADS) -> tuple[int, int, int]:
+    """K7's launch shape for n_blk query blocks against n_super supers of S
+    bins at budgets (cs, cb): ``(threads a CTA, key slots, dynamic shared
+    bytes)``. Shared memory holds the kept supers' ids (4 B each) and the
+    key slots (8 B each): a level's kept list (cs or cb) and past it the
+    level's stage, up to ``_K7_STAGE_MAX`` keys where the level is wider
+    than its list, cut to what fits; a level that passes more keys than its
+    stage is streamed, so no width is refused. Raises ``ValueError`` when a
+    kept list does not fit one CTA (cb, or cs, past ~28,000 keys). The wide
+    CTA takes a block whose widest level or list passes ``_K7_WIDE_KEYS``
+    keys when the whole grid is resident at that width (``fill``: the card's
+    threads, as :func:`fill_threads` counts them)."""
+    sup_bytes = 4 * cs
+    most = (_SMEM_CAP - _K7_STATIC_SMEM - sup_bytes) // 8
+    if max(cs, cb) > most:
+        raise ValueError(f"cb={cb} candidate keys (cs={cs} supers) do not fit a CTA's shared "
+                         f"memory: a kept list holds at most {most} keys")
+
+    def level(n, keep):
+        return keep + (min(n, _K7_STAGE_MAX) if n > keep else 0)
+
+    slots = min(most, max(level(n_super, cs), level(cs * S, cb)))
+    wide = max(n_super, cs * S, cb) > _K7_WIDE_KEYS and n_blk * K7_WIDE <= fill
+    return (K7_WIDE if wide else K7_NARROW), slots, slots * 8 + sup_bytes
 
 
 def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: int = 256):
@@ -599,10 +636,7 @@ def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: 
         return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
     if dev.type != "cuda":
         raise ValueError(f"cp_candidates runs on cuda or cpu tensors, not {dev}")
-    key_cap = cp_key_cap(n_super, cs, S)
-    if key_cap * 8 + cs * 4 > _SMEM_CAP:
-        raise ValueError(f"{key_cap} candidate keys do not fit a CTA's shared memory "
-                         f"(n_super {n_super}, cs x S = {cs * S})")
+    threads, slots, _ = cp_launch_plan(n_blk, n_super, S, cs, cb, fill_threads(dev))
     id_bits = max(1, (n_bins - 1).bit_length())
     packed = id_bits <= closest_point._PACKED_ID_BITS
     cand_bin = torch.empty((n_blk, cb), dtype=torch.int32, device=dev)
@@ -611,7 +645,7 @@ def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: 
     args = _BoxArgs(qb.data_ptr(), d2b.data_ptr(), bins.super_aabb.data_ptr(),
                     bins.bin_aabb.data_ptr(), cand_bin.data_ptr(), cand_count.data_ptr(),
                     cand_dlb.data_ptr(), n_blk, Rq, n_super, n_bins, S, cs, cb,
-                    (1 << id_bits) - 1 if packed else 0, int(packed), key_cap)
+                    (1 << id_bits) - 1 if packed else 0, int(packed), threads, slots)
     with torch.cuda.device(dev):
         err = _boxes_kernel()(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -27,7 +27,8 @@ from rmcl_tpu.ops import order as jorder
 from rmcl_tpu_torch.convert import bins_from_arrays, bvh_from_arrays
 from rmcl_tpu_torch.ops import closest_point as tcp
 from rmcl_tpu_torch.ops import order as torder
-from rmcl_tpu_torch.ops.closest_cuda import (closest_bins, closest_bins_reference,
+from rmcl_tpu_torch.ops import closest_cuda
+from rmcl_tpu_torch.ops.closest_cuda import (closest_bins, closest_bins_reference, cp_launch_plan,
                                             ericson_vw_planes)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
@@ -648,3 +649,38 @@ def test_closest_bins_refuses_groups_that_do_not_fit():
     for G in (3, 16, 32):  # not a power of two; 2048 threads for 128 queries; over B
         with pytest.raises(ValueError):
             closest_bins(tbins.tri, *inputs, groups=G)
+
+
+# K7's launch plan: (n_blk, n_super, S, cs, cb) -> (threads, key slots,
+# shared bytes). Phases 8 and 12 (113 blocks of phase 4's building, 119
+# supers of 64 bins) take the wide CTA, phase 9 (112,500 blocks of the
+# sphere, 244 supers of 64) the narrow one; a level's stage stops at
+# 16,384 keys and a wider level is streamed, so it is never refused
+@pytest.mark.parametrize("n_blk,n_super,S,cs,cb,want", [
+    (113, 119, 64, 24, 96, (512, 96 + 1536, 1632 * 8 + 24 * 4)),  # phase 8
+    (112500, 244, 64, 40, 835, (128, 835 + 2560, 3395 * 8 + 40 * 4)),  # phase 9
+    (113, 119, 64, 84, 4000, (512, 4000 + 5376, 9376 * 8 + 84 * 4)),  # phase 12
+    (113, 508, 64, 300, 2000, (512, 2000 + 16384, 18384 * 8 + 300 * 4)),  # cs x S = 19,200
+    (2048, 32512, 1, 4096, 8, (128, 4096 + 16384, 20480 * 8 + 4096 * 4)),  # 32,512 supers
+    (113, 10 ** 6, 64, 2000, 20000, (512, 27800, 27800 * 8 + 2000 * 4)),  # stage cut to fit
+])
+def test_cp_launch_plan_fits_every_level_width(n_blk, n_super, S, cs, cb, want):
+    threads, slots, smem = cp_launch_plan(n_blk, n_super, S, cs, cb)
+    assert (threads, slots, smem) == want
+    assert slots >= max(cs, cb) and smem + closest_cuda._K7_STATIC_SMEM <= 232448
+
+
+def test_cp_launch_plan_refuses_only_a_kept_list_past_shared_memory():
+    """Whatever the levels' widths, the plan refuses only a kept list whose
+    keys (8 B each, beside cs super ids of 4 B) do not fit one CTA."""
+    cs = 500
+    most = (232448 - closest_cuda._K7_STATIC_SMEM - 4 * cs) // 8
+    assert 28000 < most < 29000
+    for n_super, S in ((10 ** 6, 1), (4096, 1024), (100000, 64)):
+        assert cp_launch_plan(113, n_super, S, cs, most)[2] <= 232448
+        assert cp_launch_plan(112500, n_super, S, cs, most)[0] == 128
+        with pytest.raises(ValueError, match=f"cb={most + 1} "):
+            cp_launch_plan(113, n_super, S, cs, most + 1)
+    # a kept super list that large (past ~19,000) is refused as well
+    with pytest.raises(ValueError, match="cs=20000"):
+        cp_launch_plan(113, 10 ** 6, 1, 20000, 8)

@@ -1006,30 +1006,61 @@ def _cp_blocks(mesh, dev, B, S, n, max_dist, Rq=128, seed=9):
     return bins, qb, d2b
 
 
+def _k7_exact_budgets(bins, qb, d2b, blk):
+    """Budgets (cs, cb) at which block blk's levels pass exactly what they
+    keep: cs its supers within reach, then cb its bins within reach of
+    those."""
+    from rmcl_tpu_torch.ops import closest_point
+
+    qlo, qhi = qb[blk].amin(dim=0), qb[blk].amax(dim=0)
+    d2 = closest_point._box_box_d2(qlo, qhi, bins.super_aabb[:, :3], bins.super_aabb[:, 3:])
+    cs = int((d2 <= d2b[blk].amax()).sum())
+    every = closest_point._cp_candidates(bins, qb[blk:blk + 1], d2b[blk:blk + 1].amax(dim=1), cs,
+                                         cs * bins.bins_per_super)
+    return cs, int(every[1][0])
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
 @pytest.mark.parametrize("mesh,B,S,max_dist,cs,cb,case", [
     ("room", 8, 8, 3.0e38, 24, 96, "packed"),  # every box within reach
     ("room", 8, 8, 0.25, 24, 96, "float"),  # the float keys of large maps (rule forced)
     ("building", 16, 16, 0.5, 24, 96, "packed"),
-    ("building", 16, 16, 0.5, 3, 20, "packed"),  # saturating budgets
+    ("building", 16, 16, 0.5, 3, 20, "packed"),  # saturating budgets: the select at both levels
     ("building", 16, 16, 0.5, 3, 20, "float"),
     ("building", 8, 64, 1.0, 24, 96, "zero_bound"),  # blocks with max_d2 = 0
     ("sphere", 16, 16, 0.5, 39, 624, "packed"),  # phase 9's widest list shape
     ("sphere", 16, 16, 2.0, 8, 128, "float"),
+    ("building", 16, 16, 0.5, 3, 20, "streamed"),  # no stage: every pass recomputes its tests
+    ("building", 16, 16, 0.5, 3, 20, "streamed float"),
+    ("building", 16, 16, 0.5, None, None, "exact"),  # a block passes exactly cs, then cb
+    ("sphere128", 1, 64, 3.0e38, 300, 2000, "packed"),  # cs x S = 19,200 past the old cap
+    ("sphere128", 1, 64, 3.0e38, 300, 2000, "float"),
+    ("sphere128", 1, 1, 3.0e38, 96, 96, "packed"),  # n_super = 32,512 past the old cap
 ])
 def test_cp_candidates_kernel_matches_plain_version(card, monkeypatch, mesh, B, S, max_dist, cs,
-                                                    cb, case):
+                                                    cb, case, width):
     """K7 bitwise its plain version (lists, counts, bounds), 3,000 queries:
-    23 blocks of 128, the last partly padding."""
-    from rmcl_tpu_torch.ops import closest_point
+    23 blocks of 128, the last partly padding; at both CTA widths, through
+    the stage and streamed, with levels wider than 16,384 keys."""
+    from rmcl_tpu_torch.ops import closest_cuda, closest_point
     from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
 
-    if case == "float":
+    if "float" in case:
         monkeypatch.setattr(closest_point, "_PACKED_ID_BITS", 0)
-    bins, qb, d2b = _cp_blocks(_exact_mesh(mesh), card, B, S, 3000, max_dist)
+    if "streamed" in case:
+        monkeypatch.setattr(closest_cuda, "_K7_STAGE_MAX", 0)
+    monkeypatch.setattr(closest_cuda, "_K7_WIDE_KEYS", 0 if width == "wide" else 1 << 30)
+    m = make_sphere(128, 128, radius=5.0) if mesh == "sphere128" else _exact_mesh(mesh)
+    bins, qb, d2b = _cp_blocks(m, card, B, S, 3000, max_dist)
     if case == "zero_bound":
         d2b[::3] = 0.0  # whole blocks that reach nothing but their own box
         d2b[1, :64] = 0.0  # and half of a block
+    if case == "exact":
+        cs, cb = _k7_exact_budgets(bins, qb, d2b, 11)
     cs, cb = min(cs, bins.n_super), min(cb, bins.n_bins, min(cs, bins.n_super) * S)
+    threads = closest_cuda.cp_launch_plan(qb.shape[0], bins.n_super, S, cs, cb,
+                                          closest_cuda.fill_threads(card))[0]
+    assert threads == (512 if width == "wide" else 128)
     before = cp_candidates.launches
     k = cp_candidates(bins, qb, d2b, cs, cb)
     p = closest_point._cp_candidates(bins, qb, torch.amax(d2b, dim=1), cs, cb)
@@ -1038,6 +1069,8 @@ def test_cp_candidates_kernel_matches_plain_version(card, monkeypatch, mesh, B, 
     assert float(p[1].float().mean()) > 1  # the lists are not trivial
     if cs == 3:
         assert bool((p[1] == cb).any())  # the budget truncates somewhere
+    if case == "exact":
+        assert int(p[1][11]) == cb and bool((p[1] < cb).any())
     for a, b in zip(k, p):
         assert torch.equal(a, b)
 
@@ -1045,12 +1078,14 @@ def test_cp_candidates_kernel_matches_plain_version(card, monkeypatch, mesh, B, 
 def test_cp_candidates_kernel_has_no_spills(card):
     from rmcl_tpu_torch.ops.closest_cuda import kernel_registers
 
-    regs, local = kernel_registers()["K7"]
-    assert 0 < regs <= 255 and local == 0
+    regs = kernel_registers()
+    for name in ("K7", "K7 wide"):  # 128 and 512 threads a CTA
+        assert 0 < regs[name][0] <= 255 and regs[name][1] == 0
 
 
 def test_cp_candidates_refuses_what_it_cannot_hold(card):
     from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+    from rmcl_tpu_torch.ops.closest_point import _cp_candidates
 
     bins, qb, d2b = _cp_blocks(_exact_mesh("building"), card, 8, 8, 300, 1.0)
     cs = bins.n_super
@@ -1062,6 +1097,20 @@ def test_cp_candidates_refuses_what_it_cannot_hold(card):
         cp_candidates(bins, qb.transpose(0, 1).contiguous().transpose(0, 1), d2b, cs, 8)
     with pytest.raises(ValueError, match="is on"):
         cp_candidates(bins, qb.cpu(), d2b, cs, 8)
+    # only a kept list past a CTA's shared memory is refused, whatever the
+    # levels' widths (sphere128, B 1: 32,512 supers of one bin, or 508 of 64)
+    sph = make_sphere(128, 128, radius=5.0)
+    wide, qw, dw = _cp_blocks(sph, card, 1, 64, 300, 3.0e38)
+    with pytest.raises(ValueError, match="cb=30000"):
+        cp_candidates(wide, qw, dw, 500, 30000)
+    k = cp_candidates(wide, qw, dw, 500, 28000)
+    many, qm, dm = _cp_blocks(sph, card, 1, 1, 300, 3.0e38)
+    k1 = cp_candidates(many, qm, dm, 4096, 8)
+    torch.cuda.synchronize()
+    assert many.n_super > 16384 and bool((k[1] == 28000).all()) and bool((k1[1] == 8).all())
+    for got, (b, q, d, cs, cb) in ((k, (wide, qw, dw, 500, 28000)), (k1, (many, qm, dm, 4096, 8))):
+        want = _cp_candidates(b, q, torch.amax(d, dim=1), cs, cb)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))  # the lists held bitwise
 
 
 def test_closest_points_binned_on_card_matches_cpu(card, monkeypatch):
