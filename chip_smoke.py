@@ -109,7 +109,30 @@ Phases (any failure ends the run with a nonzero exit code):
    unfused one in the same chains, its increments against the unfused; (d)
    ``build_bvh_sah`` on phase 4's building: build time, slots, K5's visits
    against the LBVH's, K5 bitwise its plain version, hits against the
-   LBVH's.
+   LBVH's;
+14. the differentiable cast, scene graphs and the map formats: (a) the JAX
+   backward benchmark's workload (scripts/bench_backward.py, not cut:
+   100 poses x VLP-16 of 900 columns, 1,440,000 rays, on the ~1M-face
+   sphere in bins of 64, supers of 16, hypers of 16) through
+   ``ops.diff.cast_rays_diff``: the forward loss (sum of hit t) and its
+   gradients with respect to the 100 translations and to the vertices,
+   timed (K3 + K1 in count order), t against ``cast_rays_binned``'s own,
+   central differences on the 5 largest-gradient coordinates of each, the
+   vertex program on the sphere's BVH (K5) against the binned one, K1 and
+   K3 against their plain versions on the cast's inputs; (b) a scene graph:
+   phase 4's building, 8 balls and 16 boxes (half scaled) placed in its
+   rooms, 100 VLP-16 poses on its floor: the budgets audited until no
+   block saturates, ``cast_rays_tlas`` (K3 + K1 an instance, chained
+   t_max) and the flattened binned cast against the flattened exact cast
+   (K5), ``closest_points_tlas`` (K6 an instance) against the flattened
+   BVH's, the gradient with respect to a ball's and a scaled box's 6 pose
+   parameters against central differences, ``refine_instance_pose`` (K5)
+   recovering a ball misplaced by (0, 0.15, -0.1) m, each call timed
+   against its flattened counterpart, K5 and K6 against their plain
+   versions; (c) the building written as binary PLY and as GLB, read back
+   by ``load_mesh`` and ``MeshMap.from_file`` (PLY bitwise, GLB equal in
+   value), and the MICP-L CLI on the PLY map over phase 12's first 3 scans
+   against phase 12's OBJ run.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -124,6 +147,7 @@ printing any result.
 
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -381,6 +405,54 @@ FUSED_FRAME_TOL = 1e-4
 # the SAH BVH's hits against the LBVH's: rays that graze an edge may be
 # decided apart, as phase 8 allows between the exact and dense engines
 SAH_HIT_DIFF = 0.001
+
+# phase 14a: scripts/bench_backward.py's workload (100 poses x VLP-16 of 900
+# columns on the ~1M-face sphere, its bins and cast settings), not cut
+BW_POSES = 100
+BW_CAST = dict(c_super=24, c_bin=64, c_hyper=20, sort_blocks=True, block_size=128,
+               dir_groups=0)
+BW_REPS = 5  # timed runs of each program (median), after a warm-up
+# central differences on a float32 t: eps 1e-3 m; one ray's difference
+# carries up to ~2e-3 of rounding (t ~ 50 m has float32 spacings of 3.8e-6),
+# so a pose's 14,400 rays sum to ~0.2 of noise: translations within 1% +
+# 0.5, vertices (a few rays each) within 1% + 5e-2 (tests/test_raycast_binned.py's
+# atol)
+FD_EPS = 1e-3
+FD_TRANS_TOL = (1e-2, 0.5)
+FD_VERT_TOL = (1e-2, 5e-2)
+BVH_T_RTOL = 1e-4  # the exact engine's t against the binned engine's
+HIT_AGREE = 0.999
+# phase 14b: phase 4's building and instances placed in its rooms
+SCENE_SEED = 14
+SCENE_BALLS = 8
+SCENE_BOXES = 16
+SCENE_BIN = dict(bin_size=64, bins_per_super=64)
+SCENE_BUDGETS = (24, 96)  # the audit starts at the defaults and doubles both
+SCENE_AUDIT_ROUNDS = 8
+SCENE_T_RTOL = 1e-4  # tests/test_tlas.py's bars: t, normals
+SCENE_NORMAL_TOL = 1e-4
+# a ray the TLAS (or the flattened bins) and the exact engine decide apart
+# must pass within this many float32 roundings of its winner's world
+# triangle (spacing at the triangle over its shortest edge: a 0.6 mm edge
+# of the ball's pole at 20 m from the origin makes one rounding 3e-3) plus
+# the slack of the triangle tests' float32 barycentrics; the normals of
+# the same triangle agree within SCENE_NORMAL_TOL plus as many roundings
+EDGE_SCALES = 16
+EDGE_SLACK = 1e-6
+# t of the same triangle in two frames: float32 coordinates up to |o| + t
+# from the world's zero round t by ~2^-23 (|o| + t) / |cos| of incidence
+GRAZE_ULPS = 4
+# the pose gradients: float32 t of ~1,000 rays at 2-10 m, each difference
+# off by up to 2.4e-4 (t's spacing over 2 eps); the atol also takes the
+# origin's rounding in the instance frame (phase_scene_graph)
+SCENE_FD_TOL = (1e-2, 5e-2)
+REFINE_OFFSET = (0.0, 0.15, -0.1)  # tests/test_scene.py's misplacement
+REFINE_STEPS = 8
+REFINE_TOL = 0.02  # tests/test_scene.py's atol on the recovered centre
+REFINE_RANGE = 1.5  # m from the sensor to the ball's centre
+# phase 14c: map files written here (git-ignored), the CLI on a short log
+FORMAT_DIR = "build/phase14"
+FORMAT_SCANS = 3
 
 
 def log(msg):
@@ -1929,6 +2001,70 @@ def full_cull_bound(bins, blocks, R, cs, cb, ch, cm):
     return fused_bound(cull_rays, (bins, *blocks), back, tests) + (tests,)
 
 
+def check_binned_kernels(label, what, bins, inputs, order, sub_blocks, cs, cb, ch, counts):
+    """K1 (in the launch order ``order``) and the fused K3 of a binned cast
+    (``inputs``: ``_kernel_inputs``' blocks and lists) against their plain
+    versions on the first MCL_CHECK_BLOCKS blocks, then each on every block:
+    the device trace's time (events where it holds none), K1 in block order
+    too, the bounds, K3's registers (a spill fails). Returns (k1, k3)."""
+    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _subblock_bounds, cull_rays,
+                                              cull_rays_reference, kernel_registers)
+    from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_bins_reference
+
+    B = bins.bin_size
+    sl = lambda x: x[:MCL_CHECK_BLOCKS].contiguous()
+    part = tuple(sl(x) for x in inputs)
+    part_order = torch.argsort(part[5], stable=True).to(torch.int32)
+    launches = intersect_bins.launches
+    kt, kref = intersect_bins(bins.tri, *part, order=part_order)
+    pt, pref = intersect_bins_reference(bins.tri, *part, order=part_order)
+    torch.cuda.synchronize()
+    if intersect_bins.launches != launches + 1:
+        fail(f"{label} K1: the kernel did not launch")
+    k1 = dict(zip(("max_abs_err", "ref_mismatch"),
+                  check_agreement(f"{label} K1", bins.tri, part, kt, kref, pt, pref)))
+    k1["plain_ms"] = cuda_ms(lambda: intersect_bins_reference(bins.tri, *part), reps=1)
+    k1["ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs, order=order),
+                          "intersect_bins", reps=3)
+                or cuda_ms(lambda: intersect_bins(bins.tri, *inputs, order=order), reps=3))
+    k1["unsorted_ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs), "intersect_bins",
+                                   reps=3)
+                         or cuda_ms(lambda: intersect_bins(bins.tri, *inputs), reps=3))
+    t_best, _ = intersect_bins(bins.tri, *inputs, order=order)
+    k1["bound_ms"], k1["bound_by"], k1["visits"] = kernel_bound(inputs, t_best, B)
+    k1.update(launches=counts["K1"], blocks=inputs[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
+              order="count")
+    log(f"{label} K1 (count order) on {what} {k1['blocks']} blocks: "
+        f"{k1['ms']:.3f} ms ({k1['unsorted_ms']:.3f} ms in block order), bound "
+        f"{k1['bound_ms']:.3f} ms ({k1['bound_by']}; {k1['visits']:.0f} bin visits), "
+        f"roofline {k1['bound_ms'] / k1['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: "
+        f"max_abs_err {k1['max_abs_err']:.3g}, {k1['ref_mismatch']} near-tie winners, plain "
+        f"{k1['plain_ms']:.2f} ms")
+
+    blocks = tuple(x.contiguous() for x in inputs[:4])
+    part_blocks = tuple(sl(x) for x in blocks)
+    back = _cull_args(bins, lambda r: _subblock_bounds(*part_blocks, r), sub_blocks, cs, cb, ch)
+    _, _, k3 = check_cull(f"{label} K3", cull_rays, cull_rays_reference,
+                          (bins, *part_blocks, sub_blocks, cs, cb, ch), back)
+    full = (bins, *blocks, sub_blocks, cs, cb, ch)
+    k3_slice_ms = k3["ms"]
+    k3["ms"] = device_ms(lambda: cull_rays(*full), "cull_kernel", reps=3) or cuda_ms(
+        lambda: cull_rays(*full), reps=3)
+    k3["bound_ms"], k3["bound_by"], k3["tests"] = full_cull_bound(
+        bins, blocks, sub_blocks, cs, cb, ch, 0)
+    k3.update(launches=counts["K3r"], blocks=blocks[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
+              slice_ms=k3_slice_ms, registers=kernel_registers())
+    log(f"{label} K3{' (hyper level)' if ch else ''} on {what} {k3['blocks']} blocks: "
+        f"{k3['ms']:.3f} ms by the device trace, bound {k3['bound_ms']:.3f} ms "
+        f"({k3['bound_by']}; {k3['tests']:.4g} tests), roofline "
+        f"{k3['bound_ms'] / k3['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: lists agree "
+        f"({'bitwise' if k3['bitwise'] else str(k3['ties']) + ' tie blocks'}), plain "
+        f"{k3['plain_ms']:.2f} ms; registers (regs, local bytes) {k3['registers']}")
+    if any(local for _, local in k3["registers"].values()):
+        fail(f"{label}: K3 spills: {k3['registers']}")
+    return k1, k3
+
+
 def mcl_update_steps(bins, cloud, beams, tsb, cfg, ev, mark):
     """One binned beam-major sensor update on ``cloud`` through the steps
     that ``sensor_update`` composes, with a CUDA event at each boundary:
@@ -1979,11 +2115,8 @@ def phase_mcl_cycle():
     from rmcl_tpu_torch.mcl.resampling import ResamplerConfig, gladiator_resample
     from rmcl_tpu_torch.mcl.sensor_update import probe_update_rays, sample_beams, sensor_update
     from rmcl_tpu_torch.mcl.stats import estimate_stats
-    from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _subblock_bounds, cull_rays,
-                                              cull_rays_reference, kernel_registers)
     from rmcl_tpu_torch.ops.order import cluster_order
     from rmcl_tpu_torch.ops.raycast_binned import _resolve_budgets, block_cull_stats
-    from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_bins_reference
 
     mmap, model, truth, points, mask, scfg = mcl_world()
     bins = mmap.bins
@@ -2133,61 +2266,11 @@ def phase_mcl_cycle():
     # K1 (count order) and K3 (hyper level) against their plain versions on
     # the first MCL_CHECK_BLOCKS blocks of the first chunk; then each on the
     # whole chunk: device time, bound
-    B = bins.bin_size
-    cs, cb, cm = _resolve_budgets(bins, scfg.c_super, scfg.c_bin)
-    ch = min(scfg.c_hyper, bins.n_hyper)
-    sl = lambda x: x[:MCL_CHECK_BLOCKS].contiguous()
-    part = tuple(sl(x) for x in inputs)
-    part_order = torch.argsort(part[5], stable=True).to(torch.int32)
-    launches = intersect_bins.launches
-    kt, kref = intersect_bins(bins.tri, *part, order=part_order)
-    pt, pref = intersect_bins_reference(bins.tri, *part, order=part_order)
-    torch.cuda.synchronize()
-    if intersect_bins.launches != launches + 1:
-        fail("phase 11a K1: the kernel did not launch")
-    k1 = dict(zip(("max_abs_err", "ref_mismatch"),
-                  check_agreement("phase 11a K1", bins.tri, part, kt, kref, pt, pref)))
-    k1["plain_ms"] = cuda_ms(lambda: intersect_bins_reference(bins.tri, *part), reps=1)
-    k1["ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs, order=order),
-                          "intersect_bins", reps=3)
-                or cuda_ms(lambda: intersect_bins(bins.tri, *inputs, order=order), reps=3))
-    k1["unsorted_ms"] = (device_ms(lambda: intersect_bins(bins.tri, *inputs), "intersect_bins",
-                                   reps=3)
-                         or cuda_ms(lambda: intersect_bins(bins.tri, *inputs), reps=3))
-    t_best, _ = intersect_bins(bins.tri, *inputs, order=order)
-    k1["bound_ms"], k1["bound_by"], k1["visits"] = kernel_bound(inputs, t_best, B)
-    k1.update(launches=counts["K1"], blocks=inputs[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
-              order="count")
-    log(f"phase 11a K1 (count order) on the first chunk's {k1['blocks']} blocks: "
-        f"{k1['ms']:.3f} ms ({k1['unsorted_ms']:.3f} ms in block order), bound "
-        f"{k1['bound_ms']:.3f} ms ({k1['bound_by']}; {k1['visits']:.0f} bin visits), "
-        f"roofline {k1['bound_ms'] / k1['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: "
-        f"max_abs_err {k1['max_abs_err']:.3g}, {k1['ref_mismatch']} near-tie winners, plain "
-        f"{k1['plain_ms']:.2f} ms")
-
-    blocks = tuple(x.contiguous() for x in inputs[:4])
-    part_blocks = tuple(sl(x) for x in blocks)
-    back = _cull_args(bins, lambda r: _subblock_bounds(*part_blocks, r), scfg.sub_blocks, cs,
-                      cb, ch)
-    _, _, k3 = check_cull("phase 11a K3", cull_rays, cull_rays_reference,
-                          (bins, *part_blocks, scfg.sub_blocks, cs, cb, ch), back)
-    full = (bins, *blocks, scfg.sub_blocks, cs, cb, ch)
-    k3_slice_ms = k3["ms"]
-    k3["ms"] = device_ms(lambda: cull_rays(*full), "cull_kernel", reps=3) or cuda_ms(
-        lambda: cull_rays(*full), reps=3)
-    k3["bound_ms"], k3["bound_by"], k3["tests"] = full_cull_bound(
-        bins, blocks, scfg.sub_blocks, cs, cb, ch, 0)
-    k3.update(launches=counts["K3r"], blocks=blocks[0].shape[0], plain_blocks=MCL_CHECK_BLOCKS,
-              slice_ms=k3_slice_ms, registers=kernel_registers())
-    log(f"phase 11a K3 (hyper level) on the first chunk's {k3['blocks']} blocks: "
-        f"{k3['ms']:.3f} ms by the device trace, bound {k3['bound_ms']:.3f} ms "
-        f"({k3['bound_by']}; {k3['tests']:.4g} tests), roofline "
-        f"{k3['bound_ms'] / k3['ms']:.2%}; vs plain on {MCL_CHECK_BLOCKS} blocks: lists agree "
-        f"({'bitwise' if k3['bitwise'] else str(k3['ties']) + ' tie blocks'}), plain "
-        f"{k3['plain_ms']:.2f} ms; {int(sat0.sum())} of {k3['blocks']} blocks saturated; "
-        f"registers (regs, local bytes) {k3['registers']}")
-    if any(local for _, local in k3["registers"].values()):
-        fail(f"phase 11a: K3 spills: {k3['registers']}")
+    cs, cb, _ = _resolve_budgets(bins, scfg.c_super, scfg.c_bin)
+    k1, k3 = check_binned_kernels("phase 11a", "the first chunk's", bins, inputs, order,
+                                  scfg.sub_blocks, cs, cb, min(scfg.c_hyper, bins.n_hyper),
+                                  counts)
+    log(f"phase 11a: {int(sat0.sum())} of {k3['blocks']} blocks saturated")
     return dict(mmap=mmap, model=model, truth=truth, points=points, mask=mask, scfg=scfg,
                 cloud=cloud, gen=gen, cycle_ms=cycle_ms, stage_ms=stage_ms, err=errs[-1],
                 bvh_cycle_ms=bvh_ms[1],
@@ -3126,6 +3209,804 @@ def phase_dense_sweep(sweep_r, main_r):
                 fused_residual=residual, sah=sah_r)
 
 
+def host_ms(fn, reps=BW_REPS, prepare=None):
+    """Median milliseconds of fn(*prepare()) over reps runs by the host
+    clock, each ending in torch.cuda.synchronize() (after one warm-up run);
+    ``prepare`` makes each run's inputs outside the timed region."""
+    times = []
+    for it in range(reps + 1):
+        args = prepare() if prepare else ()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        if it:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def sub_row(r, **extra):
+    """A kernel's numbers at one more phase, for its row of the kernels
+    line."""
+    keys = ("ms", "timed_by", "bound_ms", "bound_by", "launches", "plain_ms", "max_abs_err",
+            "blocks", "plain_blocks")
+    return dict({k: r[k] for k in keys if k in r}, roofline=r["bound_ms"] / r["ms"], **extra)
+
+
+def fd_check(name, what, autograd, fd, tol):
+    """Central differences against autograd, |fd - g| <= rtol |g| + atol
+    (``atol`` one for all, or one a coordinate)."""
+    rtol, atol = tol
+    atol = list(atol) if isinstance(atol, (list, tuple)) else [atol] * len(fd)
+    bad = [(a, f) for a, f, t in zip(autograd, fd, atol) if abs(f - a) > rtol * abs(a) + t]
+    log(f"{name} central differences (eps {FD_EPS}) on {what}: autograd "
+        + ", ".join(f"{a:.5g}" for a in autograd) + "; differences "
+        + ", ".join(f"{f:.5g}" for f in fd) + f" (within {rtol:g} relative + "
+        + ", ".join(f"{t:.3g}" for t in sorted(set(atol))) + ")")
+    if bad:
+        fail(f"{name}: central differences disagree with autograd on {what}: {bad}")
+
+
+def phase_backward(sphere_mesh):
+    """Phase 14a: ``cast_rays_diff`` at the JAX backward benchmark's workload
+    (scripts/bench_backward.py): the loss (sum of hit t) and its gradients
+    with respect to the 100 pose translations and to the vertices on the
+    binned engine (K3 + K1 in count order), at the benchmark's budgets and
+    at budgets audited until no block saturates; at the latter also on the
+    exact engine (K5), with central differences and K1 and K3 against their
+    plain versions."""
+    from rmcl_tpu_torch.bvh.bins import build_bins
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.diff import cast_rays_diff
+    from rmcl_tpu_torch.ops.raycast import NO_HIT_T, _map_hits
+    from rmcl_tpu_torch.ops.raycast_binned import (_flat_rays, _kernel_inputs, _resolve_budgets,
+                                                   block_cull_stats, cast_rays_binned)
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+
+    t0 = time.perf_counter()
+    bins = build_bins(sphere_mesh, bin_size=64, bins_per_super=16, supers_per_hyper=16)
+    torch.cuda.synchronize()
+    bins_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvh = build_bvh(sphere_mesh)
+    torch.cuda.synchronize()
+    bvh_s = time.perf_counter() - t0
+    verts0 = torch.from_numpy(sphere_mesh.vertices).cuda()
+    faces = torch.from_numpy(sphere_mesh.faces).cuda()
+    model = SphericalModel.vlp16(width=900)
+    _, dirs = model.rays("cuda")
+    nd = model.n_rays
+    rng = np.random.default_rng(0)
+    trans0 = torch.from_numpy(rng.uniform(-5, 5, (BW_POSES, 3)).astype(np.float32)).cuda()
+    n = BW_POSES * nd
+    log(f"phase 14a map: sphere {sphere_mesh.n_faces} faces, {sphere_mesh.n_vertices} vertices; "
+        f"bins {bins.n_bins} of 64 in {bins.n_super} supers of 16, {bins.n_hyper} hypers of 16 "
+        f"({bin_order_note()}), built in {bins_s:.2f} s; BVH {bvh.n_slots} slots in {bvh_s:.2f} s; "
+        f"{n} rays ({BW_POSES} poses x VLP-16 of {model.width} columns)")
+
+    def rays(trans, poses=slice(None)):
+        t = trans[poses]
+        o = t[:, None, :].expand(t.shape[0], nd, 3).reshape(-1, 3)
+        return o, dirs[None].expand(t.shape[0], nd, 3).reshape(-1, 3)
+
+    def loss(struct, kw, trans, verts, poses=slice(None)):
+        h = cast_rays_diff(struct, verts, faces, *rays(trans, poses), **kw)
+        return torch.where(h.hit, h.t, 0.0).sum(), h
+
+    def fwd(struct, kw, trans):
+        with torch.no_grad():
+            return loss(struct, kw, trans, verts0)
+
+    def bwd_pose(struct, kw, trans):
+        tr = trans.clone().requires_grad_(True)
+        value, h = loss(struct, kw, tr, verts0)
+        value.backward()
+        return value, h, tr.grad
+
+    def bwd_verts(struct, kw, trans):
+        v = verts0.clone().requires_grad_(True)
+        value, h = loss(struct, kw, trans, v)
+        value.backward()
+        return value, h, v.grad
+
+    o, d = rays(trans0)
+    jitter = lambda: (trans0 + torch.from_numpy(
+        rng.uniform(-0.02, 0.02, (BW_POSES, 3)).astype(np.float32)).cuda(),)
+
+    def drive(label, kw, with_bvh):
+        """Each program once (its launches, the values, the gradients), then
+        timed on fresh jitters as the JAX benchmark draws them."""
+        programs = [("fwd", fwd, bins), ("fwd+bwd_pose", bwd_pose, bins),
+                    ("fwd+bwd_verts", bwd_verts, bins)]
+        if with_bvh:
+            programs.append(("fwd+bwd_verts_bvh", bwd_verts, bvh))
+        out, launches = {}, {}
+        for key, fn, struct in programs:
+            skw = kw if struct is bins else {}
+            fn(struct, skw, trans0)  # warm-up: first-call allocations
+            torch.cuda.synchronize()
+            reset_counts()
+            out[key] = fn(struct, skw, trans0)
+            torch.cuda.synchronize()
+            launches[key] = {k: v for k, v in read_counts().items() if v}
+            want = {"K5": 1} if struct is bvh else {"K3r": 1, "K1": 1}
+            if launches[key] != want:
+                fail(f"phase 14a {label} {key}: launched {launches[key]}, not {want}")
+        value, h = out["fwd"]
+        with torch.no_grad():
+            own = cast_rays_binned(bins, o, d, **kw)
+        hit_frac = float(h.hit.float().mean())
+        t_rel = float(((h.t - own.t).abs() / own.t.abs())[h.hit].max())
+        if not (torch.equal(h.hit, own.hit) and torch.equal(h.prim_id, own.prim_id)
+                and t_rel <= T_RTOL):
+            fail(f"phase 14a {label}: cast_rays_diff is off cast_rays_binned ({t_rel:.3g} in t)")
+        grads = {"translations": out["fwd+bwd_pose"][2], "vertices": out["fwd+bwd_verts"][2]}
+        if with_bvh:
+            grads["vertices (bvh)"] = out["fwd+bwd_verts_bvh"][2]
+        for name, g in grads.items():
+            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+                fail(f"phase 14a {label}: the gradient over the {name} is not finite and nonzero")
+        ms = {key: host_ms(lambda tr, fn=fn, struct=struct: fn(
+            struct, kw if struct is bins else {}, tr), prepare=jitter)
+              for key, fn, struct in programs}
+        log(f"phase 14a {label} {kw}: loss {float(value):.6g}, hits {hit_frac:.6f}, t within "
+            f"{t_rel:.3g} relative of cast_rays_binned's (winners equal); programs (median of "
+            f"{BW_REPS}, host clock): "
+            + ", ".join(f"{k} {v:.3f} ms ({n / v * 1e3:.4g} rays/s)" for k, v in ms.items())
+            + f"; fwd+bwd / fwd: pose {ms['fwd+bwd_pose'] / ms['fwd']:.3f}, vertices "
+            f"{ms['fwd+bwd_verts'] / ms['fwd']:.3f}; launches a call "
+            + "; ".join(f"{k} " + ", ".join(f"{a} {b}" for a, b in v.items())
+                        for k, v in launches.items()))
+        return dict(ms=ms, hit_frac=hit_frac, t_rel=t_rel, launches=launches, out=out)
+
+    # the benchmark's own budgets; they truncate most blocks' lists, so most
+    # rays miss (the JAX package's cast misses the same rays on the CPU:
+    # scripts/torch_backward_budget_probe.py)
+    bench = drive("at the benchmark's budgets", BW_CAST, False)
+    del bench["out"]
+    # the budgets doubled until no block saturates
+    cs, cb, ch = BW_CAST["c_super"], BW_CAST["c_bin"], BW_CAST["c_hyper"]
+    for _ in range(SCENE_AUDIT_ROUNDS):
+        sat = block_cull_stats(bins, o, d, block_size=BW_CAST["block_size"], c_super=cs,
+                               c_bin=cb, c_hyper=ch)[1]
+        log(f"phase 14a audit at c_super {cs}, c_bin {cb}, c_hyper {ch}: {int(sat.sum())} of "
+            f"{sat.shape[0]} blocks saturated")
+        if not bool(sat.any()):
+            break
+        cs, cb, ch = 2 * cs, 2 * cb, 2 * ch
+    else:
+        fail(f"phase 14a: blocks still saturate at c_super {cs}, c_bin {cb}, c_hyper {ch}")
+    kw = dict(BW_CAST, c_super=cs, c_bin=cb, c_hyper=ch)
+    r = drive("at the audited budgets", kw, True)
+    if not r["hit_frac"] >= HIT_AGREE:
+        fail(f"phase 14a: only {r['hit_frac']:.6f} of the rays hit at budgets no block saturates")
+    out = r.pop("out")
+    h_v, h_b = (_map_hits(torch.Tensor.detach, out[k][1])
+                for k in ("fwd+bwd_verts", "fwd+bwd_verts_bvh"))
+    g_verts, g_verts_b = out["fwd+bwd_verts"][2], out["fwd+bwd_verts_bvh"][2]
+    both = h_v.hit & h_b.hit
+    agree = float((h_v.hit == h_b.hit).float().mean())
+    bvh_rel = float(((h_b.t - h_v.t).abs() / h_v.t.abs())[both].max())
+    g_rel = float((g_verts_b - g_verts).abs().max() / g_verts.abs().max())
+    log(f"phase 14a the exact engine (K5) against the binned one: hits agree on {agree:.6f} of "
+        f"rays, t within {bvh_rel:.3g} relative where both hit, its vertex gradient {g_rel:.3g} "
+        f"of the largest entry off the binned one's")
+    if not (agree >= HIT_AGREE and bvh_rel <= BVH_T_RTOL):
+        fail(f"phase 14a: the exact engine's cast is off the binned one's ({agree}, {bvh_rel})")
+
+    # central differences: the 5 largest-gradient translation coordinates,
+    # each on its pose's rays (those that hit at all three translations),
+    # and the 5 largest-gradient vertex coordinates of pose 0's loss (the
+    # winners come from the baked bins, so the same rays hit)
+    g_trans = out["fwd+bwd_pose"][2]
+    auto, fd = [], []
+    for i in torch.topk(g_trans.abs().reshape(-1), 5).indices.tolist():
+        p, axis = divmod(i, 3)
+        step = torch.zeros_like(trans0)
+        step[p, axis] = FD_EPS
+        with torch.no_grad():
+            _, hp = loss(bins, kw, trans0 + step, verts0, slice(p, p + 1))
+            _, hm = loss(bins, kw, trans0 - step, verts0, slice(p, p + 1))
+        tr = trans0.clone().requires_grad_(True)
+        _, h0 = loss(bins, kw, tr, verts0, slice(p, p + 1))
+        mask = h0.hit & hp.hit & hm.hit
+        torch.where(mask, h0.t, 0.0).sum().backward()
+        auto.append(float(tr.grad[p, axis]))
+        fd.append(float((hp.t.double() - hm.t.double())[mask].sum()) / (2 * FD_EPS))
+    fd_check("phase 14a", "the 5 largest-gradient translation coordinates", auto, fd,
+             FD_TRANS_TOL)
+    v = verts0.clone().requires_grad_(True)
+    value0, h0 = loss(bins, kw, trans0, v, slice(0, 1))
+    value0.backward()
+    auto, fd = [], []
+    for i in torch.topk(v.grad.abs().reshape(-1), 5).indices.tolist():
+        step = torch.zeros_like(verts0).reshape(-1)
+        step[i] = FD_EPS
+        step = step.reshape(verts0.shape)
+        with torch.no_grad():
+            _, hp = loss(bins, kw, trans0, verts0 + step, slice(0, 1))
+            _, hm = loss(bins, kw, trans0, verts0 - step, slice(0, 1))
+        auto.append(float(v.grad.reshape(-1)[i]))
+        fd.append(float((hp.t.double() - hm.t.double())[h0.hit].sum()) / (2 * FD_EPS))
+    fd_check("phase 14a", "the 5 largest-gradient vertex coordinates (pose 0's rays)", auto, fd,
+             FD_VERT_TOL)
+    del out, h_v, h_b, g_verts, g_verts_b, g_trans
+
+    # K1 and K3 on the audited cast's inputs: against their plain versions, timed
+    fo, fd_, fmin, fmax, _ = _flat_rays(o, d, 0.0, NO_HIT_T)
+    inputs, _ = _kernel_inputs(bins, fo, fd_, fmin, fmax, kw["block_size"], cs, cb, 4, ch)
+    order = torch.argsort(inputs[5], stable=True).to(torch.int32)
+    rcs, rcb, _ = _resolve_budgets(bins, cs, cb)
+    k1, k3 = check_binned_kernels("phase 14a", "the audited backward cast's", bins, inputs,
+                                  order, 4, rcs, rcb, min(ch, bins.n_hyper), {"K1": 1, "K3r": 1})
+    return dict(r, bench=bench, budgets=(cs, cb, ch), bvh_agree=agree, bvh_t_rel=bvh_rel,
+                k1=k1, k3=k3)
+
+
+def phase14_scene(building):
+    """Phase 14b's scene graph: the building as one instance at identity, 8
+    balls and 16 unit boxes (every second one at a scale != 1) placed in
+    its rooms from SCENE_SEED, each with a yaw."""
+    from rmcl_tpu_torch.geom.mesh import make_box, make_sphere
+    from rmcl_tpu_torch.geom.scene import SceneGraph
+    from rmcl_tpu_torch.math.se3 import Transform
+
+    rng = np.random.default_rng(SCENE_SEED)
+    sg = SceneGraph()
+    sg.add_geometry("building", building)
+    sg.add_geometry("ball", make_sphere(128, 128, radius=0.5))
+    sg.add_geometry("box", make_box())
+    sg.add_instance("building", Transform.identity(), name="building")
+
+    def in_a_room():
+        ix, iy = rng.integers(0, 4), rng.integers(0, 3)
+        return ix * 6.0 + rng.uniform(1.0, 5.0), iy * 6.0 + rng.uniform(1.0, 5.0)
+
+    for k in range(SCENE_BALLS):
+        x, y = in_a_room()
+        pose = [x, y, rng.uniform(0.6, 2.2), 0.0, 0.0, rng.uniform(-np.pi, np.pi)]
+        sg.add_instance("ball", Transform.from_pose_tuple(pose), name=f"ball{k}")
+    for k in range(SCENE_BOXES):
+        x, y = in_a_room()
+        scale = 1.0 if k % 2 == 0 else float(rng.uniform(0.4, 1.6))
+        pose = [x, y, scale / 2, 0.0, 0.0, rng.uniform(-np.pi, np.pi)]
+        sg.add_instance("box", Transform.from_pose_tuple(pose), scale=scale, name=f"box{k}")
+    return sg
+
+
+def scene_rays(model, n_poses, seed):
+    """n_poses VLP-16 poses uniform over phase 4's floor at MCL_Z with a
+    yaw; (o, d) flattened, pose-major."""
+    from rmcl_tpu_torch.math.se3 import Transform
+
+    rng = np.random.default_rng(seed)
+    pose = np.zeros((n_poses, 6), np.float32)
+    pose[:, :2] = rng.uniform((0.0, 0.0), MCL_FLOOR, (n_poses, 2))
+    pose[:, 2] = MCL_Z
+    pose[:, 5] = rng.uniform(-np.pi, np.pi, n_poses)
+    tsm = Transform.from_pose_tuple(torch.from_numpy(pose).cuda()).expand_dims(-1)
+    o_s, d_s = model.rays("cuda")
+    return (tsm.apply(o_s).reshape(-1, 3).contiguous(),
+            tsm.rotate(d_s).reshape(-1, 3).contiguous())
+
+
+def world_triangles(sg, acc):
+    """The flattened scene's world triangles (float64, on the card) and
+    each instance's first face in them: a hit's face is first[inst] +
+    prim."""
+    tri = torch.from_numpy(acc.world_mesh.triangles().astype(np.float64)).cuda()
+    faces = np.cumsum([0] + [sg.geometries[i.geometry].n_faces for i in sg.instances[:-1]])
+    return tri, torch.from_numpy(faces).cuda()
+
+
+def edge_margin(tri, first, h, o, d):
+    """Per ray of ``h``: where it crosses its winner's world triangle,
+    min(u, v, 1 - u - v) in float64 (inf where it missed), and the float32
+    rounding of that triangle in the same units: the spacing at its largest
+    coordinate over its shortest edge. A ray within a few roundings of an
+    edge is decided by rounding, and the engines' edge tests (ROADMAP.md §3)
+    may decide it apart."""
+    g = first[h.inst_id.clamp(min=0).long()] + h.prim_id.clamp(min=0).long()
+    v = tri[g]
+    v0, e1, e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    o64, d64 = o.double(), d.double()
+    p = torch.linalg.cross(d64, e2, dim=-1)
+    det = (e1 * p).sum(-1)
+    s = o64 - v0
+    u = (s * p).sum(-1) / det
+    w = (d64 * torch.linalg.cross(s, e1, dim=-1)).sum(-1) / det
+    margin = torch.minimum(torch.minimum(u, w), 1.0 - u - w)
+    shortest = torch.stack([e1.norm(dim=-1), e2.norm(dim=-1), (v[:, 2] - v[:, 1]).norm(dim=-1)],
+                           -1).amin(-1)
+    big = v.abs().amax(dim=(1, 2)).float()
+    spacing = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big).double()
+    return torch.where(h.hit, margin, float("inf")), spacing / shortest
+
+
+def face_bin(bins, n_faces, first=None):
+    """The bin holding each face of ``bins``: faces are the prim ids, or
+    first[inst] + prim with ``first`` (the flattened scene's faces)."""
+    prim = bins.tri[:, 12, :].reshape(-1).long()
+    face = prim if first is None else first[bins.tri[:, 13, :].reshape(-1).long()] + prim
+    keep = prim >= 0  # padding slots hold -1
+    out = torch.full((n_faces,), -1, dtype=torch.long, device=prim.device)
+    out[face[keep]] = torch.nonzero(keep).squeeze(1) // bins.bin_size
+    return out
+
+
+def listed(inputs, rays, bin_ids):
+    """Whether the block of each ray of ``rays`` lists the bin ``bin_ids``
+    (one a ray) among its candidates (``inputs``: ``_kernel_inputs``')."""
+    cand, count = inputs[4], inputs[5]
+    blk = rays // inputs[0].shape[1]
+    slot = torch.arange(cand.shape[1], device=cand.device)
+    return ((cand[blk] == bin_ids[:, None]) & (slot[None] < count[blk][:, None])).any(1)
+
+
+def tlas_saturation(tlas, bins, o, d, lim, cs, cb):
+    """Saturated blocks at budgets (cs, cb): each TLAS instance's cull of the
+    rays in its frame at the cast's own t_max (the chained bound only
+    shrinks each list, so no chained list saturates where this one does
+    not), and the flattened bins' cull."""
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.ops.raycast_binned import block_cull_stats
+
+    kw = dict(block_size=DEFAULT_BLOCK_SIZE, c_super=cs, c_bin=cb, **lim)
+    sat_tlas = 0
+    for i, g in enumerate(tlas.inst_geom):
+        inv = Transform(rot=tlas.poses.rot[i], trans=tlas.poses.trans[i]).inverse()
+        s = tlas.scales[i]
+        sat_tlas += int(block_cull_stats(tlas.geom_bins[g], inv.apply(o) / s, inv.rotate(d) / s,
+                                         **kw)[1].sum())
+    return sat_tlas, int(block_cull_stats(bins, o, d, **kw)[1].sum())
+
+
+def phase_scene_graph():
+    """Phase 14b: a scene graph at a building's size: the TLAS cast (K3 +
+    K1, one chained cast an instance) against the flattened scene's exact
+    cast (K5) and binned cast (K3 + K1) at audited budgets; the TLAS closest
+    points (K6 an instance) against the flattened BVH's; the gradient with
+    respect to one ball's pose against central differences; and
+    refine_instance_pose (K5) recovering a misplaced ball."""
+    import dataclasses
+
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+    from rmcl_tpu_torch.geom.scene import refine_instance_pose
+    from rmcl_tpu_torch.geom.tlas import build_tlas, cast_rays_tlas, closest_points_tlas
+    from rmcl_tpu_torch.math.se3 import Quaternion, Transform
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh
+    from rmcl_tpu_torch.ops.closest_point import _max_d2, closest_points
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+    from rmcl_tpu_torch.ops.raycast_binned import _kernel_inputs, cast_rays_binned
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+
+    building = make_building_scene(subdiv=BUILDING_SUBDIV)
+    sg = phase14_scene(building)
+    t0 = time.perf_counter()
+    acc = sg.build(**SCENE_BIN)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tlas = build_tlas(sg, **SCENE_BIN)
+    torch.cuda.synchronize()
+    tlas_s = time.perf_counter() - t0
+    model = SphericalModel.vlp16()
+    o, d = scene_rays(model, BW_POSES, SCENE_SEED)
+    n = o.shape[0]
+    lim = dict(t_min=model.range.min, t_max=model.range.max)
+    log(f"phase 14b scene: {tlas.n_instances} instances ({SCENE_BALLS} balls of "
+        f"{sg.geometries['ball'].n_faces} faces, {SCENE_BOXES} boxes, half at scale != 1: "
+        f"{[round(float(x), 3) for x in tlas.scales[1 + SCENE_BALLS:]]}), flattened "
+        f"{acc.world_mesh.n_faces} faces (BVH {acc.bvh.n_slots} slots, {acc.bins.n_bins} bins) "
+        f"built in {flat_s:.2f} s; TLAS of {len(tlas.geom_bins)} geometries built in "
+        f"{tlas_s:.2f} s; {n} rays ({BW_POSES} VLP-16 poses on the floor at {MCL_Z} m)")
+
+    # the budget audit: double both budgets until no block saturates
+    cs, cb = SCENE_BUDGETS
+    for _ in range(SCENE_AUDIT_ROUNDS):
+        sat_t, sat_f = tlas_saturation(tlas, acc.bins, o, d, lim, cs, cb)
+        log(f"phase 14b audit at c_super {cs}, c_bin {cb}: {sat_t} TLAS instance blocks and "
+            f"{sat_f} flattened blocks saturated")
+        if not (sat_t or sat_f):
+            break
+        cs, cb = 2 * cs, 2 * cb
+    else:
+        fail(f"phase 14b: blocks still saturate at c_super {cs}, c_bin {cb}")
+    kw = dict(block_size=DEFAULT_BLOCK_SIZE, c_super=cs, c_bin=cb, sort_blocks=True, **lim)
+
+    # the TLAS cast, the flattened casts
+    cast_rays_tlas(tlas, o[:1024], d[:1024], **kw)  # warm-up
+    reset_counts()
+    ht = cast_rays_tlas(tlas, o, d, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_launches("phase 14b TLAS cast", counts, ("K3r", "K1"), culls=tlas.n_instances)
+    if counts["K1"] != tlas.n_instances:
+        fail(f"phase 14b: the TLAS cast launched K1 {counts['K1']} times")
+    reset_counts()
+    hf = cast_rays(acc.bvh, o, d, **lim)
+    hb = cast_rays_binned(acc.bins, o, d, **kw)
+    torch.cuda.synchronize()
+    fcounts = read_counts()
+    require_launches("phase 14b flattened casts", fcounts, ("K5", "K3r", "K1"), culls=1)
+
+    tri, first_face = world_triangles(sg, acc)
+    m_f, s_f = edge_margin(tri, first_face, hf, o, d)
+    # the candidate lists the dense casts cull at their own (unchained)
+    # bound: the flattened bins', and each TLAS instance's on demand (a
+    # chained bound only shortens them)
+    t_lo = torch.full((n,), model.range.min, device="cuda")
+    t_hi = torch.full((n,), model.range.max, device="cuda")
+    bw = DEFAULT_BLOCK_SIZE
+    flat_lists = _kernel_inputs(acc.bins, o, d, t_lo, t_hi, bw, cs, cb, 4)[0]
+    flat_bin = face_bin(acc.bins, tri.shape[0], first_face)
+    inst_lists = {}
+
+    def tlas_lists(i):
+        if i not in inst_lists:
+            g = tlas.inst_geom[i]
+            inv = tlas.poses[i].inverse()
+            s = tlas.scales[i]
+            inputs = _kernel_inputs(tlas.geom_bins[g], inv.apply(o) / s, inv.rotate(d) / s, t_lo,
+                                    t_hi, bw, cs, cb, 4)[0]
+            inst_lists[i] = (inputs, face_bin(tlas.geom_bins[g], sg.geometries[g].n_faces))
+        inputs, fb = inst_lists[i]
+        return inputs, lambda prim: fb[prim]
+
+    def flat_of(i):
+        return flat_lists, lambda prim: flat_bin[first_face[i] + prim]
+
+    def held(name, h, lists, launches):
+        """``h`` against the flattened exact cast: the same triangle with t
+        within SCENE_T_RTOL plus the float32 rounding of a world-frame t
+        at its incidence, normals within SCENE_NORMAL_TOL plus the world
+        triangle's rounding, another triangle only at a near-tie, and a
+        ray the two decide apart (one hit, another triangle farther away)
+        only within EDGE_SCALES roundings of an edge of either winner, or
+        where the dense cast's cull left the exact winner's bin out of the
+        ray's block list (ROADMAP.md §3: the cone test drops some flat
+        wall bins, in both packages); on at most 1 - HIT_AGREE of the
+        rays."""
+        both = h.hit & hf.hit
+        rel = (h.t - hf.t).abs() / hf.t.abs()
+        same = both & (h.inst_id == hf.inst_id) & (h.prim_id == hf.prim_id)
+        cos = (hf.normal * d).sum(-1).abs().clamp(min=1e-12)
+        t_tol = SCENE_T_RTOL + GRAZE_ULPS * 2.0 ** -23 * (o.norm(dim=-1) + hf.t) / (hf.t * cos)
+        t_bad = int((same & (rel > t_tol)).sum())
+        tie = both & ~same & (rel <= SCENE_T_RTOL)
+        apart = (h.hit != hf.hit) | (both & ~same & ~tie)
+        m_h, s_h = edge_margin(tri, first_face, h, o, d)
+        edge = ((m_h.abs() <= EDGE_SCALES * s_h + EDGE_SLACK)
+                | (m_f.abs() <= EDGE_SCALES * s_f + EDGE_SLACK))
+        dropped = torch.zeros_like(apart)
+        rays = torch.nonzero(apart & hf.hit).squeeze(1)
+        for i in hf.inst_id[rays].unique().tolist():
+            r = rays[hf.inst_id[rays] == i]
+            inputs, bin_of = lists(i)
+            dropped[r] = ~listed(inputs, r, bin_of(hf.prim_id[r].long()))
+        unexplained = int((apart & ~edge & ~dropped).sum())
+        n_err = (h.normal - hf.normal).abs().amax(-1)
+        n_bad = int((same & (n_err > SCENE_NORMAL_TOL + EDGE_SCALES * s_f)).sum())
+        agree = float((h.hit == hf.hit).float().mean())
+        log(f"phase 14b {name} against the flattened exact cast: hits agree on {agree:.6f}; on "
+            f"the same triangle ({int(same.sum())} rays) t within {float(rel[same].max()):.3g} "
+            f"relative ({t_bad} beyond {SCENE_T_RTOL} + the rounding at their incidence), "
+            f"normals within {float(n_err[same].max()):.3g} ({n_bad} beyond "
+            f"{SCENE_NORMAL_TOL} + {EDGE_SCALES} roundings); {int(tie.sum())} other winners at "
+            f"near-ties; {int(apart.sum())} rays decided apart: {int((apart & edge).sum())} at "
+            f"an edge, {int((apart & dropped).sum())} whose exact winner's bin the cull left "
+            f"out, {unexplained} neither; launches (both casts) "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        if not (agree >= HIT_AGREE and int(apart.sum()) <= (1 - HIT_AGREE) * n
+                and unexplained == 0 and t_bad == 0 and n_bad == 0):
+            fail(f"phase 14b: the {name} is off the flattened exact cast")
+        return dict(agree=agree, t_rel=float(rel[same].max()), ties=int(tie.sum()),
+                    apart=int(apart.sum()), at_edge=int((apart & edge).sum()),
+                    cull_dropped=int((apart & dropped).sum()),
+                    normal_err=float(n_err[same].max()))
+
+    tlas_vs = held("TLAS cast", ht, tlas_lists, counts)
+    flat_vs = held("flattened binned cast", hb, flat_of, fcounts)
+    del flat_lists, inst_lists
+    hit_frac = float(ht.hit.float().mean())
+
+    # closest points of the TLAS hit points moved by N(0, QUERY_NOISE)
+    pts = ht.point[ht.hit]
+    noise = np.random.default_rng(QUERY_SEED).normal(0.0, QUERY_NOISE, size=tuple(pts.shape))
+    q = (pts + torch.from_numpy(noise.astype(np.float32)).cuda()).contiguous()
+    reset_counts()
+    ct, ci = closest_points_tlas(tlas, q, max_dist=QUERY_MAX_DIST)
+    torch.cuda.synchronize()
+    ccounts = read_counts()
+    if ccounts["K6"] != tlas.n_instances:
+        fail(f"phase 14b: closest_points_tlas launched K6 {ccounts['K6']} times")
+    cf = closest_points(acc.bvh, q, max_dist=QUERY_MAX_DIST)
+    slot = closest_bvh(acc.bvh.nodes, acc.bvh.root_link, q,
+                       _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda"))[2]
+    f_inst = torch.where(slot >= 0, acc.bvh.nodes.view(torch.int32)[slot.clamp(min=0).long(), 14],
+                         -1)
+    found = ct.found & cf.found
+    diff = (ct.dist - cf.dist).abs()
+    tol = QUERY_DIST_RTOL * cf.dist + QUERY_DIST_ATOL
+    other_inst = found & (ci != f_inst)
+    log(f"phase 14b closest points of {q.shape[0]} noisy TLAS hit points (max_dist "
+        f"{QUERY_MAX_DIST} m): found {float(cf.found.float().mean()):.6f}, "
+        f"{int((ct.found != cf.found).sum())} found flags differ, distances within "
+        f"{float(diff[found].max()):.3g} m ({int((diff[found] > tol[found]).sum())} beyond "
+        f"{QUERY_DIST_RTOL} relative + {QUERY_DIST_ATOL} m), {int(other_inst.sum())} other "
+        f"instances (near-ties); launches K6 {ccounts['K6']}")
+    if not torch.equal(ct.found, cf.found) or bool((diff[found] > tol[found]).any()):
+        fail("phase 14b: closest_points_tlas disagrees with the flattened BVH's")
+
+    # the gradient with respect to the 6 pose parameters of one ball, and of
+    # one scaled box (whose rotation the ranges see; a ball's they barely do),
+    # each on the pose whose rays hit it most
+    def most_hit(instances):
+        per = torch.stack([(ht.inst_id.reshape(BW_POSES, -1) == i).sum(1) for i in instances])
+        k, p = divmod(int(torch.argmax(per)), BW_POSES)
+        return instances[k], p
+
+    def pose_gradient(inst, p):
+        sl = slice(p * model.n_rays, (p + 1) * model.n_rays)
+
+        def cast_at(delta):
+            rot, trans = tlas.poses.rot, tlas.poses.trans
+            r_i = Quaternion.mul(Quaternion.exp(delta[3:]), rot[inst])
+            poses = Transform(rot=torch.cat([rot[:inst], r_i[None], rot[inst + 1:]]),
+                              trans=torch.cat([trans[:inst], (trans[inst] + delta[:3])[None],
+                                               trans[inst + 1:]]))
+            return cast_rays_tlas(tlas, o[sl], d[sl], poses=poses, **kw)
+
+        zero = torch.zeros(6, device="cuda")
+        with torch.no_grad():
+            h_pm = [(cast_at(zero + FD_EPS * e), cast_at(zero - FD_EPS * e))
+                    for e in torch.eye(6, device="cuda")]
+        delta = zero.clone().requires_grad_(True)
+        reset_counts()
+        h0 = cast_at(delta)
+        # the rays that hit the same triangle of the instance at all 13
+        # poses: there t is smooth, so the differences see the derivative
+        # that autograd takes with the winners frozen (a ray whose winner
+        # moves to the next facet within eps adds a kink)
+        mask = h0.hit & (h0.inst_id == inst)
+        for hp, hm in h_pm:
+            for h in (hp, hm):
+                mask &= h.hit & (h.inst_id == inst) & (h.prim_id == h0.prim_id)
+        torch.where(mask, h0.t, 0.0).sum().backward()
+        counts = read_counts()
+        auto = delta.grad.tolist()
+        fd = [float((hp.t.double() - hm.t.double())[mask].sum()) / (2 * FD_EPS)
+              for hp, hm in h_pm]
+        # the differences also carry the float32 rounding of the rays'
+        # origin in the instance frame (R^-1 o - R^-1 t: both terms as long
+        # as the origin is far from the world's zero), one shift common to
+        # the pose's rays at each perturbation: up to 4 spacings at |o|
+        # times the translation gradient, over 2 eps
+        spacing = float(np.spacing(np.float32(float(o[sl].abs().max()))))
+        atol_o = 4 * spacing * sum(abs(x) for x in auto[:3]) / (2 * FD_EPS)
+        name = sg.instances[inst].name
+        log(f"phase 14b pose gradient of {name} (instance {inst}, scale "
+            f"{sg.instances[inst].scale:.3f}): {int(mask.sum())} rays of pose {p} hit the same "
+            f"triangle of it at every perturbation; launches K3 {counts['K3r']}, K1 "
+            f"{counts['K1']}")
+        rtol, atol = SCENE_FD_TOL
+        fd_check("phase 14b", f"{name}'s (tx, ty, tz, rx, ry, rz)", auto, fd,
+                 (rtol, atol + atol_o))
+        return dict(name=name, rays=int(mask.sum()), autograd=auto, fd=fd, atol=atol + atol_o,
+                    launches=counts)
+
+    ball, p = most_hit(list(range(1, 1 + SCENE_BALLS)))
+    grads = [pose_gradient(ball, p)]
+    box, p_box = most_hit([i for i in range(1 + SCENE_BALLS, tlas.n_instances)
+                           if sg.instances[i].scale != 1.0])
+    grads.append(pose_gradient(box, p_box))
+    gcounts = grads[0]["launches"]
+
+    # refine_instance_pose: the ball misplaced, one VLP-16 scan facing it
+    true_t = tlas.poses.trans[ball]
+    centre = torch.tensor([3.0 + 6.0 * (float(true_t[0]) // 6.0),
+                           3.0 + 6.0 * (float(true_t[1]) // 6.0)], device="cuda")
+    toward = centre - true_t[:2]
+    toward = toward / torch.clamp(torch.linalg.vector_norm(toward), min=1e-6)
+    spot = true_t[:2] + REFINE_RANGE * toward
+    yaw = float(torch.atan2(-toward[1], -toward[0]))
+    sensor = Transform.from_pose_tuple([float(spot[0]), float(spot[1]), float(true_t[2]), 0.0,
+                                        0.0, yaw])
+    o_s, d_s = model.rays("cuda")
+    o_r, d_r = sensor.apply(o_s), sensor.rotate(d_s)
+    truth = cast_rays(acc.bvh, o_r, d_r, **lim)
+    meas = torch.where(truth.inst_id == ball, truth.t, 3.0e38)
+    est = sg.instances[ball].pose
+    est = Transform(rot=est.rot, trans=est.trans - torch.tensor(REFINE_OFFSET, device="cuda"))
+    sg_est = dataclasses.replace(sg, instances=list(sg.instances))
+    sg_est.instances[ball] = dataclasses.replace(sg.instances[ball], pose=est)
+    acc_est = sg_est.build(**SCENE_BIN)
+    reset_counts()
+    delta_pose, losses = refine_instance_pose(acc_est, ball, o_r, d_r, meas, steps=REFINE_STEPS)
+    torch.cuda.synchronize()
+    rcounts = read_counts()
+    refined = (delta_pose @ est).trans
+    err = float(torch.linalg.vector_norm(refined - true_t))
+    log(f"phase 14b refine_instance_pose: ball {ball} misplaced by {REFINE_OFFSET} m, "
+        f"{int((meas < 1e30).sum())} of the scan's rays see it; losses "
+        + ", ".join(f"{x:.4g}" for x in losses.tolist())
+        + f"; the refined centre {err:.4g} m from the truth after {REFINE_STEPS} steps; "
+        f"launches K5 {rcounts['K5']}")
+    if rcounts["K5"] != REFINE_STEPS:
+        fail(f"phase 14b: refine_instance_pose launched K5 {rcounts['K5']} times")
+    if not (err <= REFINE_TOL and float(losses[-1]) < 0.1 * float(losses[0])):
+        fail(f"phase 14b: refine_instance_pose ended {err} m off, losses {losses.tolist()}")
+
+    # times: each call against its flattened counterpart
+    ms = dict(
+        tlas_cast=host_ms(lambda: cast_rays_tlas(tlas, o, d, **kw)),
+        flat_binned=host_ms(lambda: cast_rays_binned(acc.bins, o, d, **kw)),
+        flat_exact=host_ms(lambda: cast_rays(acc.bvh, o, d, **lim)),
+        tlas_closest=host_ms(lambda: closest_points_tlas(tlas, q, max_dist=QUERY_MAX_DIST)),
+        flat_closest=host_ms(lambda: closest_points(acc.bvh, q, max_dist=QUERY_MAX_DIST)),
+        refine_step=host_ms(lambda: refine_instance_pose(acc_est, ball, o_r, d_r, meas, steps=1)),
+        refine_8=host_ms(lambda: refine_instance_pose(acc_est, ball, o_r, d_r, meas,
+                                                      steps=REFINE_STEPS), reps=3))
+    log("phase 14b times (median, host clock): " + ", ".join(f"{k} {v:.3f} ms"
+                                                            for k, v in ms.items())
+        + f"; TLAS / flattened binned {ms['tlas_cast'] / ms['flat_binned']:.2f}, TLAS / "
+        f"flattened exact {ms['tlas_cast'] / ms['flat_exact']:.2f}, closest points TLAS / "
+        f"flattened {ms['tlas_closest'] / ms['flat_closest']:.2f}")
+
+    # K5 on the flattened exact cast, K6 on the building instance's query:
+    # against their plain versions on a slice, timed on all by the device trace
+    S = EXACT_SLICE
+    r5 = check_traverse("phase 14b K5", acc.bvh, (o[:S], d[:S], t_lo[:S], t_hi[:S]))
+    _, _, visits = traverse_rays(acc.bvh.nodes, acc.bvh.root_link, o, d, t_lo, t_hi, visits=True)
+    launch5 = lambda: traverse_rays(acc.bvh.nodes, acc.bvh.root_link, o, d, t_lo, t_hi)
+    r5["ms"], r5["timed_by"] = device_ms(launch5, "traverse_bvh"), "device trace"
+    if r5["ms"] is None:
+        r5["ms"], r5["timed_by"] = cuda_ms(launch5, reps=3), "events"
+    r5["bound_ms"], r5["bound_by"], r5["visits"] = traverse_bound(visits, n, r5["slots_read"])
+    r5.update(launches=fcounts["K5"])
+    log(exact_line(f"phase 14b K5 ({n} rays on the flattened scene, by the {r5['timed_by']}; "
+                   f"plain version on the first {S})", r5, f"{S} rays"))
+    bvh_b = tlas.geom_bvh["building"]
+    qb = (tlas.poses[0].inverse().apply(q) / tlas.scales[0]).contiguous()
+    md = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda")
+    r6 = check_closest_bvh("phase 14b K6", bvh_b, qb[:S].contiguous(), md[:S])
+    _, _, _, cvis = closest_bvh(bvh_b.nodes, bvh_b.root_link, qb, md, visits=True)
+    launch6 = lambda: closest_bvh(bvh_b.nodes, bvh_b.root_link, qb, md)
+    r6["ms"], r6["timed_by"] = device_ms(launch6, "closest_bvh"), "device trace"
+    if r6["ms"] is None:
+        r6["ms"], r6["timed_by"] = cuda_ms(launch6, reps=3), "events"
+    r6["bound_ms"], r6["bound_by"], r6["visits"] = closest_bvh_bound(cvis, q.shape[0],
+                                                                      r6["slots_read"])
+    r6.update(launches=ccounts["K6"])
+    log(exact_line(f"phase 14b K6 (the building instance's {q.shape[0]} queries, the first of "
+                   f"{tlas.n_instances} launches a call, by the {r6['timed_by']}; plain version "
+                   f"on the first {S})", r6, f"{S} queries"))
+    return dict(ms=ms, budgets=(cs, cb), faces=acc.world_mesh.n_faces, hit_frac=hit_frac,
+                tlas_vs=tlas_vs, flat_vs=flat_vs, refine_err=err, k5=r5, k6=r6,
+                grads=[{k: g[k] for k in ("name", "rays", "autograd", "fd", "atol")}
+                       for g in grads],
+                launches=dict(tlas=counts, flat=fcounts, closest=ccounts, grad=gcounts,
+                              refine=rcounts))
+
+
+def write_ply_binary(mesh, path):
+    """``mesh`` as a binary little-endian PLY (float32 vertices, uchar-counted
+    int32 triangles)."""
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {mesh.n_vertices}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {mesh.n_faces}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    rows = np.empty(mesh.n_faces, dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    rows["n"], rows["i"] = 3, mesh.faces
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(mesh.vertices.astype("<f4").tobytes())
+        f.write(rows.tobytes())
+
+
+def write_glb(mesh, path):
+    """``mesh`` as a binary glTF (one indexed TRIANGLES primitive, uint32
+    indices). glTF is Y-up: a Z-up (x, y, z) is stored as (x, z, -y), which
+    the loader maps back exactly."""
+    v = mesh.vertices
+    pos = np.stack([v[:, 0], v[:, 2], -v[:, 1]], -1).astype("<f4").tobytes()
+    idx = mesh.faces.astype("<u4").tobytes()
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(pos) + len(idx)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": len(pos)},
+                        {"buffer": 0, "byteOffset": len(pos), "byteLength": len(idx)}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": mesh.n_vertices, "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5125, "count": 3 * mesh.n_faces,
+             "type": "SCALAR"}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1, "mode": 4}]}],
+        "nodes": [{"mesh": 0}],
+        "scenes": [{"nodes": [0]}],
+        "scene": 0,
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(pos) + len(idx)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(pos) + len(idx), 0x004E4942) + pos + idx)
+
+
+def phase_map_formats():
+    """Phase 14c: phase 4's building written as binary PLY and as GLB, read
+    back through ``load_mesh`` and ``MeshMap.from_file`` (bitwise the
+    in-memory mesh and its bins), and the MICP-L CLI on the PLY map over
+    phase 12's first scans against phase 12's OBJ run."""
+    import os
+
+    from rmcl_tpu_torch.bvh.bins import build_bins
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.geom.mesh import load_mesh, make_building_scene
+    from rmcl_tpu_torch.io.replay import MessageLog
+    from rmcl_tpu_torch.tools import micp_localization
+
+    os.makedirs(FORMAT_DIR, exist_ok=True)
+    mesh = make_building_scene(subdiv=BUILDING_SUBDIV)
+    bins = build_bins(mesh, bin_size=64, bins_per_super=64)
+    paths = {}
+    for ext, write in (("ply", write_ply_binary), ("glb", write_glb)):
+        paths[ext] = os.path.join(FORMAT_DIR, f"building.{ext}")
+        t = time.perf_counter()
+        write(mesh, paths[ext])
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = load_mesh(paths[ext])
+        load_s = time.perf_counter() - t
+        mmap = MeshMap.from_file(paths[ext], bin_size=64, bins_per_super=64)
+        # PLY carries the float32 bits; the glTF loader maps Y-up to Z-up as
+        # (x, -z, y) after a float64 transform that turns -0.0 into 0.0, so
+        # a vertex at y = 0 reads back as -0.0: equal values, other bits
+        if ext == "ply":
+            bits = lambda a: a.view(np.int32)
+            same_bins = torch.equal(mmap.bins.tri.view(torch.int32), bins.tri.view(torch.int32))
+        else:
+            bits = lambda a: a
+            same_bins = torch.equal(mmap.bins.tri, bins.tri)
+        same = all(np.array_equal(bits(m.vertices), bits(mesh.vertices))
+                   and np.array_equal(m.faces, mesh.faces) for m in (loaded, mmap.mesh))
+        zeros = int((loaded.vertices.view(np.int32) != mesh.vertices.view(np.int32)).sum())
+        log(f"phase 14c {ext.upper()}: {os.path.getsize(paths[ext]) / 1e6:.1f} MB written in "
+            f"{write_s:.2f} s, loaded in {load_s:.2f} s; vertices and faces "
+            f"{'bitwise' if ext == 'ply' else 'equal in value'} the in-memory mesh's: {same} "
+            f"({zeros} coordinates differ in their bits: zeros read back as -0.0); "
+            f"MeshMap.from_file's bins {'bitwise' if ext == 'ply' else 'equal in value'}: "
+            f"{same_bins}")
+        if not (same and same_bins):
+            fail(f"phase 14c: the {ext} map differs from the in-memory building")
+    # the CLI on the PLY map over phase 12's first scans, against phase 12's OBJ run
+    log_path = os.path.join(FORMAT_DIR, "run3.npz")
+    full, short = MessageLog.load(os.path.join(NODE_DIR, "run.npz"), device="cpu"), MessageLog()
+    for r in full:
+        if r.stamp < 0.1 * (FORMAT_SCANS - 0.5):
+            short.add(r.stamp, r.kind, r.channel, r.payload)
+    short.save(log_path)
+    guess = [f"{v:.6f}" for v in (*NODE_START, 0.0, 0.0, 0.0)]  # phase 12's first pose
+    out_path = os.path.join(FORMAT_DIR, "track_ply.npz")
+    reset_counts()
+    run_cli("phase 14c micp_localization [ply]", micp_localization.main,
+            ["--device", "cuda", "--map", paths["ply"], "--log", log_path, "--steps-per-scan",
+             str(NODE_STEPS_PER_SCAN), "--out", out_path, "--initial-pose-guess", *guess])
+    counts = read_counts()
+    require_launches("phase 14c CLI", counts, ("K3r", "K1"))
+    ply = np.load(out_path)["trans"]
+    obj = np.load(os.path.join(NODE_DIR, "track_rc.npz"))["trans"][:FORMAT_SCANS]
+    gap = float(np.linalg.norm(ply - obj, axis=1).max()) if ply.shape == obj.shape else np.inf
+    log(f"phase 14c the CLI on the PLY map ({FORMAT_SCANS} scans): {ply.shape[0]} poses, at most "
+        f"{gap:.3g} m from phase 12's OBJ run; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if not gap <= NODE_ERR_MAX:
+        fail(f"phase 14c: the PLY run's poses are {gap} m off the OBJ run's")
+    return dict(cli_gap=gap)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test drives the port on the card")
@@ -3156,6 +4037,9 @@ def main():
     r11c = phase_mcl_node(r11)
     r12 = phase_node_and_tools()
     r13 = phase_dense_sweep(sweep_r, main_r)
+    r14a = phase_backward(sphere_mesh)
+    r14b = phase_scene_graph()
+    r14c = phase_map_formats()
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -3167,22 +4051,23 @@ def main():
         row(name, "rmcl_tpu_torch/csrc/cull_blocks.cu", replaces, r), bitwise=r["bitwise"],
         call_ms=r["call_ms"], cull_e2e_ms=r["e2e_ms"], back_end_ms=r["back_ms"],
         back_end_bound_ms=r["back_bound_ms"])
-    p11 = lambda r, **extra: dict({k: r[k] for k in ("ms", "bound_ms", "bound_by", "launches",
-                                                       "plain_ms", "max_abs_err", "blocks",
-                                                       "plain_blocks")},
-                                  roofline=r["bound_ms"] / r["ms"], **extra)
     log(json.dumps({"kernels": [
         dict(row("intersect_bins", "rmcl_tpu_torch/csrc/intersect_bins.cu",
                  "rmcl_tpu/ops/raycast_pallas.py:35", main_r),
-             phase11=p11(r11["k1"], order="count", block_order_ms=r11["k1"]["unsorted_ms"])),
+             phase11=sub_row(r11["k1"], order="count", block_order_ms=r11["k1"]["unsorted_ms"]),
+             phase14a=sub_row(r14a["k1"], timed_by="device trace", order="count",
+                              block_order_ms=r14a["k1"]["unsorted_ms"])),
         dict(k3_row("cull_rays", "rmcl_tpu/ops/raycast_binned.py:751", main_r["k3"]),
-             phase11_hyper=p11(r11["k3"], timed_by="device trace", bitwise=r11["k3"]["bitwise"],
-                               registers=r11["k3"]["registers"]),
-             phase11_mid=p11(r11b["kmid"], timed_by="device trace", bitwise=True,
-                             replaces="rmcl_tpu/ops/raycast_binned.py:644",
-                             c_mid=r11b["kmid"]["cm"],
-                             two_level_ms=r11b["kmid"]["two_level_ms"],
-                             registers=r11["k3"]["registers"])),
+             phase11_hyper=sub_row(r11["k3"], timed_by="device trace",
+                                   bitwise=r11["k3"]["bitwise"],
+                                   registers=r11["k3"]["registers"]),
+             phase11_mid=sub_row(r11b["kmid"], timed_by="device trace", bitwise=True,
+                                 replaces="rmcl_tpu/ops/raycast_binned.py:644",
+                                 c_mid=r11b["kmid"]["cm"],
+                                 two_level_ms=r11b["kmid"]["two_level_ms"],
+                                 registers=r11["k3"]["registers"]),
+             phase14a=sub_row(r14a["k3"], timed_by="device trace",
+                              bitwise=r14a["k3"]["bitwise"])),
         k3_row("cull_factored", "rmcl_tpu/ops/raycast_binned.py:1370", sweep_r["k3"]),
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),
@@ -3197,11 +4082,13 @@ def main():
              phases={ph: {k: r[k] for k in ("ms", "bound_ms", "bound_by", "launches")}
                      for ph, r in (("8", exact_r["k5"]), ("9", ref_r["k5"]), ("10", mcl_r),
                                    ("11", r11b["k5"]))},
+             phase14b=sub_row(r14b["k5"], bitwise=True),
              phase10_angular_ms=mcl_r["angular_ms"]),
         dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
                  "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True,
              split=exact_r["k6"]["split"],
-             registers=exact_r["registers"][f"K6 P={exact_r['k6']['split']}"][0]),
+             registers=exact_r["registers"][f"K6 P={exact_r['k6']['split']}"][0],
+             phase14b=sub_row(r14b["k6"], bitwise=True, split=r14b["k6"]["split"])),
         dict(row("closest_bins", "rmcl_tpu_torch/csrc/closest_bins.cu",
                  "rmcl_tpu/ops/closest_point.py:445", exact_r["k6b"]), bitwise=True,
              groups=exact_r["k6b"]["groups"], registers=exact_r["registers"]["K6b"][0]),
@@ -3220,6 +4107,12 @@ def main():
     log("phase 13 dense and fused sweeps: " + json.dumps(
         {k: r13[k] for k in ("ms", "rays_per_s", "hit_frac", "sat_share", "iter_err", "steps",
                              "fused_ms", "unfused_ms", "fused_gap", "fused_residual", "sah")}))
+    log("phase 14 the differentiable cast, the scene graph and the map formats: " + json.dumps(
+        {"14a": {k: r14a[k] for k in ("ms", "hit_frac", "t_rel", "budgets", "bvh_agree",
+                                      "bvh_t_rel", "bench")},
+         "14b": {k: r14b[k] for k in ("ms", "budgets", "faces", "hit_frac", "tlas_vs", "flat_vs",
+                                      "refine_err", "grads")},
+         "14c": r14c}))
     log("phase 12 ms per correction (median, host clock): " + json.dumps(
         {k: round(v["ms"], 4) for k, v in r12["runs"].items()}))
     log(f"card: {smi}")

@@ -1,4 +1,4 @@
-"""Carry state across from arrays: the map's bins, its BVH and poses.
+"""Carry state across from arrays: the map's bins, its BVH, poses and scenes.
 
 The system has no weights; its state is the map. These helpers build the
 port's objects from plain numpy arrays — for example the fields of another
@@ -8,7 +8,7 @@ identical packing.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +91,23 @@ def particles_from_arrays(arrays: Dict[str, np.ndarray], device="cuda"):
         state_sigma=f32("state_sigma"),
         alive=torch.from_numpy(np.array(arrays["alive"], dtype=bool)).to(dev),
     )
+
+
+def scene_from_arrays(geometries: Mapping[str, Tuple[np.ndarray, np.ndarray]],
+                      instances: Sequence[Mapping], device="cuda"):
+    """``SceneGraph`` from numpy: ``geometries`` name -> (vertices (V, 3),
+    faces (F, 3)); ``instances`` in order, each a mapping with ``geometry``,
+    ``rot`` (4,) [w,x,y,z], ``trans`` (3,), ``scale`` and optionally
+    ``name`` — for example another package's scene, so that both hold the
+    identical instances. The poses live on ``device``."""
+    from rmcl_tpu_torch.geom.mesh import TriangleMesh
+    from rmcl_tpu_torch.geom.scene import SceneGraph
+
+    scene = SceneGraph()
+    for name, (vertices, faces) in geometries.items():
+        scene.add_geometry(name, TriangleMesh(vertices, faces, name))
+    for inst in instances:
+        scene.add_instance(inst["geometry"],
+                           transform_from_arrays(inst["rot"], inst["trans"], device=device),
+                           scale=float(inst["scale"]), name=inst.get("name", ""))
+    return scene

@@ -1,7 +1,8 @@
 """Map container: mesh + acceleration structures under one handle.
 
-Counterpart of ``rmcl_tpu.geom.map.MeshMap``. One map carries both device
-structures, so a pipeline picks the engine per query type:
+Counterpart of ``rmcl_tpu.geom.map``: ``MeshMap`` and the name→map registry
+``MapContainer``. One map carries both device structures, so a pipeline
+picks the engine per query type:
 
   * ``bvh``  — threaded BVH for exact traversal and closest-point queries
   * ``bins`` — triangle bins for the dense binned engine
@@ -10,7 +11,7 @@ structures, so a pipeline picks the engine per query type:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins, build_bins
 from rmcl_tpu_torch.bvh.builder import build_bvh
@@ -58,3 +59,29 @@ class MeshMap:
     @staticmethod
     def from_file(path: str, **kwargs) -> "MeshMap":
         return MeshMap.from_mesh(load_mesh(path), **kwargs)
+
+
+class MapContainer:
+    """Name→map registry shared between pipelines (counterpart of
+    ``rmcl_tpu.geom.map.MapContainer``): one entry serves every engine. Every
+    map it loads lives on ``device``."""
+
+    def __init__(self, device="cuda") -> None:
+        self.device = device
+        self._maps: Dict[str, MeshMap] = {}
+
+    def load(self, name: str, path_or_mesh) -> MeshMap:
+        if name not in self._maps:
+            if isinstance(path_or_mesh, TriangleMesh):
+                self._maps[name] = MeshMap.from_mesh(path_or_mesh, name=name,
+                                                     device=self.device)
+            else:
+                self._maps[name] = MeshMap.from_file(path_or_mesh, name=name,
+                                                     device=self.device)
+        return self._maps[name]
+
+    def get(self, name: str) -> MeshMap:
+        return self._maps[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._maps

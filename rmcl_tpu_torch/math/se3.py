@@ -303,3 +303,11 @@ class Transform:
             rot=self.rot.reshape(tuple(batch_shape) + (4,)),
             trans=self.trans.reshape(tuple(batch_shape) + (3,)),
         )
+
+
+def transform_stack(transforms) -> Transform:
+    """Stack a python list of Transforms along a new leading axis."""
+    return Transform(
+        rot=torch.stack([t.rot for t in transforms]),
+        trans=torch.stack([t.trans for t in transforms]),
+    )

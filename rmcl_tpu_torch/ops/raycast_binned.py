@@ -214,8 +214,11 @@ def cast_rays_binned(
     if pmode not in ("select", "index", "none"):
         raise ValueError(f"unknown payload mode {payload!r}")
     o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
-    inputs, sat = _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin,
-                                 sub_blocks, c_hyper, c_mid)
+    # the cull and the kernels choose winners only: no gradient enters them
+    # (t, point and normal are re-derived from the winner's plane below)
+    inputs, sat = _kernel_inputs(bins, o.detach(), d.detach(), t_min_r.detach(),
+                                 t_max_r.detach(), block_size, c_super, c_bin, sub_blocks,
+                                 c_hyper, c_mid)
     order = None
     if sort_blocks:
         order = torch.argsort(inputs[5], stable=True).to(torch.int32)

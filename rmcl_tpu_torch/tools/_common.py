@@ -16,15 +16,12 @@ def add_device_argument(ap: argparse.ArgumentParser) -> None:
 
 
 def load_map(path: str, bin_size: int = 64, bins_per_super: int = 64, device="cuda"):
-    """The map file as a MeshMap on ``device`` (OBJ: the port's only mesh
-    format so far; other formats raise, naming the file)."""
+    """The map file (any format of :func:`rmcl_tpu_torch.geom.mesh.load_mesh`)
+    as a MeshMap on ``device``."""
     from rmcl_tpu_torch.geom.map import MeshMap
 
-    try:
-        return MeshMap.from_file(path, bin_size=bin_size, bins_per_super=bins_per_super,
-                                 device=device)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{path}: {e}") from e
+    return MeshMap.from_file(path, bin_size=bin_size, bins_per_super=bins_per_super,
+                             device=device)
 
 
 def load_config(path: str | None):

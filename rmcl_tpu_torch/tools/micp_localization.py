@@ -24,7 +24,8 @@ from rmcl_tpu_torch.tools._common import add_device_argument
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--map", required=True, help="mesh map file (obj)")
+    ap.add_argument("--map", required=True,
+                    help="mesh map file (obj, stl, ply, off, dae, gltf, glb, 3mf, x3d, 3ds)")
     ap.add_argument("--log", required=True, help="NPZ MessageLog (odom + scan records)")
     ap.add_argument("--config", default=None, help="YAML config (reference schema)")
     ap.add_argument("--out", default=None, help="pose-track NPZ output")

@@ -67,8 +67,8 @@ def test_load_obj_matches_jax(tmp_path):
     np.testing.assert_array_equal(a.vertices, b.vertices)
     np.testing.assert_array_equal(a.faces, b.faces)
     assert b.name == "quad.obj" and b.n_faces == 3
-    with pytest.raises(NotImplementedError):
-        tm.load_mesh(str(tmp_path / "x.ply"))
+    with pytest.raises(ValueError, match="unsupported mesh format '.xyz'"):
+        tm.load_mesh(str(tmp_path / "x.xyz"))
 
 
 BIN_CASES = [("room", 32, 8), ("room", 8, 4), ("building", 32, 16), ("building", 64, 8)]

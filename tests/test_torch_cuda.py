@@ -1191,3 +1191,181 @@ def test_node_step_on_card_matches_cpu(card, engine, corr):
     assert launches["cuda"][want] == len(scans) and launches["cpu"][want] == 0
     if want == "K7":
         assert launches["cuda"]["K6b"] == len(scans)
+
+
+# --- the differentiable cast, scene graphs and the TLAS ---
+
+
+def _scene_launches():
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bvh
+    from rmcl_tpu_torch.ops.cull_cuda import cull_rays
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    return {"K1": intersect_bins, "K3": cull_rays, "K5": traverse_rays, "K6": closest_bvh}
+
+
+def _count(fn):
+    """(result of fn(), the launches it made of K1, K3, K5 and K6)."""
+    wrappers = _scene_launches()
+    before = {k: f.launches for k, f in wrappers.items()}
+    out = fn()
+    return out, {k: f.launches - before[k] for k, f in wrappers.items()}
+
+
+@pytest.mark.parametrize("engine", ["bvh", "bins"])
+def test_cast_rays_diff_on_card_matches_cpu(card, engine):
+    """cast_rays_diff on the card against the CPU's plain run: the winners
+    equal (K5 bitwise its plain version; K1 on K3's lists), t and the
+    vertex gradient within T_TOL (the card's rsqrt and the vertex
+    gradient's scatter-add of atomics round apart from the CPU's), and the
+    kernels launched, one cast each."""
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.ops.diff import cast_rays_diff
+
+    mesh = make_sphere(48, 48, radius=2.0)
+    kw = dict(block_size=128, sort_blocks=True, c_super=64, c_bin=1024) if engine == "bins" else {}
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = rng.uniform(-0.5, 0.5, (4096, 3)).astype(np.float32)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        struct = (build_bvh(mesh, device=dev) if engine == "bvh"
+                  else build_bins(mesh, bin_size=32, bins_per_super=8, device=dev))
+        verts = torch.from_numpy(mesh.vertices.copy()).to(dev).requires_grad_(True)
+        orig = torch.from_numpy(o).to(dev).requires_grad_(True)
+        faces, dirs = torch.from_numpy(mesh.faces).to(dev), torch.from_numpy(d).to(dev)
+        h, launches = _count(lambda: cast_rays_diff(struct, verts, faces, orig, dirs, **kw))
+        torch.where(h.hit, h.t, 0.0).sum().backward()
+        out[dev.type] = (h, verts.grad, orig.grad, launches)
+    (g, gv, go, gl), (c, cv, co, cl) = out["cuda"], out["cpu"]
+    want = {"K5": 1} if engine == "bvh" else {"K1": 1, "K3": 1}
+    assert {k: v for k, v in gl.items() if v} == want and not any(cl.values())
+    assert torch.equal(g.hit.cpu(), c.hit) and float(c.hit.float().mean()) > 0.99
+    assert torch.equal(g.prim_id.cpu(), c.prim_id)
+    torch.testing.assert_close(g.t.detach().cpu(), c.t.detach(), rtol=T_TOL, atol=T_TOL)
+    torch.testing.assert_close(gv.cpu(), cv, rtol=T_TOL, atol=T_TOL)
+    torch.testing.assert_close(go.cpu(), co, rtol=T_TOL, atol=T_TOL)
+
+
+def _mixed_scene(dev):
+    """``tests/test_tlas.py``'s scene in the port: two boxes (one at scale
+    2) and a ball."""
+    from rmcl_tpu_torch.geom.mesh import make_box
+    from rmcl_tpu_torch.geom.scene import SceneGraph
+
+    sg = SceneGraph()
+    sg.add_geometry("box", make_box((1.0, 1.0, 1.0)))
+    sg.add_geometry("ball", make_sphere(24, 24, radius=1.0))
+    pose = lambda p: Transform.from_pose_tuple(p, device=dev)
+    sg.add_instance("box", pose([4.0, 0, 0, 0, 0, 0.3]))
+    sg.add_instance("box", pose([-4.0, 1.0, 0, 0, 0, 0]), scale=2.0)
+    sg.add_instance("ball", pose([0.0, 5.0, 0.5, 0, 0, 0]))
+    return sg
+
+
+def _fan_rays(dev, n=4096, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def test_tlas_on_card_matches_cpu(card):
+    """cast_rays_tlas on the mixed scene (its scale-2 box included) on the
+    card against the CPU's plain run: hits and ids equal, t and normals
+    within T_TOL; one K3 and one K1 launch per instance, in count order; and
+    against the flattened scene's exact cast (K5) on the card."""
+    from rmcl_tpu_torch.geom.tlas import build_tlas, cast_rays_tlas
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        tlas = build_tlas(_mixed_scene(dev), bin_size=16, bins_per_super=8, device=dev)
+        o, d = _fan_rays(dev)
+        out[dev.type] = _count(lambda: cast_rays_tlas(tlas, o, d, block_size=32,
+                                                      sort_blocks=True, c_super=64, c_bin=256))
+    (g, gl), (c, cl) = out["cuda"], out["cpu"]
+    assert gl["K1"] == gl["K3"] == 3 and not any(cl.values())
+    assert torch.equal(g.hit.cpu(), c.hit) and set(c.inst_id[c.hit].tolist()) == {0, 1, 2}
+    assert torch.equal(g.inst_id.cpu(), c.inst_id) and torch.equal(g.prim_id.cpu(), c.prim_id)
+    torch.testing.assert_close(g.t.cpu(), c.t, rtol=T_TOL, atol=T_TOL)
+    torch.testing.assert_close(g.normal.cpu(), c.normal, rtol=0.0, atol=T_TOL)
+    acc = _mixed_scene(card).build(bin_size=16, bins_per_super=8, device=card)
+    o, d = _fan_rays(card)
+    f = cast_rays(acc.bvh, o, d)
+    assert torch.equal(f.hit, g.hit) and torch.equal(f.inst_id, g.inst_id)
+    torch.testing.assert_close(f.t[f.hit], g.t[f.hit], rtol=T_TOL, atol=T_TOL)
+
+
+def test_tlas_pose_gradients_through_the_kernels_match_cpu(card):
+    """Gradients of the sum of hit t with respect to every instance's
+    quaternion, translation and scale, requested through the kernel path
+    (K3 + K1 on the card, with the chained t_max carrying grad), against the
+    CPU's plain run within T_TOL."""
+    from rmcl_tpu_torch.geom.tlas import build_tlas, cast_rays_tlas
+
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        tlas = build_tlas(_mixed_scene(dev), bin_size=16, bins_per_super=8, device=dev)
+        o, d = _fan_rays(dev, n=1024, seed=2)
+        args = [x.clone().requires_grad_(True)
+                for x in (tlas.poses.rot, tlas.poses.trans, tlas.scales)]
+        (h, launches) = _count(lambda: cast_rays_tlas(
+            tlas, o, d, poses=Transform(rot=args[0], trans=args[1]), scales=args[2],
+            block_size=32))
+        torch.where(h.hit, h.t, 0.0).sum().backward()
+        assert launches["K1"] == (3 if dev.type == "cuda" else 0)
+        grads[dev.type] = [a.grad for a in args]
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+        torch.testing.assert_close(g.cpu(), c, rtol=T_TOL, atol=T_TOL)
+
+
+def test_closest_points_tlas_on_card_matches_cpu(card):
+    """closest_points_tlas on the card (one K6 launch per instance, bounded
+    by the best distance so far) against the CPU's plain run."""
+    from rmcl_tpu_torch.geom.tlas import build_tlas, closest_points_tlas
+
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.uniform(-6, 6, size=(4096, 3)).astype(np.float32))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        tlas = build_tlas(_mixed_scene(dev), bin_size=16, bins_per_super=8, device=dev)
+        out[dev.type] = _count(lambda: closest_points_tlas(tlas, q.to(dev), max_dist=4.0))
+    ((g, gi), gl), ((c, ci), cl) = out["cuda"], out["cpu"]
+    assert gl["K6"] == 3 and not any(cl.values())
+    assert torch.equal(g.found.cpu(), c.found) and torch.equal(gi.cpu(), ci)
+    assert torch.equal(g.prim_id.cpu(), c.prim_id)
+    torch.testing.assert_close(g.dist.cpu(), c.dist, rtol=T_TOL, atol=T_TOL)
+    torch.testing.assert_close(g.point.cpu(), c.point, rtol=0.0, atol=T_TOL)
+
+
+def test_refine_instance_pose_on_card_matches_cpu(card):
+    """refine_instance_pose on the card (its local BVH built there, one K5
+    launch a step) against the CPU: the losses and the refined centre."""
+    from rmcl_tpu_torch.geom.scene import SceneGraph, refine_instance_pose
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+
+    rng = np.random.default_rng(0)
+    d = np.stack([np.ones(256), rng.uniform(-0.2, 0.2, 256), rng.uniform(-0.2, 0.2, 256)], -1)
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        scenes = []
+        for p in ([4.0, 0.15, -0.1, 0, 0, 0], [4.0, 0.0, 0.0, 0, 0, 0]):
+            sg = SceneGraph()
+            sg.add_geometry("ball", make_sphere(32, 32, radius=1.0))
+            sg.add_instance("ball", Transform.from_pose_tuple(p, device=dev))
+            scenes.append(sg.build(bin_size=16, bins_per_super=8, device=dev))
+        o = torch.zeros((256, 3), device=dev)
+        meas = cast_rays(scenes[0].bvh, o, d.to(dev)).t
+        (delta, losses), launches = _count(
+            lambda: refine_instance_pose(scenes[1], 0, o, d.to(dev), meas, steps=8))
+        assert launches["K5"] == (8 if dev.type == "cuda" else 0)
+        res[dev.type] = (losses, (delta @ scenes[1].scene.instances[0].pose).trans)
+    (gl, gc), (cl, cc) = res["cuda"], res["cpu"]
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-2, atol=0.0)
+    torch.testing.assert_close(gc.cpu(), cc, rtol=0.0, atol=2e-5)
+    torch.testing.assert_close(gc.cpu(), torch.tensor([4.0, 0.15, -0.1]), rtol=0.0, atol=0.02)

@@ -104,6 +104,19 @@ def test_transform_batch_helpers(rng):
     _close(np.tile([1.0, 0, 0, 0], (4, 1)), ident.rot)
 
 
+def test_transform_stack_matches_jax(rng):
+    """Stacking a list of poses along a new leading axis, as the scene
+    graph's instance table does."""
+    ja, ta = _pair(rng, 4)
+    js_stack = js.transform_stack([ja[i] for i in range(4)])
+    ts_stack = ts.transform_stack([ta[i] for i in range(4)])
+    assert ts_stack.batch_shape == (4,)
+    _close(js_stack.rot, ts_stack.rot)
+    _close(js_stack.trans, ts_stack.trans)
+    nested = ts.transform_stack([ta[0:2], ta[2:4]])
+    assert nested.batch_shape == (2, 2) and torch.equal(nested.reshape((4,)).rot, ta.rot)
+
+
 @pytest.mark.parametrize("fn", ["exp", "log", "from_euler", "to_euler"])
 def test_quaternion_maps_match_jax(rng, fn):
     v = (0.8 * rng.normal(size=(32, 3))).astype(np.float32)

@@ -183,9 +183,9 @@ def test_tools_default_to_the_card_and_name_unported_formats(world_and_log, tmp_
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         micp_localization.main(["--map", map_path, "--log", log_path])
-    ply = str(tmp_path / "world.ply")
-    with pytest.raises(NotImplementedError, match="world.ply"):
-        micp_localization.main(["--map", ply, "--log", log_path, "--device", "cpu"])
+    xyz = str(tmp_path / "world.xyz")
+    with pytest.raises(ValueError, match="unsupported mesh format '.xyz'"):
+        micp_localization.main(["--map", xyz, "--log", log_path, "--device", "cpu"])
 
 
 def test_golden_micp_track():
