@@ -132,7 +132,29 @@ Phases (any failure ends the run with a nonzero exit code):
    versions; (c) the building written as binary PLY and as GLB, read back
    by ``load_mesh`` and ``MeshMap.from_file`` (PLY bitwise, GLB equal in
    value), and the MICP-L CLI on the PLY map over phase 12's first 3 scans
-   against phase 12's OBJ run.
+   against phase 12's OBJ run;
+15. multi-device (``rmcl_tpu_torch.parallel``) on ranks that share the
+   card, spawned after the kernels are built: NCCL at world size 1, gloo at
+   2 and 4 (NCCL refuses two ranks on one GPU): (a) the JAX scaling
+   benchmark's workload (scripts/bench_scaling.py, not cut: a 3600 x 64
+   scan, 230,400 rays, on the ~1M-face sphere) corrected from +0.05 m z by
+   ``sharded_correct_once`` on the bins (K3 + K1) and on the BVH (K5), and
+   phase 8's CP-on-bins correction (K7 + K6b), each against the unsharded
+   correction (pose within 1e-4, matches within 1e-5 relative), with K + 1
+   = 6 all-reduces and one launch a kernel on every rank, timed; (b) on 4
+   ranks, phase 11a's 1,048,576 particles x 100 beams: the binned and
+   bvh sensor updates against the unsharded ones (no collective), the
+   tournament on the doubling schedule (one permute), the dynamic
+   residual resampler (one all-gather, shares summing to the target), the
+   likelihood statistics and a sharded checkpoint (bitwise), each rank's
+   peak memory; (c) phase 14a's sharded backward (1,440,000 rays, one
+   all-reduce) against the unsharded loss and gradients; (d) on 4 ranks,
+   phase 4's building in 4 shards on a ("scene",) mesh and in 2 on a
+   ("rays", "scene") 2 x 2 mesh, phase 14b's 1,440,000 rays at budgets no
+   block of any shard saturates: both scene-sharded casts against the
+   unsharded cast, every differing ray named and allowed only where its
+   exact winner's bin is absent from a block list (the cull's flat-bin
+   fault), the election's collectives counted. A failed rank fails the run.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -453,6 +475,19 @@ REFINE_RANGE = 1.5  # m from the sensor to the ball's centre
 # phase 14c: map files written here (git-ignored), the CLI on a short log
 FORMAT_DIR = "build/phase14"
 FORMAT_SCANS = 3
+
+
+# phase 15: the JAX scaling benchmark's scan (scripts/bench_scaling.py: 3600 x 64
+# on the ~1M-face sphere from (1, -2, 0.5)), corrected from +0.05 m z; the
+# world sizes and their backends (NCCL refuses two ranks on one card)
+P15_SCAN = (3600, 64)
+P15_TRUE = [1.0, -2.0, 0.5, 0.0, 0.0, 0.0]
+P15_DZ = 0.05
+P15_REPS = 10
+P15_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+P15_TIMEOUT = 600.0  # s a launch: a rank that hangs fails the run
+P15_SEED = 15
+P15_CKPT = "build/phase15/checkpoint"
 
 
 def log(msg):
@@ -2689,7 +2724,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
                 f"cb={inputs[2].shape[1]})", r7)
         + f"; binned_inputs (blocks + K7) {r7['inputs_ms']:.3f} ms a call by events")
     return dict(k5=r5, k6=r6, k6b=r6b, k7=r7, hit_frac=hit_frac, cast_ms=cast_ms,
-                bins_ms=bins_ms, exact_ms=exact_ms, binned_steps=steps)
+                bins_ms=bins_ms, exact_ms=exact_ms, binned_steps=steps, bvh=bvh)
 
 
 def node_log(model, bvh):
@@ -3440,7 +3475,7 @@ def phase_backward(sphere_mesh):
     k1, k3 = check_binned_kernels("phase 14a", "the audited backward cast's", bins, inputs,
                                   order, 4, rcs, rcb, min(ch, bins.n_hyper), {"K1": 1, "K3r": 1})
     return dict(r, bench=bench, budgets=(cs, cb, ch), bvh_agree=agree, bvh_t_rel=bvh_rel,
-                k1=k1, k3=k3)
+                k1=k1, k3=k3, bins=bins)
 
 
 def phase14_scene(building):
@@ -4007,6 +4042,538 @@ def phase_map_formats():
     return dict(cli_gap=gap)
 
 
+def p15_close(label, got, want, rtol, atol):
+    """Fail unless ``got`` is within rtol/atol of ``want`` (numpy); the
+    largest absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    if not (err <= atol + rtol * np.abs(want)).all():
+        fail(f"{label}: {int((err > atol + rtol * np.abs(want)).sum())} values beyond rtol "
+             f"{rtol}, atol {atol} (largest difference {float(err.max()):.3g})")
+    return float(err.max()) if err.size else 0.0
+
+
+def p15_launch(world, backend, jobs):
+    """The jobs on ``world`` ranks that share the card (each rank on device
+    0); raises, and so fails the run, if a rank fails."""
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    runs = launch(pg.run_jobs, world, backend, ("cuda", jobs), timeout=P15_TIMEOUT)
+    log(f"phase 15 launch: {world} rank(s) on {backend}, {len(jobs)} jobs in "
+        f"{time.perf_counter() - t0:.1f} s (process start and group set-up included)")
+    return runs
+
+
+def p15_require(label, runs, job, want_counts, want_launches, key=None):
+    """Every rank's collective counts equal ``want_counts`` and each kernel
+    of ``want_launches`` launched that many times."""
+    for rank, r in enumerate(runs):
+        c = r[job]["counts"] if key is None else r[job]["counts"][key]
+        k = r[job]["launches"] if key is None else r[job]["launches"][key]
+        c = c[0] if isinstance(c, list) else c
+        k = k[0] if isinstance(k, list) else k
+        if c != want_counts:
+            fail(f"{label} rank {rank}: collectives {c}, expected {want_counts}")
+        for name, n in want_launches.items():
+            if k[name] != n:
+                fail(f"{label} rank {rank}: {name} launched {k[name]} times, expected {n}")
+
+
+def phase_multi_device(sphere_mesh, sphere_bins, sphere_bvh, r14a):
+    """Phase 15: the sharded paths of rmcl_tpu_torch.parallel on ranks that
+    share the card: NCCL at world size 1, gloo at 2 and 4 (NCCL refuses two
+    ranks on one GPU). (a) the JAX scaling benchmark's sharded MICP-L
+    correction (scripts/bench_scaling.py: the ~1M-face sphere, one 3600 x 64
+    scan) on the bins (K3 + K1) and the BVH (K5), and a CP-on-bins
+    correction at phase 8's size (K7 + K6b), each against the unsharded one;
+    (b) sharded MCL at phase 11a's workload on 4 ranks: the binned and bvh
+    sensor updates, the tournament, the dynamic residual resampler, the
+    statistics and a sharded checkpoint; (c) the sharded backward at phase
+    14a's workload; (d) the scene-sharded casts on phase 4's building at
+    phase 14b's rays, on ("scene",) of 4 and ("rays", "scene") of 2 x 2.
+    Ranks that share one card measure what the collectives cost on this
+    card and transport, not scaling."""
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.micp.pipeline import (MICPConfig, MICPSensorConfig, MICPSensorData,
+                                              correct_once)
+    from rmcl_tpu_torch.ops.diff import cast_rays_diff
+    from rmcl_tpu_torch.ops.raycast import NO_HIT_T, cast_rays
+    from rmcl_tpu_torch.ops.raycast_binned import (_kernel_inputs, block_cull_stats,
+                                                   cast_rays_binned)
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.sensors.models import SphericalModel
+    from rmcl_tpu_torch.sensors.simulate import simulate
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    layout = lambda w: ((w,), ("rays",))
+    tbo = Transform.identity()
+    out = {}
+
+    # -- (a) the sharded correction: inputs and the unsharded references --
+    model = SphericalModel.create(width=P15_SCAN[0], height=P15_SCAN[1], phi_min=-0.4,
+                                  phi_max=0.3, range_max=200.0)
+    true = Transform.from_pose_tuple(P15_TRUE)
+    hits = simulate(sphere_bvh, model, true)
+    sensor = MICPSensorData(model=model, points=hits.point, mask=hits.hit, tsb=tbo,
+                            config=MICPSensorConfig.create(max_dist=2.0))
+    start = Transform.from_pose_tuple([P15_TRUE[0], P15_TRUE[1], P15_TRUE[2] + P15_DZ, 0, 0, 0])
+    building = make_building_scene(subdiv=BUILDING_SUBDIV)
+    bmap = MeshMap.from_mesh(building)
+    vlp = SphericalModel.vlp16()
+    b_true = Transform.from_pose_tuple([9.0, 3.0, 1.5, 0.0, 0.0, 0.3])
+    b_hits = simulate(bmap.bvh, vlp, b_true)
+    cp_sensor = MICPSensorData(model=vlp, points=b_hits.point, mask=b_hits.hit, tsb=tbo,
+                               config=MICPSensorConfig.create(max_dist=EXACT_MAX_DIST,
+                                                              corr_type="CP"))
+    # the CP query's budgets: what the fullest query block of any rank's
+    # share needs (a rank's share blocks its queries apart from the whole
+    # scan's, so truncated lists would differ between world sizes)
+    cp_start = Transform.from_pose_tuple(EXACT_START)
+    q = cp_start.apply(b_hits.point)
+    need = [0, 0]
+    for world, _ in P15_WORLDS:
+        for part in q.chunk(world):
+            for k, n in enumerate(cp_budget_need(bmap.bins, part.contiguous(), EXACT_MAX_DIST)):
+                need[k] = max(need[k], int(n.max()))
+    corrections = {"bins": (sphere_bins, sensor, start, MICPConfig(), {"K1": 1, "K3r": 1}),
+                   "bvh": (sphere_bvh, sensor, start, MICPConfig(), {"K5": 1}),
+                   "cp_bins": (bmap.bins, cp_sensor, cp_start,
+                               MICPConfig(c_super=need[0], c_bin=need[1]), {"K7": 1, "K6b": 1})}
+    ref_a = {}
+    for key, (accel, s, tom, config, _) in corrections.items():
+        correct_once(accel, [s], tom, tbo, 0.0, config)  # warm-up
+        times = []
+        for _ in range(P15_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pose, stats = correct_once(accel, [s], tom, tbo, 0.0, config)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ref_a[key] = dict(pose=torch.cat([pose.rot, pose.trans]).cpu().numpy(),
+                          matches=float(stats.valid_matches), ms=statistics.median(times))
+    log(f"phase 15a inputs: the sphere's {sphere_mesh.n_faces} faces, a {model.width} x "
+        f"{model.height} scan ({model.n_rays} rays, {int(hits.hit.sum())} hits) from "
+        f"+{P15_DZ} m z; phase 8's CP scan ({vlp.n_rays} points) on the building's "
+        f"{building.n_faces} faces at c_super {need[0]}, c_bin {need[1]} (no query block of "
+        f"any world size's shares truncates); unsharded ms/correction (median of "
+        f"{P15_REPS}): " + ", ".join(f"{k} {v['ms']:.3f}" for k, v in ref_a.items()))
+    a_jobs = [(f"a_{key}", None, pg.correct_job, pg.to_host(dict(
+        accel=accel, sensors=[s], tom=tom, tbo=tbo, config=config, reps=P15_REPS)))
+        for key, (accel, s, tom, config, _) in corrections.items()]
+
+    # -- (c) the sharded backward: phase 14a's rays and bins, its audited
+    # budgets raised until no block of any world size's shares saturates (a
+    # share of 360,000 rays starts mid-block, so its blocks are not the
+    # unsharded cast's) --
+    bw_bins, (cs, cb, ch) = r14a["bins"], r14a["budgets"]
+    bw_model = SphericalModel.vlp16(width=900)
+    _, bw_dirs = bw_model.rays("cuda")
+    trans0 = torch.from_numpy(np.random.default_rng(0).uniform(
+        -5, 5, (BW_POSES, 3)).astype(np.float32)).cuda()
+    dirs = bw_dirs[None].expand(BW_POSES, -1, 3).reshape(-1, 3).contiguous()
+    pose_id = torch.arange(BW_POSES, device="cuda").repeat_interleave(bw_model.n_rays)
+    origins = trans0[pose_id]
+    for _ in range(SCENE_AUDIT_ROUNDS):
+        sat = {f"{w}.{r}": int(block_cull_stats(
+            bw_bins, o_r, d_r, block_size=BW_CAST["block_size"], c_super=cs, c_bin=cb,
+            c_hyper=ch)[1].sum())
+            for w, _ in P15_WORLDS
+            for r, (o_r, d_r) in enumerate(zip(origins.chunk(w), dirs.chunk(w)))}
+        log(f"phase 15c audit at c_super {cs}, c_bin {cb}, c_hyper {ch}: saturated blocks "
+            f"(world.rank) {sat}")
+        if not any(sat.values()):
+            break
+        cs, cb, ch = 2 * cs, 2 * cb, 2 * ch
+    else:
+        fail(f"phase 15c: blocks still saturate at c_super {cs}, c_bin {cb}, c_hyper {ch}")
+    bw_kw = dict(BW_CAST, c_super=cs, c_bin=cb, c_hyper=ch)
+    del origins
+    verts0 = torch.from_numpy(sphere_mesh.vertices).cuda()
+    faces = torch.from_numpy(sphere_mesh.faces).cuda()
+    # a share's blocks are not the unsharded cast's where a share starts
+    # mid-block (360,000 rays at world size 4), and the cull's flat-bin fault
+    # (ROADMAP.md §3) then leaves other bins out: the rays whose winner
+    # differs between the two layouts, each named and held to that rule
+    n_rays = dirs.shape[0]
+    origins = trans0[pose_id]
+    t_lo = torch.zeros(n_rays, device="cuda")
+    t_hi = torch.full((n_rays,), NO_HIT_T, device="cuda")
+    kernel_lists = lambda sl: _kernel_inputs(bw_bins, origins[sl], dirs[sl], t_lo[sl], t_hi[sl],
+                                             BW_CAST["block_size"], cs, cb, 4, c_hyper=ch)[0]
+    shares = lambda w: [slice(r * (n_rays // w), (r + 1) * (n_rays // w)) for r in range(w)]
+    with torch.no_grad():
+        full = cast_rays_binned(bw_bins, origins, dirs, **bw_kw)
+        exact = cast_rays(sphere_bvh, origins, dirs)
+    winner_bin = face_bin(bw_bins, sphere_mesh.n_faces)
+    full_lists = kernel_lists(slice(None))
+    apart = {}
+    for w, _ in P15_WORLDS:
+        parts = [cast_rays_binned(bw_bins, origins[sl], dirs[sl], **bw_kw) for sl in shares(w)]
+        hit = torch.cat([h.hit for h in parts])
+        prim = torch.cat([h.prim_id for h in parts])
+        rays = torch.nonzero((hit != full.hit) | (hit & (prim != full.prim_id))).squeeze(1)
+        gbin = winner_bin[exact.prim_id[rays].long().clamp(min=0)]
+        absent = ~listed(full_lists, rays, gbin)
+        n_share = n_rays // w
+        for r, sl in enumerate(shares(w)):
+            m = rays // n_share == r
+            absent[m] |= ~listed(kernel_lists(sl), rays[m] - r * n_share, gbin[m])
+        explained = exact.hit[rays] & (gbin >= 0) & absent
+        apart[w] = dict(rays=rays, prims=torch.cat([prim[rays], full.prim_id[rays]]),
+                        explained=int(explained.sum()))
+        log(f"phase 15c at world {w}: {rays.numel()} rays whose winner differs between the "
+            f"shares' casts and the unsharded cast: {rays[:20].tolist()}; "
+            f"{int(explained.sum())} of them have their exact winner's bin absent from a "
+            f"block list (the cull's flat-bin fault)")
+        if not bool(explained.all()):
+            fail(f"phase 15c at world {w}: rays {rays[~explained][:20].tolist()} differ between "
+                 f"the layouts and the flat-bin fault does not explain them")
+    del origins, t_lo, t_hi, full_lists
+
+    ref_c = {}
+    for wrt in ("pose", "verts"):
+        def value_and_grad(sl=slice(None)):
+            tr = trans0.clone().requires_grad_(wrt == "pose")
+            v = verts0.clone().requires_grad_(wrt == "verts")
+            h = cast_rays_diff(bw_bins, v, faces, tr[pose_id[sl]], dirs[sl], **bw_kw)
+            loss = torch.where(h.hit, h.t, 0.0).sum()
+            (g,) = torch.autograd.grad(loss, [tr if wrt == "pose" else v])
+            return loss.detach(), g
+        value_and_grad()  # warm-up
+        loss, grad = value_and_grad()
+        # the program on each share in turn, summed: the sharded program's
+        # own blocks
+        by_share = {}
+        for w, _ in P15_WORLDS:
+            parts = [value_and_grad(sl) for sl in shares(w)]
+            by_share[w] = dict(loss=float(sum(p[0] for p in parts)),
+                               grad=sum(p[1] for p in parts).cpu().numpy())
+        ref_c[wrt] = dict(loss=float(loss), grad=grad.cpu().numpy(), by_share=by_share,
+                          ms=host_ms(value_and_grad))
+    log(f"phase 15c inputs: phase 14a's {dirs.shape[0]} rays at c_super {cs}, c_bin {cb}, "
+        f"c_hyper {ch}; unsharded fwd+bwd ms (median of {BW_REPS}): "
+        + ", ".join(f"{k} {v['ms']:.3f}" for k, v in ref_c.items()))
+    c_jobs = [(f"c_{wrt}", None, pg.backward_job, pg.to_host(dict(
+        bins=bw_bins, verts=verts0, faces=faces, trans=trans0, dirs=dirs, pose_id=pose_id,
+        wrt=wrt, cast_kw=bw_kw, reps=BW_REPS))) for wrt in ("pose", "verts")]
+
+    # -- world sizes 1 (NCCL), 2 and 4 (gloo): (a) and (c) --
+    world_runs = {}
+    for world, backend in P15_WORLDS:
+        jobs = [(name, layout(world), fn, kw) for name, _, fn, kw in a_jobs + c_jobs]
+        if world == 4:
+            jobs += phase15_four_rank_jobs(out, bmap, vlp)
+        world_runs[world] = (backend, p15_launch(world, backend, jobs))
+    for world, (backend, runs) in world_runs.items():
+        for key, (*_, kernels) in corrections.items():
+            label = f"phase 15a {key} at world {world} ({backend})"
+            p15_require(label, runs, f"a_{key}", {"all_reduce": 6, "all_gather": 0,
+                                                  "permute": 0}, kernels)
+            r0 = runs[0][f"a_{key}"]
+            for rank, r in enumerate(runs):
+                if not np.array_equal(r[f"a_{key}"]["poses"], r0["poses"]):
+                    fail(f"{label}: rank {rank}'s pose differs from rank 0's")
+            err = p15_close(label + " pose", r0["poses"][-1], ref_a[key]["pose"], 0.0, 1e-4)
+            p15_close(label + " matches", float(r0["valid_matches"]), ref_a[key]["matches"],
+                      1e-5, 0.0)
+            ms = statistics.median(max(r[f"a_{key}"]["ms"][i] for r in runs)
+                                   for i in range(P15_REPS))
+            out.setdefault("a", {}).setdefault(key, {})[world] = dict(
+                backend=backend, ms=ms, unsharded_ms=ref_a[key]["ms"], pose_err=err,
+                matches=float(r0["valid_matches"]), all_reduce=6, launches_per_rank=kernels)
+            log(f"{label}: pose within {err:.3g} of the unsharded, matches "
+                f"{float(r0['valid_matches']):.0f} ({ref_a[key]['matches']:.0f}), 6 "
+                f"all-reduces and {kernels} a rank; {ms:.3f} ms/correction (the slowest "
+                f"rank, median of {P15_REPS}) against {ref_a[key]['ms']:.3f} unsharded")
+        for wrt in ("pose", "verts"):
+            label = f"phase 15c {wrt} at world {world} ({backend})"
+            p15_require(label, runs, f"c_{wrt}", {"all_reduce": 1, "all_gather": 0,
+                                                  "permute": 0}, {"K1": 1, "K3r": 1})
+            # against the program on the same shares (the same blocks), and
+            # against the unsharded program on the poses or vertices that no
+            # ray of the layouts' differences reaches
+            share = ref_c[wrt]["by_share"][world]
+            keep = np.ones(ref_c[wrt]["grad"].shape[0], bool)
+            if wrt == "pose":
+                keep[pose_id[apart[world]["rays"]].cpu().numpy()] = False
+            else:
+                prims = apart[world]["prims"]
+                keep[faces[prims[prims >= 0].long()].reshape(-1).cpu().numpy()] = False
+            for r in runs:
+                p15_close(label + " loss", float(r[f"c_{wrt}"]["loss"]), ref_c[wrt]["loss"],
+                          1e-5, 0.0)
+                p15_close(label + " loss (the shares' program)", float(r[f"c_{wrt}"]["loss"]),
+                          share["loss"], 1e-5, 0.0)
+                err = p15_close(label + " gradient (the shares' program)", r[f"c_{wrt}"]["grad"],
+                                share["grad"], 2e-4, 1e-5)
+                p15_close(label + " gradient", r[f"c_{wrt}"]["grad"][keep],
+                          ref_c[wrt]["grad"][keep], 2e-4, 1e-5)
+            ms = statistics.median(max(r[f"c_{wrt}"]["ms"][i] for r in runs)
+                                   for i in range(BW_REPS))
+            out.setdefault("c", {}).setdefault(wrt, {})[world] = dict(
+                backend=backend, ms=ms, unsharded_ms=ref_c[wrt]["ms"], grad_err=err,
+                all_reduce=1, rays_apart=int(apart[world]["rays"].numel()),
+                held_out=int((~keep).sum()))
+            log(f"{label}: loss within 1e-5 of the unsharded; the gradient within {err:.3g} of "
+                f"the program on the same shares, and within rtol 2e-4 of the unsharded on all "
+                f"but {int((~keep).sum())} entries that the layouts' differing rays reach; 1 "
+                f"all-reduce, K3 + K1 once a rank; {ms:.3f} ms (slowest rank, median of "
+                f"{BW_REPS}) against {ref_c[wrt]['ms']:.3f} unsharded")
+    phase15_check_four_ranks(out, world_runs[4][1])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 done in {out['seconds']:.1f} s")
+    return out
+
+
+def phase15_four_rank_jobs(out, bmap, vlp):
+    """The unsharded references of 15b and 15d (kept in ``out["_ref"]``) and
+    their jobs for the 4-rank launch."""
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.sensor_update import sample_beams, sensor_update
+    from rmcl_tpu_torch.ops.order import cluster_order
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+    from rmcl_tpu_torch.ops.raycast_binned import (_kernel_inputs, block_cull_stats,
+                                                   cast_rays_binned)
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel import scene_shard
+
+    ref = out.setdefault("_ref", {})
+    tsb = Transform.identity()
+    # (b) phase 11a's map, scan, configuration and a 1M cloud in its global
+    # cluster order; one beam set for every rank; the unsharded updates of
+    # the same four chunks and of the bvh slice
+    mmap, _, truth, points, mask, scfg = mcl_world()
+    gen = torch.Generator(device="cuda").manual_seed(P15_SEED)
+    cloud = mcl_cloud(truth, MCL_PARTICLES, gen)
+    fw = cloud.poses.rotate(torch.tensor([1.0, 0.0, 0.0], device="cuda"))
+    order, _ = cluster_order(cloud.poses.trans, fw)
+    cloud = cloud.map(lambda x: x[order.long()].contiguous())
+    beams = sample_beams(gen, points, mask, MCL_BEAMS)
+    cfg = dataclasses.replace(scfg, cluster=False)
+    bcfg = dataclasses.replace(cfg, engine="bvh")
+    chunks = lambda: [sensor_update(mmap.bins, cloud.map(lambda x: x[i * MCL_CHUNK:(i + 1) * MCL_CHUNK]),
+                                    None, None, None, tsb, cfg, beams=beams).likelihood.mean
+                      for i in range(MCL_PARTICLES // MCL_CHUNK)]
+    ref["b"] = dict(mean=torch.cat(chunks()).cpu().numpy(), ms=host_ms(chunks, reps=3),
+                    bvh_mean=sensor_update(mmap.bvh, cloud.map(lambda x: x[:MCL_SLICE]), None,
+                                           None, None, tsb, bcfg, beams=beams
+                                           ).likelihood.mean.cpu().numpy())
+    log(f"phase 15b inputs: phase 11a's {MCL_PARTICLES} particles x {MCL_BEAMS} beams in its "
+        f"cluster order, {MCL_PARTICLES // 4} a rank; unsharded binned update of the four "
+        f"chunks {ref['b']['ms']:.3f} ms (median of 3)")
+    jobs = [("b_mcl", ((4,), ("rays",)), pg.mcl_shard_job, pg.to_host(dict(
+        bins=mmap.bins, bvh=mmap.bvh, cloud=cloud, beams=beams, tsb=tsb, config=cfg,
+        bvh_config=bcfg, bvh_particles=MCL_SLICE, n_target=MCL_PARTICLES // 2,
+        path=P15_CKPT, seed=P15_SEED, reps=3)))]
+    del cloud, mmap
+
+    # (d) phase 4's building in 4 and in 2 shards, phase 14b's rays, the
+    # budgets doubled until no block saturates unsharded or in any shard
+    bins = bmap.bins
+    o, d = scene_rays(vlp, BW_POSES, SCENE_SEED)
+    n = o.shape[0]
+    lim = dict(t_min=vlp.range.min, t_max=vlp.range.max)
+    parts = {k: scene_shard.partition_bins(bins, k) for k in (4, 2)}
+    shards = {k: [scene_shard._shard(sb, s) for s in range(k)] for k, sb in parts.items()}
+    cs, cb = SCENE_BUDGETS
+    for _ in range(SCENE_AUDIT_ROUNDS):
+        sat = {name: int(block_cull_stats(b, o, d, block_size=DEFAULT_BLOCK_SIZE, c_super=cs,
+                                          c_bin=cb, **lim)[1].sum())
+               for name, b in [("unsharded", bins)] + [
+                   (f"{k}.{s}", b) for k, bs in shards.items() for s, b in enumerate(bs)]}
+        log(f"phase 15d audit at c_super {cs}, c_bin {cb}: saturated blocks {sat}")
+        if not any(sat.values()):
+            break
+        cs, cb = 2 * cs, 2 * cb
+    else:
+        fail(f"phase 15d: blocks still saturate at c_super {cs}, c_bin {cb}")
+    kw = dict(block_size=DEFAULT_BLOCK_SIZE, c_super=cs, c_bin=cb, sort_blocks=True, **lim)
+    h_ref = cast_rays_binned(bins, o, d, **kw)
+    hf = cast_rays(bmap.bvh, o, d, **lim)
+    t_lo = torch.full((n,), lim["t_min"], device="cuda")
+    t_hi = torch.full((n,), lim["t_max"], device="cuda")
+    lists = lambda b: _kernel_inputs(b, o, d, t_lo, t_hi, DEFAULT_BLOCK_SIZE, cs, cb, 4)[0]
+    ref["d"] = dict(
+        t=h_ref.t.cpu().numpy(), hit=h_ref.hit.cpu().numpy(), normal=h_ref.normal.cpu().numpy(),
+        ms=host_ms(lambda: cast_rays_binned(bins, o, d, **kw), reps=3), budgets=(cs, cb),
+        exact=hf, flat_lists=lists(bins), shard_lists={k: [lists(b) for b in bs]
+                                                      for k, bs in shards.items()},
+        face_bin=face_bin(bins, bmap.mesh.n_faces),
+        bins_per_shard={k: sb.tri.shape[1] for k, sb in parts.items()}, n=n, shards=shards,
+        boxes={k: scene_shard.shard_boxes(sb) for k, sb in parts.items()}, rays=(o, d),
+        lim=lim)
+    log(f"phase 15d inputs: the building's {bins.n_bins} bins in 4 and in 2 shards of "
+        f"{parts[4].tri.shape[1]} and {parts[2].tri.shape[1]}, {n} rays; unsharded cast "
+        f"{ref['d']['ms']:.3f} ms (median of 3)")
+    for mesh_name, layout, k in (("1d", ((4,), ("scene",)), 4),
+                                 ("2d", ((2, 2), ("rays", "scene")), 2)):
+        for forwarded in (False, True):
+            jobs.append((f"d_{mesh_name}_{'forwarded' if forwarded else 'sharded'}", layout,
+                         pg.scene_job, pg.to_host(dict(sbins=parts[k], orig=o, dirs=d,
+                                                       forwarded=forwarded, cast_kw=kw, reps=3))))
+    return jobs
+
+
+def forwarded_listed(rd, k, rays, which, shard, local):
+    """For the rays ``which`` (indices into the slice ``rays`` of phase 15d's
+    rays, one rank's) of the forwarded cast on k shards: False where a round
+    in which the winner's shard ``shard`` casts the ray leaves its bin
+    ``local`` out of the ray's block (the blocks of the assigned-shard
+    order, the round's reach), True otherwise."""
+    from rmcl_tpu_torch.ops.raycast_binned import _kernel_inputs, cast_rays_binned
+    from rmcl_tpu_torch.parallel import scene_shard
+
+    o, d = (x[rays] for x in rd["rays"])
+    n = o.shape[0]
+    t_lo = torch.full((n,), rd["lim"]["t_min"], device="cuda")
+    t_hi = torch.full((n,), rd["lim"]["t_max"], device="cuda")
+    cs, cb = rd["budgets"]
+    order, assigned, crosses, t_enter = scene_shard._route(o, d, t_lo, t_hi, rd["boxes"][k])
+    o, d, t_lo, t_hi = o[order], d[order], t_lo[order], t_hi[order]
+    pos = torch.argsort(order, stable=True)[which]
+    reach1 = [scene_shard._round1_t_max(s, assigned, crosses, t_hi) for s in range(k)]
+    t1_all = sum(torch.where(h.hit, h.t, r) for h, r in zip(
+        (cast_rays_binned(b, o, d, t_min=t_lo, t_max=r, block_size=DEFAULT_BLOCK_SIZE,
+                          c_super=cs, c_bin=cb) for b, r in zip(rd["shards"][k], reach1)),
+        reach1))
+    ok = torch.ones(pos.shape[0], dtype=torch.bool, device="cuda")
+    for s, b in enumerate(rd["shards"][k]):
+        reach2 = scene_shard._round2_t_max(s, assigned, crosses, t_enter, t_hi, t1_all)
+        for reach in (reach1[s], reach2):
+            live = (shard == s) & (reach[pos] > t_lo[pos])
+            lists = _kernel_inputs(b, o, d, t_lo, reach, DEFAULT_BLOCK_SIZE, cs, cb, 4)[0]
+            ok[live] &= listed(lists, pos[live], local[live])
+    return ok
+
+
+def phase15_check_four_ranks(out, runs):
+    """15b and 15d against their unsharded references."""
+    from rmcl_tpu_torch.parallel import programs as pg
+
+    ref = out.pop("_ref")
+    # (b)
+    rb = ref["b"]
+    n_local = MCL_PARTICLES // 4
+    want = {"update": {"all_reduce": 0, "all_gather": 0, "permute": 0},
+            "bvh": {"all_reduce": 0, "all_gather": 0, "permute": 0},
+            "gladiator": {"all_reduce": 0, "all_gather": 0, "permute": 1},
+            "residual": {"all_reduce": 0, "all_gather": 1, "permute": 0},
+            "stats": {"all_reduce": 2, "all_gather": 0, "permute": 0}}
+    for rank, r in enumerate(runs):
+        b = r["b_mcl"]
+        if b["counts"] != want:
+            fail(f"phase 15b rank {rank}: collectives {b['counts']}, expected {want}")
+        if b["shifts"] != [1]:
+            fail(f"phase 15b rank {rank}: shifts {b['shifts']}")
+        for step, kernels in (("update", ("K3r", "K1")), ("bvh", ("K5",))):
+            for k in kernels:
+                if b["launches"][step][k] < 1:
+                    fail(f"phase 15b rank {rank}: the {step} update never launched {k}")
+        if not b["checkpoint_bitwise"]:
+            fail(f"phase 15b rank {rank}: the sharded checkpoint did not round-trip bitwise")
+        p15_close(f"phase 15b rank {rank} binned likelihoods", b["mean"],
+                  rb["mean"][rank * n_local:(rank + 1) * n_local], 2e-4, 1e-6)
+        s = MCL_SLICE // 4
+        p15_close(f"phase 15b rank {rank} bvh likelihoods", b["bvh_mean"],
+                  rb["bvh_mean"][rank * s:(rank + 1) * s], 2e-4, 1e-6)
+        if (float(b["lik_sum"]), float(b["lik_max"])) != (float(runs[0]["b_mcl"]["lik_sum"]),
+                                                          float(runs[0]["b_mcl"]["lik_max"])):
+            fail(f"phase 15b rank {rank}: the likelihood statistics differ from rank 0's")
+    alive = [int(r["b_mcl"]["alive"]) for r in runs]
+    if sum(alive) != MCL_PARTICLES // 2:
+        fail(f"phase 15b: the residual shares {alive} do not sum to {MCL_PARTICLES // 2}")
+    peak = [round(float(r["b_mcl"]["peak_bytes"]) / 1e9, 3) for r in runs]
+    ms = statistics.median(max(r["b_mcl"]["ms"][i] for r in runs) for i in range(3))
+    out["b"] = dict(backend="gloo", ranks=4, particles_per_rank=n_local, ms=ms,
+                    unsharded_ms=rb["ms"], shares=alive, peak_gb=peak,
+                    launches=[r["b_mcl"]["launches"] for r in runs],
+                    lik_sum=float(runs[0]["b_mcl"]["lik_sum"]))
+    log(f"phase 15b: 4 gloo ranks x {n_local} particles: likelihoods within rtol 2e-4 of the "
+        f"unsharded chunks (binned) and slice (bvh), no collective in either update; one permute "
+        f"(shift 1), one all-gather (shares {alive}, sum {sum(alive)}), two all-reduces "
+        f"(sum {out['b']['lik_sum']:.6g}); checkpoint bitwise; binned update {ms:.3f} ms "
+        f"(slowest rank, median of 3) against {rb['ms']:.3f} unsharded for all four chunks; "
+        f"peak memory a rank {peak} GB; launches {out['b']['launches'][0]}")
+
+    # (d)
+    rd = ref["d"]
+    exact, fb = rd["exact"], rd["face_bin"]
+    t_ref, hit_ref, n_ref = rd["t"], rd["hit"], rd["normal"]
+    for name in [k for k in runs[0] if k.startswith("d_")]:
+        forwarded = name.endswith("forwarded")
+        two_d = "_2d_" in name
+        label = f"phase 15d {name[2:]}"
+        want_c = {"all_reduce": 3 if forwarded else 2, "all_gather": 0, "permute": 0}
+        for rank, r in enumerate(runs):
+            if r[name]["counts"] != want_c:
+                fail(f"{label} rank {rank}: collectives {r[name]['counts']}, expected {want_c}")
+            casts = 2 if forwarded else 1
+            if r[name]["launches"]["K3r"] != casts or r[name]["launches"]["K1"] != casts:
+                fail(f"{label} rank {rank}: launches {r[name]['launches']}")
+        if two_d:
+            h = {k: pg.assemble([r[name] for r in runs], k, ranks=[0, 2])
+                 for k in ("t", "hit", "normal")}
+        else:
+            h = runs[0][name]
+            for rank, r in enumerate(runs[1:], 1):
+                if not all(np.array_equal(r[name][k], h[k]) for k in ("t", "hit", "normal")):
+                    fail(f"{label}: rank {rank}'s hits differ from rank 0's")
+        both = h["hit"] & hit_ref
+        t_bad = both & (np.abs(h["t"] - t_ref) > 1e-5 + 1e-5 * np.abs(t_ref))
+        n_bad = both & (np.abs(h["normal"] - n_ref).max(-1) > 1e-5)
+        differ = np.nonzero((h["hit"] != hit_ref) | t_bad | n_bad)[0]
+        k = 2 if two_d else 4
+        rays_t = torch.from_numpy(differ).cuda()
+        explained = torch.zeros(len(differ), dtype=torch.bool, device="cuda")
+        if len(differ):
+            face = exact.prim_id[rays_t].long()
+            gbin = fb[face.clamp(min=0)]
+            ok = exact.hit[rays_t] & (gbin >= 0)
+            shard = gbin // rd["bins_per_shard"][k]
+            local = gbin - shard * rd["bins_per_shard"][k]
+            in_flat = listed(rd["flat_lists"], rays_t, gbin)
+            if forwarded:
+                # the forwarded cast's own blocks: each half of the rays a
+                # rank holds (two on the 2 x 2 mesh) routed and cast round by
+                # round as its ranks do
+                halves = 2 if two_d else 1
+                n_half = rd["n"] // halves
+                in_shard = torch.ones_like(in_flat)
+                for hv in range(halves):
+                    m = rays_t // n_half == hv
+                    in_shard[m] = forwarded_listed(
+                        rd, k, slice(hv * n_half, (hv + 1) * n_half), rays_t[m] - hv * n_half,
+                        shard[m], local[m])
+            else:
+                in_shard = torch.ones_like(in_flat)
+                for s in range(k):
+                    m = shard == s
+                    in_shard[m] = listed(rd["shard_lists"][k][s], rays_t[m], local[m])
+            explained = ok & (~in_flat | ~in_shard)
+        unexplained = differ[~explained.cpu().numpy()]
+        ms = statistics.median(max(r[name]["ms"][i] for r in runs) for i in range(3))
+        out.setdefault("d", {})[name[2:]] = dict(
+            backend="gloo", differ=len(differ), explained=int(explained.sum()),
+            rays=differ[:20].tolist(), collectives=want_c["all_reduce"], ms=ms,
+            unsharded_ms=rd["ms"], budgets=rd["budgets"])
+        log(f"{label}: {len(differ)} of {rd['n']} rays differ from the unsharded cast "
+            f"(hits, t within 1e-5, normals within 1e-5): {differ[:20].tolist()}"
+            f"{' ...' if len(differ) > 20 else ''}; {int(explained.sum())} of them have their exact "
+            f"winner's bin absent from a block list (unsharded or shard); "
+            f"{want_c['all_reduce']} all-reduces a cast (JAX's election: 7); {ms:.3f} ms a cast "
+            f"(slowest rank, median of 3) against {rd['ms']:.3f} unsharded")
+        if len(unexplained):
+            fail(f"{label}: rays {unexplained[:20].tolist()} differ from the unsharded cast "
+                 f"and the cull's flat-bin fault does not explain them")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test drives the port on the card")
@@ -4040,6 +4607,7 @@ def main():
     r14a = phase_backward(sphere_mesh)
     r14b = phase_scene_graph()
     r14c = phase_map_formats()
+    r15 = phase_multi_device(sphere_mesh, sphere, ref_r.pop("bvh"), r14a)
 
     k4 = sweep_r["k4"]
     row = lambda name, source, replaces, r: {
@@ -4113,6 +4681,8 @@ def main():
          "14b": {k: r14b[k] for k in ("ms", "budgets", "faces", "hit_frac", "tlas_vs", "flat_vs",
                                       "refine_err", "grads")},
          "14c": r14c}))
+    log("phase 15 multi-device (ranks sharing the card; NCCL at world size 1, gloo at 2 "
+        "and 4): " + json.dumps(r15))
     log("phase 12 ms per correction (median, host clock): " + json.dumps(
         {k: round(v["ms"], 4) for k, v in r12["runs"].items()}))
     log(f"card: {smi}")

@@ -81,16 +81,24 @@ def _perturb_poses(generator: torch.Generator, poses: Transform, noise6: Tensor)
 
 
 def gladiator_from_draws(cloud: ParticleCloud, enemy: Tensor, normals: Tensor,
-                         config: ResamplerConfig) -> ParticleCloud:
+                         config: ResamplerConfig,
+                         pool: "ParticleCloud | None" = None) -> ParticleCloud:
     """Tournament: each slot duels enemy[slot]; if the enemy's likelihood
     mean is higher, the slot copies the enemy with noise and confidence
-    forgetting. Dead particles never win a duel."""
+    forgetting. Dead particles never win a duel. ``pool`` (default: the
+    cloud) is where the enemies come from; its first ``capacity`` particles
+    must be the cloud's (the sharded tournament pools the rank's cloud with
+    blocks received from other ranks)."""
     n = cloud.capacity
     dev = cloud.device
     L_self = torch.where(cloud.alive, cloud.likelihood.mean, float("-inf"))
-    lose = L_self[enemy] > L_self
+    if pool is None:
+        pool, L_pool = cloud, L_self
+    else:
+        L_pool = torch.where(pool.alive, pool.likelihood.mean, float("-inf"))
+    lose = L_pool[enemy] > L_self
     src = torch.where(lose, enemy, torch.arange(n, device=dev))
-    src_cloud = cloud.map(lambda x: x[src])
+    src_cloud = pool.map(lambda x: x[src])
     poses_src = src_cloud.poses
     perturbed, trans_d2, rot_d = _perturb_poses_from_normals(poses_src, config.noise(dev),
                                                              normals)

@@ -35,7 +35,9 @@ def find_rcc(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
              chunk_size: int = 262144, c_super: int = 24, c_bin: int = 96, c_mid: int = 0,
              c_hyper: int = 0) -> Correspondences:
     """Ray-cast correspondences: one simulated hit per sensor pixel from the
-    current pose estimate ``tsm`` (sensor→map). ``c_super``/``c_bin``/
+    current pose estimate ``tsm`` (sensor→map); ``model`` may be a
+    :class:`~rmcl_tpu_torch.sensors.models.RaySliceModel`, a rank's window of
+    the sensor's pixels in the sharded correction. ``c_super``/``c_bin``/
     ``c_mid``/``c_hyper`` tune the dense engine when ``bvh`` is bins
     (``c_mid > 0``: the mid level; ``c_hyper > 0``: the hyper level)."""
     if isinstance(bvh, TriangleBins):

@@ -242,4 +242,35 @@ class OnDnModel:
         return self.origs + self.dirs * ranges[..., None]
 
 
-SensorModel = SphericalModel | PinholeModel | O1DnModel | OnDnModel
+@dataclasses.dataclass(frozen=True)
+class RaySliceModel:
+    """The rays ``[start, start + size)`` of another model, in its pixel
+    order.
+
+    The sharded MICP-L correction gives each rank the window of the sensor's
+    pixels it holds points for (``start = axis_index * size``), so the RC
+    cast stays local to the rank while the model is replicated. A
+    contiguous window of a scan grid stays spatially coherent, which the
+    binned engine's block cull relies on."""
+
+    inner: "SensorModel"
+    start: int
+    size: int
+
+    @property
+    def range(self) -> RangeInterval:
+        return self.inner.range
+
+    @property
+    def n_rays(self) -> int:
+        return self.size
+
+    def rays(self, device=None) -> Tuple[Tensor, Tensor]:
+        """The window of the inner model's ``rays`` (on its default device
+        when ``device`` is None)."""
+        o, d = self.inner.rays() if device is None else self.inner.rays(device)
+        o = o.expand(d.shape)
+        return o[self.start:self.start + self.size], d[self.start:self.start + self.size]
+
+
+SensorModel = SphericalModel | PinholeModel | O1DnModel | OnDnModel | RaySliceModel

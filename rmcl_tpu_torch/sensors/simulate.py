@@ -21,6 +21,10 @@ def simulate(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
              chunk_size: int = 262144, **binned_kw) -> RayHits:
     """Simulate the sensor at pose(s) ``tsm`` (sensor→map).
 
+    ``model`` is any :data:`SensorModel`: each one, a
+    :class:`~rmcl_tpu_torch.sensors.models.RaySliceModel` window (a rank's
+    pixels in the sharded correction) included, yields its rays through
+    ``model.rays(device)``.
     ``tsm`` may be batched: batch shape P gives hits of shape (P..., n_rays).
     Points and normals come back in the sensor frame. ``binned_kw`` goes to
     :func:`cast_rays_binned` (``c_super``, ``c_bin``, ``block_chunk``, ...)

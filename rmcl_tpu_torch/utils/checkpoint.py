@@ -6,22 +6,33 @@ cloud and random stream, or a tracker's Tom, Tbo and convergence, in one
 NPZ. The MICP snapshot has the JAX package's layout, so either package
 loads the other's; the MCL snapshot keeps the ``torch.Generator``'s state
 where the JAX package keeps its ``jax.random`` key (the two streams differ,
-so neither resumes the other's). The multi-device ``save_sharded`` /
-``load_sharded`` wait for the port's multi-device slice.
+so neither resumes the other's).
+
+Sharded state (:func:`save_sharded`, :func:`load_sharded`; the JAX package
+uses an orbax checkpoint, which neither machine has): every rank writes its
+own shard of a tree of tensors with ``torch.save`` (``rank{r}.pt``, the
+tree's tensors in order), and rank 0 writes ``index.json`` with the world
+size and each rank's leaf shapes and types. Plain files rather than
+``torch.distributed.checkpoint``, whose sharded form is built around DTensor
+and global shapes, where these are plain per-rank tensors.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rmcl_tpu_torch._device import resolve_device
 from rmcl_tpu_torch.convert import particles_from_arrays, transform_from_arrays
 from rmcl_tpu_torch.convert import to_numpy as _np
 from rmcl_tpu_torch.math.se3 import Transform
 from rmcl_tpu_torch.mcl.particles import ParticleCloud
+from rmcl_tpu_torch.parallel.mesh import tree_leaves, tree_map
 
 
 def _extra(z) -> Dict[str, np.ndarray]:
@@ -81,3 +92,55 @@ def load_micp_state(path: str, device="cuda"):
     tbo = transform_from_arrays(z["tbo_rot"], z["tbo_trans"], device=dev)
     convergence = torch.from_numpy(np.asarray(z["convergence"], np.float32)).to(dev)
     return tom, tbo, convergence, _extra(z)
+
+
+# -- sharded state --
+
+
+def _rank_world():
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def save_sharded(path: str, tree) -> None:
+    """Write this rank's shard of ``tree`` (dataclasses, tuples, lists and
+    dicts of tensors) under the directory ``path``. Collective when a process
+    group is up: every rank calls it, and it returns once all have written."""
+    rank, world = _rank_world()
+    os.makedirs(path, exist_ok=True)
+    leaves = [x.detach().cpu() for x in tree_leaves(tree)]
+    torch.save(leaves, os.path.join(path, f"rank{rank}.pt"))
+    shapes = [[list(x.shape), str(x.dtype)] for x in leaves]
+    if world > 1:
+        gathered = [None] * world
+        dist.all_gather_object(gathered, shapes)
+    else:
+        gathered = [shapes]
+    if rank == 0:
+        with open(os.path.join(path, "index.json"), "w") as f:
+            json.dump({"world_size": world, "leaves": gathered}, f)
+    if world > 1:
+        dist.barrier()
+
+
+def load_sharded(path: str, template):
+    """Restore this rank's shard written by :func:`save_sharded` into the
+    structure of ``template``, each tensor on its template tensor's device.
+    Refuses a checkpoint written by another number of ranks, or whose
+    leaves differ from the template's in count, shape or type."""
+    rank, world = _rank_world()
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)
+    if index["world_size"] != world:
+        raise ValueError(f"checkpoint {path} was written by {index['world_size']} ranks; "
+                         f"this group has {world}")
+    leaves = torch.load(os.path.join(path, f"rank{rank}.pt"), weights_only=True)
+    want = tree_leaves(template)
+    if len(leaves) != len(want) or any(
+            x.shape != w.shape or x.dtype != w.dtype for x, w in zip(leaves, want)):
+        raise ValueError(f"checkpoint {path} rank {rank}: leaves "
+                         f"{[(tuple(x.shape), x.dtype) for x in leaves]} do not match the "
+                         f"template's {[(tuple(w.shape), w.dtype) for w in want]}")
+    it = iter(leaves)
+    return tree_map(lambda w: next(it).to(w.device), template)

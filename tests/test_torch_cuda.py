@@ -1369,3 +1369,122 @@ def test_refine_instance_pose_on_card_matches_cpu(card):
     torch.testing.assert_close(gl.cpu(), cl, rtol=1e-2, atol=0.0)
     torch.testing.assert_close(gc.cpu(), cc, rtol=0.0, atol=2e-5)
     torch.testing.assert_close(gc.cpu(), torch.tensor([4.0, 0.15, -0.1]), rtol=0.0, atol=0.02)
+
+
+# -- multi-device on one card (rmcl_tpu_torch.parallel) --
+
+
+def _sharded_correction_inputs(dev):
+    """A room, its bins and one 256 x 8 scan at a known pose, the start
+    pose 0.1 m off: the inputs of test_torch_sharding.py's correction."""
+    from rmcl_tpu_torch.geom.map import MeshMap
+
+    mmap = MeshMap.from_mesh(make_room_scene(n_pillars=3, seed=4), device=dev)
+    model = SphericalModel.create(width=256, height=8, phi_min=-0.3, phi_max=0.2,
+                                  range_max=30.0)
+    true = Transform.from_pose_tuple([0.4, -0.2, 1.0, 0, 0, 0.3], device=dev)
+    hits = simulate(mmap.bvh, model, true)
+    sensor = tp.MICPSensorData(model=model, points=hits.point, mask=hits.hit,
+                               tsb=Transform.identity(device=dev),
+                               config=tp.MICPSensorConfig.create(max_dist=2.0))
+    tom = true @ Transform.from_pose_tuple([0.08, -0.05, 0.04, 0, 0, 0.04], device=dev)
+    return mmap, sensor, tom
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+@pytest.mark.parametrize("accel", ["bins", "bvh"])
+def test_sharded_correction_on_card_matches_unsharded(card, world, backend, accel):
+    """sharded_correct_once on ranks that share the card (NCCL at world size
+    1, gloo at 2) against the unsharded correction on the card: the pose
+    within POSE_TOL, K + 1 all-reduces, and each rank's kernels (K3 + K1 on
+    the bins, K5 on the BVH) launched once."""
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel.mesh import launch
+
+    mmap, sensor, tom = _sharded_correction_inputs(card)
+    struct = mmap.bins if accel == "bins" else mmap.bvh
+    tbo = Transform.identity(device=card)
+    ref, ref_stats = tp.correct_once(struct, [sensor], tom, tbo, 0.0)  # builds the kernels
+    jobs = [("c", ((world,), ("rays",)), pg.correct_job, pg.to_host(dict(
+        accel=struct, sensors=[sensor], tom=tom, tbo=tbo, config=tp.MICPConfig())))]
+    runs = launch(pg.run_jobs, world, backend, ("cuda", jobs), timeout=300.0)
+    want = {"K5": 1} if accel == "bvh" else {"K1": 1, "K3r": 1}
+    for r in runs:
+        pose = r["c"]["poses"][-1]
+        np.testing.assert_allclose(pose[:4], ref.rot.cpu().numpy(), atol=POSE_TOL)
+        np.testing.assert_allclose(pose[4:], ref.trans.cpu().numpy(), atol=POSE_TOL)
+        np.testing.assert_allclose(float(r["c"]["valid_matches"]),
+                                   float(ref_stats.valid_matches), rtol=1e-4)
+        assert r["c"]["counts"] == [{"all_reduce": 6, "all_gather": 0, "permute": 0}]
+        assert {k: v for k, v in r["c"]["launches"][0].items() if v} == want
+
+
+def test_sharded_backward_on_card_matches_cpu(card):
+    """sharded_range_value_and_grad on 2 gloo ranks sharing the card against
+    the unsharded loss and gradients on the CPU (test_sharding.py:478's
+    tolerances), one all-reduce an evaluation, K3 + K1 on each rank."""
+    from rmcl_tpu_torch.ops.diff import cast_rays_diff
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel.mesh import launch
+
+    mesh = make_sphere(48, 48, radius=5.0)
+    rng = np.random.default_rng(0)
+    trans = rng.uniform(-1, 1, (4, 3)).astype(np.float32)
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pose_id = np.repeat(np.arange(4, dtype=np.int32), 256)
+    cpu_bins = build_bins(mesh, bin_size=64, bins_per_super=16, device="cpu")
+    # the ranks load the kernels this cast builds
+    trb.cast_rays_binned(build_bins(mesh, bin_size=64, bins_per_super=16, device=card),
+                         torch.zeros((128, 3), device=card), torch.from_numpy(d[:128]).to(card))
+    jobs = []
+    for wrt in ("pose", "verts"):
+        jobs.append((wrt, ((2,), ("rays",)), pg.backward_job, dict(
+            bins=pg.to_host(cpu_bins), verts=mesh.vertices.astype(np.float32),
+            faces=mesh.faces.astype(np.int32), trans=trans, dirs=d, pose_id=pose_id,
+            wrt=wrt)))
+    runs = launch(pg.run_jobs, 2, "gloo", ("cuda", jobs), timeout=300.0)
+    for wrt in ("pose", "verts"):
+        t = torch.from_numpy(trans).requires_grad_(wrt == "pose")
+        v = torch.from_numpy(mesh.vertices.astype(np.float32)).requires_grad_(wrt == "verts")
+        h = cast_rays_diff(cpu_bins, v, torch.from_numpy(mesh.faces), t[torch.from_numpy(
+            pose_id).long()], torch.from_numpy(d))
+        loss = torch.where(h.hit, h.t, 0.0).sum()
+        (grad,) = torch.autograd.grad(loss, [t if wrt == "pose" else v])
+        for r in runs:
+            np.testing.assert_allclose(float(r[wrt]["loss"]), float(loss.detach()), rtol=1e-5)
+            np.testing.assert_allclose(r[wrt]["grad"], grad.numpy(), rtol=2e-4, atol=1e-5)
+            assert r[wrt]["counts"] == {"all_reduce": 1, "all_gather": 0, "permute": 0}
+            assert r[wrt]["launches"]["K1"] == 1 and r[wrt]["launches"]["K3r"] == 1
+
+
+@pytest.mark.parametrize("forwarded", [False, True])
+def test_scene_sharded_cast_on_card_matches_unsharded(card, forwarded):
+    """The scene-sharded casts on 2 gloo ranks sharing the card (a
+    ("scene",) mesh of 2) against the unsharded cast on the card: hits
+    equal, t and normals within 1e-5 (test_scene_shard.py's bars)."""
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel import scene_shard as tss
+    from rmcl_tpu_torch.parallel.mesh import launch
+
+    room = make_room_scene(n_pillars=6)
+    bins = build_bins(room, bin_size=16, bins_per_super=8, device=card)
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-3, 3, size=(1024, 3)).astype(np.float32)
+    o[:, 2] = np.abs(o[:, 2]) * 0.4 + 0.2
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ref = trb.cast_rays_binned(bins, torch.from_numpy(o).to(card), torch.from_numpy(d).to(card),
+                               block_size=64)
+    jobs = [("s", ((2,), ("scene",)), pg.scene_job, dict(
+        sbins=pg.to_host(tss.partition_bins(bins, 2)), orig=o, dirs=d, forwarded=forwarded,
+        cast_kw=dict(block_size=64)))]
+    runs = launch(pg.run_jobs, 2, "gloo", ("cuda", jobs), timeout=300.0)
+    hit = ref.hit.cpu().numpy()
+    for r in runs:
+        h = r["s"]
+        np.testing.assert_array_equal(h["hit"], hit)
+        np.testing.assert_allclose(h["t"][hit], ref.t.cpu().numpy()[hit], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h["normal"][hit], ref.normal.cpu().numpy()[hit], atol=1e-5)
+        assert h["counts"]["all_reduce"] == (3 if forwarded else 2)
+        assert h["launches"]["K1"] >= 1 and h["launches"]["K3r"] >= 1

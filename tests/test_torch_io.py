@@ -315,6 +315,42 @@ def test_mcl_checkpoint_round_trip(tmp_path):
     assert torch.equal(back.alive, cloud.alive) and int(extra["n"]) == 7
 
 
+def test_sharded_checkpoint_round_trip(tmp_path):
+    """tests/test_aux.py:170 on one process (no group: world size 1): a
+    cloud restored onto a fresh template equals the saved one."""
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+
+    cloud = ParticleCloud.create(128, device="cpu")
+    cloud = dataclasses.replace(cloud, likelihood=dataclasses.replace(
+        cloud.likelihood, mean=torch.linspace(0, 1, 128)))
+    path = str(tmp_path / "ckpt")
+    tck.save_sharded(path, cloud)
+    out = tck.load_sharded(path, ParticleCloud.create(128, device="cpu"))
+    torch.testing.assert_close(out.likelihood.mean, cloud.likelihood.mean, rtol=0, atol=0)
+    torch.testing.assert_close(out.poses.rot, cloud.poses.rot, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="do not match"):
+        tck.load_sharded(path, ParticleCloud.create(64, device="cpu"))
+
+
+def test_sharded_checkpoint_on_ranks(tmp_path):
+    """Two gloo ranks each save and restore their half of a cloud bit for
+    bit; one process (world size 1) refuses that checkpoint."""
+    from rmcl_tpu_torch.mcl.particles import ParticleCloud
+    from rmcl_tpu_torch.parallel import programs as pg
+    from rmcl_tpu_torch.parallel.mesh import launch
+
+    g = torch.Generator().manual_seed(5)
+    cloud = ParticleCloud.create(64, device="cpu").with_poses(
+        TTransform.from_pose_tuple(torch.rand((64, 6), generator=g), device="cpu"))
+    path = str(tmp_path / "ckpt2")
+    jobs = [("ckpt", ((2,), ("rays",)), pg.checkpoint_job,
+             dict(cloud=pg.to_host(cloud), path=path))]
+    runs = launch(pg.run_jobs, 2, "gloo", ("cpu", jobs), timeout=120.0)
+    assert all(r["ckpt"]["bitwise"] for r in runs)
+    with pytest.raises(ValueError, match="written by 2 ranks"):
+        tck.load_sharded(path, ParticleCloud.create(32, device="cpu"))
+
+
 def test_ply_writers_match_jax(tmp_path, rng):
     """The same channels and the same PLY files as the JAX writers, from
     tensors."""
