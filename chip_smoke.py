@@ -152,9 +152,9 @@ Phases (any failure ends the run with a nonzero exit code):
    phase 4's building in 4 shards on a ("scene",) mesh and in 2 on a
    ("rays", "scene") 2 x 2 mesh, phase 14b's 1,440,000 rays at budgets no
    block of any shard saturates: both scene-sharded casts against the
-   unsharded cast, every differing ray named and allowed only where its
-   exact winner's bin is absent from a block list (the cull's flat-bin
-   fault), the election's collectives counted. A failed rank fails the run.
+   unsharded cast (no ray may differ; any that does is named), every ray's
+   exact winner's bin in its block's list (unsharded and each shard's), the
+   election's collectives counted. A failed rank fails the run.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -168,6 +168,7 @@ printing any result.
 """
 
 import json
+import math
 import statistics
 import struct
 import subprocess
@@ -209,9 +210,13 @@ OPS_PER_PAIR = 47
 # 9 gap/separation maxima, 2 x 6 for the norms (square root as one), 20 for
 # the first slab pass (it feeds only tf: 3 radii, 12 slab ends, 3 maxima, 2
 # minima), 25 for the second (the same, plus 3 minima and 2 maxima for tn),
-# 3 for the refined radius, 7 for the final min and max, canonical tn and
-# four compares, 1 for the min over cones: 89
-OPS_PER_TEST = 89
+# 3 for the refined radius, 8 for the entry max(tn, d_near), the min with
+# d_far, d_near x cos(theta_max) and its max with tn, canonical tn and three
+# compares, 1 for the min over cones: 90. Of these, the box offsets, the
+# maxima and the norms (33) read only the origin box: a block whose cones
+# share origin boxes needs them once a box for each distinct origin box.
+OPS_PER_TEST = 90
+OPS_PER_GAP = 33
 # K3's bounds (the fused kernel's front end). Per ray of a bounds pass: |d|^2
 # 5, its clamp, square root and reciprocal 3, the unit direction 3, the live
 # compare 1, the reach t_max * |d| 1, the direction sums 3 (a tree over n
@@ -221,11 +226,13 @@ OPS_PER_TEST = 89
 # centre and half extent 12, the margin 3, the cosine clamp 2, tan 5, the
 # widened tan 5, the scene's centre and half extent 12, the offset 3, three
 # norms 18 and their two adds, two cone records (per axis: |a| compare,
-# reciprocal, a^2, 1 - a^2, clamp, root; and t_hi * tan) 38, one cone-box
-# test against the scene box 89, the cap (scale, add, min) 3: 203. Per
-# factored origin: its minimum and maximum per axis, 6.
+# reciprocal, a^2, 1 - a^2, clamp, root; and t_hi * tan) 38 and their
+# cos(theta_max) (tan^2, + 1, root, reciprocal) 8, one cone-box test
+# against the scene box 90, the axial cap (scale, add, min) 3, the length
+# cap (tan^2, + 1, root, clamp, two scales, add, min) 8: 220. Per factored
+# origin: its minimum and maximum per axis, 6.
 OPS_PER_BOUND_RAY = 30
-OPS_PER_CONE = 203
+OPS_PER_CONE = 220
 OPS_PER_ORIGIN = 6
 # K4: float instructions per pair (t, u, v: 5; u + v and 1 + eps - it: 2;
 # four compares), per (triangle, direction) term (Nd, Bu, Bv: 15; the gate
@@ -679,7 +686,11 @@ def fused_bound(fn, args, back_args, tests):
     tests at OPS_PER_TEST, plus its bounds (OPS_PER_BOUND_RAY per ray of
     each bounds pass, OPS_PER_CONE per cone, OPS_PER_ORIGIN per factored
     origin), against reading the compact inputs and boxes once and writing
-    the lists."""
+    the lists. Factored blocks: a box's OPS_PER_GAP once for each distinct
+    origin box among the R cones (one for whole direction groups; for
+    expanded sub-blocks of W rays, ray i from origin i % P, P / gcd(W, P)
+    of them, one where W >= P), so a test counts the rest of OPS_PER_TEST
+    plus that share (the fat cone's tests too, which keeps it a floor)."""
     from rmcl_tpu_torch.ops.cull_cuda import cull_rays
 
     bins, cb, ch = args[0], back_args[10], back_args[8]
@@ -688,13 +699,17 @@ def fused_bound(fn, args, back_args, tests):
     if fn is cull_rays:
         ob = args[1]
         rays, origins, in_floats = ob.shape[1], 0, ob.shape[1] * 8
+        per_test = OPS_PER_TEST
     else:
         o_c, d_c = args[1], args[2]
         G, P = d_c.shape[1], o_c.shape[1]
         rays = P * G if G % args[6] else G
         origins, in_floats = P, (P + G) * 3 + 1
-    ops = (tests * OPS_PER_TEST + Cb * (passes * rays * OPS_PER_BOUND_RAY + origins * OPS_PER_ORIGIN
-                                        + (R + passes - 1) * OPS_PER_CONE))
+        W = rays // R
+        boxes_of = 1 if G % args[6] == 0 or W >= P else min(R, P // math.gcd(W, P))
+        per_test = OPS_PER_TEST - OPS_PER_GAP + OPS_PER_GAP * boxes_of / R
+    ops = (tests * per_test + Cb * (passes * rays * OPS_PER_BOUND_RAY + origins * OPS_PER_ORIGIN
+                                    + (R + passes - 1) * OPS_PER_CONE))
     boxes = (bins.bin_aabb.numel() + bins.super_aabb.numel()
              + (bins.hyper_aabb.numel() if ch else 0)
              + (bins.mid_aabb.numel() if back_args[13] else 0))
@@ -1624,6 +1639,48 @@ def check_cp_candidates(name, bins, qb, d2b, cs, cb, plain_blocks=None, path_lis
     return out
 
 
+def check_cull_wide(bins, o, d, lim, cs, cb):
+    """K3 (``cull_rays``: phase 8's scan in 128-ray blocks of 4 cones) on a
+    level wider than the 16,384 keys its key region once held, which the
+    kernel's earlier form refused: one launch counted, bitwise its plain
+    version on every block, timed by the device trace, its bound and launch
+    plan."""
+    from rmcl_tpu_torch.ops.cull_cuda import cull_launch_plan, cull_rays, cull_rays_reference
+    from rmcl_tpu_torch.ops.raycast_binned import _flat_rays, _pad_rays
+
+    blocks = tuple(x.contiguous() for x in _pad_rays(*_flat_rays(o, d, *lim)[:4],
+                                                       DEFAULT_BLOCK_SIZE))
+    args = (bins, *blocks, 4, cs, cb, 0, 0)
+    label = (f"phase 8 K3 on a level wider than 16,384 keys ({bins.n_super} supers of "
+             f"{bins.bins_per_super}, cs={cs}, cb={cb})")
+    reset_counts()
+    k = cull_rays(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()["K3r"]
+    p = cull_rays_reference(*args)
+    if launches != 1:
+        fail(f"{label}: K3 launched {launches} times")
+    if not all(torch.equal(x, y) for x, y in zip(k, p)):
+        fail(f"{label}: K3 is not bitwise its plain version")
+    threads, slots, smem, stream = cull_launch_plan(blocks[0].shape[0], 4, DEFAULT_BLOCK_SIZE,
+                                                    bins.n_super, bins.bins_per_super, cs, cb)
+    r = dict(n_super=bins.n_super, S=bins.bins_per_super, cs=cs, cb=cb, launches=launches,
+             bitwise=True, max_abs_err=0.0, threads=threads, key_slots=slots, shared_bytes=smem,
+             streamed=stream,
+             max_count=int(k[1].max()), saturated=int(k[3].sum()), timed_by="device trace")
+    r["ms"] = device_ms(lambda: cull_rays(*args), "cull_kernel")
+    if r["ms"] is None:
+        r["ms"], r["timed_by"] = cuda_ms(lambda: cull_rays(*args)), "events"
+    r["plain_ms"] = cuda_ms(lambda: cull_rays_reference(*args), reps=1)
+    r["bound_ms"], r["bound_by"], r["tests"] = full_cull_bound(bins, blocks, 4, cs, cb, 0, 0)
+    log(f"{label}: bitwise its plain version on {blocks[0].shape[0]} blocks, launches {launches}, "
+        f"{r['ms']:.4f} ms by the {r['timed_by']} (bound {r['bound_ms']:.4f} ms {r['bound_by']}, "
+        f"{r['bound_ms'] / r['ms']:.1%}; {r['tests']:.0f} tests), plain {r['plain_ms']:.3f} ms; "
+        f"{threads} threads, {slots} key slots, {smem} B shared; candidates max "
+        f"{r['max_count']}, {r['saturated']} saturated")
+    return r
+
+
 def k7_line(name, r):
     return (f"{name}: K7 = plain version bitwise on {r['plain_blocks']} of {r['blocks']} blocks; "
             f"kernel {r['ms']:.4f} ms by the {r['timed_by']} (the call {r['call_ms']:.4f} ms by "
@@ -1799,7 +1856,7 @@ def phase_exact_main_path(main_r):
         + f"; binned_inputs (blocks + K7) {r7['inputs_ms']:.4f} ms a call by events")
     # K7 on levels wider than 16,384 keys, on the same queries
     qb, d2b = inputs[:2]
-    wide = []
+    wide, wide_k3 = [], []
     for S, cs, cb in K7_WIDE_LEVELS:
         bins = build_bins(bmap.mesh, bin_size=K7_WIDE_BIN_SIZE, bins_per_super=S)
         rw = check_cp_candidates(f"phase 8 K7 wide (S {S})", bins, qb, d2b, cs, cb)
@@ -1808,7 +1865,10 @@ def phase_exact_main_path(main_r):
                     f"cs={cs}, cb={cb}: {max(bins.n_super, cs * S)} keys)", rw))
         wide.append({k: rw[k] for k in ("n_super", "S", "cs", "cb", "ms", "bound_ms", "threads",
                                         "shared_bytes", "max_count")})
+        wide_k3.append(check_cull_wide(bins, true_pose.apply(o_s), true_pose.rotate(d_s), lim,
+                                       cs, cb))
     r7["wide_levels"] = wide
+    r7["k3_wide_levels"] = wide_k3
 
     # the exact engine recovers what the dense engine's budgets drop
     o, d = true_pose.apply(o_s), true_pose.rotate(d_s)
@@ -3571,11 +3631,18 @@ def face_bin(bins, n_faces, first=None):
 
 def listed(inputs, rays, bin_ids):
     """Whether the block of each ray of ``rays`` lists the bin ``bin_ids``
-    (one a ray) among its candidates (``inputs``: ``_kernel_inputs``')."""
+    (one a ray; -1 never) among its candidates (``inputs``:
+    ``_kernel_inputs``'): each block's list sorted, every ray's bin looked
+    up in its own block's row (no list is copied a ray)."""
     cand, count = inputs[4], inputs[5]
-    blk = rays // inputs[0].shape[1]
+    n_blk, Rb = inputs[0].shape[:2]
     slot = torch.arange(cand.shape[1], device=cand.device)
-    return ((cand[blk] == bin_ids[:, None]) & (slot[None] < count[blk][:, None])).any(1)
+    keys = torch.sort(torch.where(slot[None] < count[:, None], cand, 2**31 - 1), dim=1).values
+    want = torch.full((n_blk * Rb,), -1, dtype=keys.dtype, device=keys.device)
+    want[rays] = bin_ids.to(keys.dtype)
+    want = want.view(n_blk, Rb)
+    at = torch.searchsorted(keys, want).clamp(max=keys.shape[1] - 1)
+    return (keys.gather(1, at) == want).view(-1)[rays]
 
 
 def tlas_saturation(tlas, bins, o, d, lim, cs, cb):
@@ -3676,17 +3743,14 @@ def phase_scene_graph():
     bw = DEFAULT_BLOCK_SIZE
     flat_lists = _kernel_inputs(acc.bins, o, d, t_lo, t_hi, bw, cs, cb, 4)[0]
     flat_bin = face_bin(acc.bins, tri.shape[0], first_face)
-    inst_lists = {}
 
     def tlas_lists(i):
-        if i not in inst_lists:
-            g = tlas.inst_geom[i]
-            inv = tlas.poses[i].inverse()
-            s = tlas.scales[i]
-            inputs = _kernel_inputs(tlas.geom_bins[g], inv.apply(o) / s, inv.rotate(d) / s, t_lo,
-                                    t_hi, bw, cs, cb, 4)[0]
-            inst_lists[i] = (inputs, face_bin(tlas.geom_bins[g], sg.geometries[g].n_faces))
-        inputs, fb = inst_lists[i]
+        g = tlas.inst_geom[i]
+        inv = tlas.poses[i].inverse()
+        s = tlas.scales[i]
+        inputs = _kernel_inputs(tlas.geom_bins[g], inv.apply(o) / s, inv.rotate(d) / s, t_lo,
+                                t_hi, bw, cs, cb, 4)[0]
+        fb = face_bin(tlas.geom_bins[g], sg.geometries[g].n_faces)
         return inputs, lambda prim: fb[prim]
 
     def flat_of(i):
@@ -3698,11 +3762,10 @@ def phase_scene_graph():
         at its incidence, normals within SCENE_NORMAL_TOL plus the world
         triangle's rounding, another triangle only at a near-tie, and a
         ray the two decide apart (one hit, another triangle farther away)
-        only within EDGE_SCALES roundings of an edge of either winner, or
-        where the dense cast's cull left the exact winner's bin out of the
-        ray's block list (ROADMAP.md §3: the cone test drops some flat
-        wall bins, in both packages); on at most 1 - HIT_AGREE of the
-        rays."""
+        only within EDGE_SCALES roundings of an edge of either winner; on
+        at most 1 - HIT_AGREE of the rays. Every ray the exact cast hits
+        finds its winner's bin in its block's list (the cull keeps flat wall
+        bins); a ray whose winner's bin is missing fails the phase, named."""
         both = h.hit & hf.hit
         rel = (h.t - hf.t).abs() / hf.t.abs()
         same = both & (h.inst_id == hf.inst_id) & (h.prim_id == hf.prim_id)
@@ -3714,13 +3777,14 @@ def phase_scene_graph():
         m_h, s_h = edge_margin(tri, first_face, h, o, d)
         edge = ((m_h.abs() <= EDGE_SCALES * s_h + EDGE_SLACK)
                 | (m_f.abs() <= EDGE_SCALES * s_f + EDGE_SLACK))
-        dropped = torch.zeros_like(apart)
-        rays = torch.nonzero(apart & hf.hit).squeeze(1)
+        missing = torch.zeros_like(apart)
+        rays = torch.nonzero(hf.hit).squeeze(1)
         for i in hf.inst_id[rays].unique().tolist():
             r = rays[hf.inst_id[rays] == i]
             inputs, bin_of = lists(i)
-            dropped[r] = ~listed(inputs, r, bin_of(hf.prim_id[r].long()))
-        unexplained = int((apart & ~edge & ~dropped).sum())
+            missing[r] = ~listed(inputs, r, bin_of(hf.prim_id[r].long()))
+        missing_named = torch.nonzero(missing).squeeze(1).tolist()
+        unexplained = int((apart & ~edge).sum())
         n_err = (h.normal - hf.normal).abs().amax(-1)
         n_bad = int((same & (n_err > SCENE_NORMAL_TOL + EDGE_SCALES * s_f)).sum())
         agree = float((h.hit == hf.hit).float().mean())
@@ -3730,20 +3794,23 @@ def phase_scene_graph():
             f"normals within {float(n_err[same].max()):.3g} ({n_bad} beyond "
             f"{SCENE_NORMAL_TOL} + {EDGE_SCALES} roundings); {int(tie.sum())} other winners at "
             f"near-ties; {int(apart.sum())} rays decided apart: {int((apart & edge).sum())} at "
-            f"an edge, {int((apart & dropped).sum())} whose exact winner's bin the cull left "
-            f"out, {unexplained} neither; launches (both casts) "
+            f"an edge, {unexplained} not; {len(missing_named)} rays whose exact winner's bin is "
+            f"missing from their block's list {missing_named[:20]}; launches (both casts) "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        if missing_named:
+            fail(f"phase 14b: the {name}'s lists leave out the exact winner's bin of rays "
+                 f"{missing_named[:20]}")
         if not (agree >= HIT_AGREE and int(apart.sum()) <= (1 - HIT_AGREE) * n
                 and unexplained == 0 and t_bad == 0 and n_bad == 0):
             fail(f"phase 14b: the {name} is off the flattened exact cast")
         return dict(agree=agree, t_rel=float(rel[same].max()), ties=int(tie.sum()),
                     apart=int(apart.sum()), at_edge=int((apart & edge).sum()),
-                    cull_dropped=int((apart & dropped).sum()),
+                    winner_bin_missing=len(missing_named),
                     normal_err=float(n_err[same].max()))
 
     tlas_vs = held("TLAS cast", ht, tlas_lists, counts)
     flat_vs = held("flattened binned cast", hb, flat_of, fcounts)
-    del flat_lists, inst_lists
+    del flat_lists
     hit_frac = float(ht.hit.float().mean())
 
     # closest points of the TLAS hit points moved by N(0, QUERY_NOISE)
@@ -4196,9 +4263,9 @@ def phase_multi_device(sphere_mesh, sphere_bins, sphere_bvh, r14a):
     verts0 = torch.from_numpy(sphere_mesh.vertices).cuda()
     faces = torch.from_numpy(sphere_mesh.faces).cuda()
     # a share's blocks are not the unsharded cast's where a share starts
-    # mid-block (360,000 rays at world size 4), and the cull's flat-bin fault
-    # (ROADMAP.md §3) then leaves other bins out: the rays whose winner
-    # differs between the two layouts, each named and held to that rule
+    # mid-block (360,000 rays at world size 4), so their lists differ: the
+    # rays whose winner differs between the two layouts, each named and
+    # allowed only where a layout's list leaves the exact winner's bin out
     n_rays = dirs.shape[0]
     origins = trans0[pose_id]
     t_lo = torch.zeros(n_rays, device="cuda")
@@ -4229,10 +4296,10 @@ def phase_multi_device(sphere_mesh, sphere_bins, sphere_bvh, r14a):
         log(f"phase 15c at world {w}: {rays.numel()} rays whose winner differs between the "
             f"shares' casts and the unsharded cast: {rays[:20].tolist()}; "
             f"{int(explained.sum())} of them have their exact winner's bin absent from a "
-            f"block list (the cull's flat-bin fault)")
+            f"block list")
         if not bool(explained.all()):
             fail(f"phase 15c at world {w}: rays {rays[~explained][:20].tolist()} differ between "
-                 f"the layouts and the flat-bin fault does not explain them")
+                 f"the layouts with their exact winner's bin in every block list")
     del origins, t_lo, t_hi, full_lists
 
     ref_c = {}
@@ -4506,6 +4573,26 @@ def phase15_check_four_ranks(out, runs):
     rd = ref["d"]
     exact, fb = rd["exact"], rd["face_bin"]
     t_ref, hit_ref, n_ref = rd["t"], rd["hit"], rd["normal"]
+    # every ray the exact cast hits finds its winner's bin in its block's
+    # list: the unsharded cast's, and each shard's (the cull keeps flat wall
+    # bins)
+    hit_rays = torch.nonzero(exact.hit).squeeze(1)
+    gbin_all = fb[exact.prim_id[hit_rays].long()]
+    missing = {"unsharded": torch.nonzero(~listed(rd["flat_lists"], hit_rays, gbin_all))
+               .squeeze(1)}
+    for k, lists_k in rd["shard_lists"].items():
+        shard = gbin_all // rd["bins_per_shard"][k]
+        local = gbin_all - shard * rd["bins_per_shard"][k]
+        absent = torch.zeros_like(gbin_all, dtype=torch.bool)
+        for s_ in range(k):
+            m = shard == s_
+            absent[m] = ~listed(lists_k[s_], hit_rays[m], local[m])
+        missing[f"{k} shards"] = torch.nonzero(absent).squeeze(1)
+    missing = {k: hit_rays[v].tolist() for k, v in missing.items()}
+    log(f"phase 15d: rays whose exact winner's bin is missing from their block's list: "
+        + ", ".join(f"{k} {len(v)} {v[:20]}" for k, v in missing.items()))
+    if any(missing.values()):
+        fail(f"phase 15d: block lists leave out exact winners' bins: {missing}")
     for name in [k for k in runs[0] if k.startswith("d_")]:
         forwarded = name.endswith("forwarded")
         two_d = "_2d_" in name
@@ -4557,7 +4644,7 @@ def phase15_check_four_ranks(out, runs):
                     m = shard == s
                     in_shard[m] = listed(rd["shard_lists"][k][s], rays_t[m], local[m])
             explained = ok & (~in_flat | ~in_shard)
-        unexplained = differ[~explained.cpu().numpy()]
+        unexplained = differ
         ms = statistics.median(max(r[name]["ms"][i] for r in runs) for i in range(3))
         out.setdefault("d", {})[name[2:]] = dict(
             backend="gloo", differ=len(differ), explained=int(explained.sum()),
@@ -4566,12 +4653,13 @@ def phase15_check_four_ranks(out, runs):
         log(f"{label}: {len(differ)} of {rd['n']} rays differ from the unsharded cast "
             f"(hits, t within 1e-5, normals within 1e-5): {differ[:20].tolist()}"
             f"{' ...' if len(differ) > 20 else ''}; {int(explained.sum())} of them have their exact "
-            f"winner's bin absent from a block list (unsharded or shard); "
+            f"winner's bin absent from a block list (unsharded, shard or round); "
             f"{want_c['all_reduce']} all-reduces a cast (JAX's election: 7); {ms:.3f} ms a cast "
             f"(slowest rank, median of 3) against {rd['ms']:.3f} unsharded")
         if len(unexplained):
             fail(f"{label}: rays {unexplained[:20].tolist()} differ from the unsharded cast "
-                 f"and the cull's flat-bin fault does not explain them")
+                 f"({int(explained.sum())} of them with their exact winner's bin absent from a "
+                 f"block list)")
 
 
 def main():
@@ -4635,7 +4723,8 @@ def main():
                                  two_level_ms=r11b["kmid"]["two_level_ms"],
                                  registers=r11["k3"]["registers"]),
              phase14a=sub_row(r14a["k3"], timed_by="device trace",
-                              bitwise=r14a["k3"]["bitwise"])),
+                              bitwise=r14a["k3"]["bitwise"]),
+             past_cap=exact_r["k7"]["k3_wide_levels"]),
         k3_row("cull_factored", "rmcl_tpu/ops/raycast_binned.py:1370", sweep_r["k3"]),
         row("intersect_factored", "rmcl_tpu_torch/csrc/intersect_factored.cu",
             "rmcl_tpu/ops/raycast_binned.py:1650", k4),

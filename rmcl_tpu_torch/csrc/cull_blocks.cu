@@ -37,25 +37,45 @@
 // division, never rsqrtf. Built with --fmad=false, the kernel and the plain
 // version round alike and pick the same lists.
 //
-// What bounds it on an H100: the cone-box tests, ~89 float instructions
+// What bounds it on an H100: the cone-box tests, ~90 float instructions
 // each, R x (bins of the kept supers) per block at level 1 (the pose sweep:
 // 128 cones x up to 384 bins); a block reads a few KB of rays and boxes
 // (the boxes L2-resident), so it is bound by float32 instruction
 // throughput. The design:
 //   * one CTA per block, 128 threads when the grid is big (several CTAs an
 //     SM, so one CTA's barriers and selections overlap another's tests),
-//     256 when it is not; the bounds are reduced in shared memory,
-//     channel-major, one halving step per barrier;
+//     256 when it is not; the bounds fold by warp shuffles, strides of 32
+//     slots and more through shared memory;
 //   * the tests spread over (box, cone) pairs: L lanes share a box, each
 //     lane holds its R / L cones in registers for the whole level and runs
 //     their tests without branches, so they interleave; a test reads only
 //     the box (a broadcast); the OR and the least tn over cones meet by one
 //     redux (or shuffles) on tn's bits (tn >= +0.0, canonical, so the
-//     unsigned order is the float order);
-//   * passing boxes are compacted by ballot and popcount (one shared atomic
-//     per warp step with a pass), and only the compacted keys are sorted:
-//     up to 32 by one warp's shuffles, more by a bitonic sort in shared
-//     memory; keys are unique, so the order is the plain version's.
+//     unsigned order is the float order). Where a lane's cones share one
+//     origin box (the factored front end; the expanded one when L x W is a
+//     multiple of P), a build forms a box's offsets and distances (33 of
+//     the ~90 instructions, both square roots) once for them and holds
+//     one origin box;
+//   * each level's keys go through key_sort.cuh (shared with K7):
+//     compacted by ballot and popcount into a stage in shared memory; where
+//     more pass than the level keeps, a radix select of the kept-th key and
+//     a compaction of the kept keys; then a bitonic sort of the kept keys
+//     alone, in warps' registers with only the wide strides in shared
+//     memory. Keys are unique, so the order is the plain version's. Shared
+//     memory holds the kept lists and a stage of up to 16,384 keys
+//     (ops/cull_cuda.py::cull_launch_plan sizes it); a level that passes
+//     more than its stage is streamed, each radix pass recomputing its
+//     tests, so no level width is refused. Only launches whose plan lets a
+//     level outgrow its stage take the builds with the streamed passes;
+//   * the tests and barriers hide behind other CTAs, so each build's
+//     registers are capped (min_blocks) for as many resident CTAs as the
+//     build fits without spilling.
+//
+// The cone-box test is the plain version's (ops/cull_cuda.py::
+// _cone_box_test): JAX's, except that the slab's axial interval is held
+// against d_near * cos(theta_max), not the Euclidean d_near, and the reach
+// compared with the entry distance is a ray length (t_len), so a flat box
+// seen off-axis is not dropped; keys and radii are JAX's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +87,7 @@
 // the kernel's arguments, mirrored field for field by ops/cull_cuda.py::_CullArgs
 // (outside the anonymous namespace: the exported entry point takes it)
 struct CullArgs {
-  const float* cones;  // kCones: (Cb, R, 11), fat (Cb, 11), n_hi (Cb,)
+  const float* cones;  // kCones: (Cb, R, 12), fat (Cb, 12), n_hi (Cb,)
   const float* fat;
   const float* n_hi;
   const float* o;  // kRays: (Cb, Rb, 3); factored: (Cb, P, 3)
@@ -88,6 +108,8 @@ struct CullArgs {
   int mode, Cb, R, Rb, P, G;
   int n_bins, n_super, n_hyper, S, H, ch, cs, cb;
   int M, Sm, cm, n_mid_ids;  // the mid level: M bins a mid, S / M mids a super, budget cm
+  int threads, key_slots;    // the launch plan: a CTA's threads (128 or 256), shared key slots,
+  int smem_bytes, stream;    // dynamic shared bytes, whether a level may outgrow its stage
   unsigned idm_hyp, idm_sup, idm_bin, idm_mid;
   int hyp_packed, sup_packed, bin_packed, mid_packed;
   float t_min_s, t_max_s, origin_margin, tan_dm;
@@ -97,12 +119,12 @@ namespace {
 
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kNoPass = 0xffffffffu;
-constexpr int kThreads = 256;        // the largest CTA (its launch bounds)
+constexpr int kThreads = 256;        // the largest CTA
 constexpr int kBigGridThreads = 128; // the CTA when the grid fills the card many times over
-constexpr int kBigGrid = 1024;       // blocks from which a grid counts as big
-constexpr int kMinBlocks = 2;        // CTAs of kThreads an SM with 2-4 cones a lane (no spills)
 constexpr int kTestRepeat = 1;       // tests a (box, cone) pair; 2 measures their cost
-constexpr int kConeIn = 11;  // oc(3) oh(3) axis(3) tan_th t_hi
+constexpr int kConeIn = 12;  // oc(3) oh(3) axis(3) tan_th t_hi t_len
+constexpr int kSortItems = 4;    // keys a lane holds in a sort tile (registers beside the cones)
+constexpr int kSortSpread = 512; // lists of 33 to this many keys sorted by every warp at once
 
 enum Mode { kCones = 0, kRays = 1, kExpanded = 2, kFactored = 3 };
 
@@ -110,16 +132,15 @@ enum Mode { kCones = 0, kRays = 1, kExpanded = 2, kFactored = 3 };
 struct Shape {
   int L;         // lanes that share a box in the R-cone levels
   int n_slots;   // bounds tree slots
-  int key_cap;   // key slots (a power of two)
 };
 
 struct Cone {
-  float oc[3], oh[3], inv[3], sp[3], tan_th, t_hi, r0;
+  float oc[3], oh[3], inv[3], sp[3], tan_th, t_hi, t_len, cos_th;
 };
 
-// the plain version's cone record: 1/axis, sqrt(1 - axis^2), t_hi * tan
+// the plain version's cone record: 1/axis, sqrt(1 - axis^2), cos(theta_max)
 __device__ Cone make_cone(const float* oc, const float* oh, const float* a, float tan_th,
-                          float t_hi) {
+                          float t_hi, float t_len) {
   Cone c;
   for (int k = 0; k < 3; ++k) {
     const float a_safe = fabsf(a[k]) < 1e-30f ? 1e-30f : a[k];
@@ -130,7 +151,8 @@ __device__ Cone make_cone(const float* oc, const float* oh, const float* a, floa
   }
   c.tan_th = tan_th;
   c.t_hi = t_hi;
-  c.r0 = t_hi * tan_th;
+  c.t_len = t_len;
+  c.cos_th = 1.0f / sqrtf(1.0f + tan_th * tan_th);
   return c;
 }
 
@@ -154,28 +176,47 @@ __device__ __forceinline__ void slab(const Cone& c, const float* b0, const float
   tf = fminf(fminf(mx[0], mx[1]), mx[2]);
 }
 
-// _cone_box_test operation for operation; tn canonical (+0.0 for <= 0)
-__device__ __forceinline__ bool cone_box(const Cone& c, const float* bmin, const float* bmax,
-                                         float& tn_out, float& tf_out) {
-  float b0[3], b1[3], g[3], s[3];
+// the part of _cone_box_test that reads only the origin box: the target box
+// grown by it (b0, b1) and the boxes' least and greatest distances
+struct Gap {
+  float b0[3], b1[3], d_near, d_far;
+};
+
+__device__ __forceinline__ Gap box_gap(const Cone& c, const float* bmin, const float* bmax) {
+  Gap q;
+  float g[3], s[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    b0[k] = (bmin[k] - c.oh[k]) - c.oc[k];
-    b1[k] = (bmax[k] + c.oh[k]) - c.oc[k];
-    g[k] = fmaxf(fmaxf(b0[k], -b1[k]), 0.0f);
-    s[k] = fmaxf(b1[k], -b0[k]);
+    q.b0[k] = (bmin[k] - c.oh[k]) - c.oc[k];
+    q.b1[k] = (bmax[k] + c.oh[k]) - c.oc[k];
+    g[k] = fmaxf(fmaxf(q.b0[k], -q.b1[k]), 0.0f);
+    s[k] = fmaxf(q.b1[k], -q.b0[k]);
   }
-  const float d_near = norm3(g[0], g[1], g[2]);
-  const float d_far = norm3(s[0], s[1], s[2]);
+  q.d_near = norm3(g[0], g[1], g[2]);
+  q.d_far = norm3(s[0], s[1], s[2]);
+  return q;
+}
+
+// the rest of _cone_box_test, operation for operation; tn canonical (+0.0
+// for <= 0)
+__device__ __forceinline__ bool cone_test(const Cone& c, const Gap& q, float& tn_out,
+                                          float& tf_out) {
+  const float *b0 = q.b0, *b1 = q.b1;
+  const float d_near = q.d_near, d_far = q.d_far;
   float tn, tf;
-  slab(c, b0, b1, c.r0, tn, tf);
+  slab(c, b0, b1, c.t_hi * c.tan_th, tn, tf);
   const float r1 = fminf(fmaxf(tf, 0.0f), c.t_hi) * c.tan_th;
   slab(c, b0, b1, r1, tn, tf);
-  tn = fmaxf(tn, d_near);
+  const float entry = fmaxf(tn, d_near);
   tf = fminf(tf, d_far);
-  tn_out = tn > 0.0f ? tn : 0.0f;
+  tn_out = entry > 0.0f ? entry : 0.0f;
   tf_out = tf;
-  return (tn <= tf) & (tf >= 0.0f) & (tn <= c.t_hi) & (d_near <= c.t_hi);
+  return (fmaxf(tn, d_near * c.cos_th) <= tf) & (tf >= 0.0f) & (entry <= c.t_len);
+}
+
+__device__ __forceinline__ bool cone_box(const Cone& c, const float* bmin, const float* bmax,
+                                         float& tn_out, float& tf_out) {
+  return cone_test(c, box_gap(c, bmin, bmax), tn_out, tf_out);
 }
 
 // --- bounds ---
@@ -221,6 +262,12 @@ __device__ __forceinline__ float unit_dir(const float* d, float* dn) {
   return nrm;
 }
 
+// a channel's fold: sums for the direction, least origins and cosine,
+// greatest otherwise
+__device__ __forceinline__ float fold_op(int c, float a, float b) {
+  return c < kLo ? a + b : (c < kHi || c == kCa ? fminf(a, b) : fmaxf(a, b));
+}
+
 // fold channels [c0, c1) of every sub-block's W2 slots onto its first slot:
 // the halving tree (slot j takes slot j + w), one barrier a step
 __device__ void tree_fold(float* chn, int n_slots, int Rp, int W2, int c0, int c1) {
@@ -230,12 +277,63 @@ __device__ void tree_fold(float* chn, int n_slots, int Rp, int W2, int c0, int c
       const int s = (t / w) * W2 + t % w;
       for (int c = c0; c < c1; ++c) {
         float* x = chn + c * n_slots;
-        const float a = x[s], b = x[s + w];
-        x[s] = c < kLo ? a + b : (c < kHi || c == kCa ? fminf(a, b) : fmaxf(a, b));
+        x[s] = fold_op(c, x[s], x[s + w]);
       }
     }
   }
   __syncthreads();
+}
+
+// the same tree when every slot is a thread's (slot s = threadIdx.x, Rp W2
+// slots at most blockDim.x): thread s holds channels [c0, c0 + C) of its
+// slot in v; strides of 32 and more go through shared memory, one barrier
+// a step, the rest by shuffles within the warp, no barrier; each
+// sub-block's first slot lands in chn
+template <int c0, int C>
+__device__ void warp_fold(float (&v)[C], float* chn, int N, int Rp, int W2) {
+  const int s = threadIdx.x, j = s % W2;
+  const bool mine = s < Rp * W2;
+  if (W2 > 32) {
+    if (mine)
+      for (int c = 0; c < C; ++c) chn[(c0 + c) * N + s] = v[c];
+    for (int w = W2 >> 1; w >= 32; w >>= 1) {
+      __syncthreads();
+      if (mine && j < w) {
+        for (int c = 0; c < C; ++c) {
+          float* x = chn + (c0 + c) * N;
+          x[s] = fold_op(c0 + c, x[s], x[s + w]);
+        }
+      }
+    }
+    __syncthreads();
+    if (mine && j < 32)
+      for (int c = 0; c < C; ++c) v[c] = chn[(c0 + c) * N + s];
+  }
+  for (int w = (W2 < 32 ? W2 : 32) >> 1; w > 0; w >>= 1) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      v[c] = fold_op(c0 + c, v[c], __shfl_down_sync(0xffffffffu, v[c], w));
+  }
+  if (mine && j == 0)
+    for (int c = 0; c < C; ++c) chn[(c0 + c) * N + s] = v[c];
+  __syncthreads();
+}
+
+// the channels of ray i of block blk (its unit direction in dn), as the
+// plain version forms them
+__device__ __forceinline__ void ray_channels(const CullArgs& A, int blk, int i, float (&v)[kCa],
+                                             float (&dn)[3], bool& live) {
+  const Ray r = fetch_ray(A, blk, i);
+  const float nrm = unit_dir(r.d, dn);
+  for (int k = 0; k < 3; ++k) {
+    v[kSum + k] = r.live ? dn[k] : 0.0f;
+    v[kLo + k] = r.live ? r.o[k] : kBig;
+    v[kHi + k] = r.live ? r.o[k] : -kBig;
+  }
+  v[kNrm] = r.live ? nrm : 1e-30f;
+  v[kThi] = r.live ? r.t_max * nrm : 0.0f;
+  v[kAny] = r.live ? 1.0f : 0.0f;
+  live = r.live;
 }
 
 // Rp sub-block cones of block blk into cones_out (and their n_hi into
@@ -247,25 +345,27 @@ __device__ void bounds_pass(const CullArgs& A, const Shape& sh, int blk, int Rp,
   const int W2 = pow2_at_least(W);
   const int N = sh.n_slots;
   const float inf = __int_as_float(0x7f800000);
-  for (int s = threadIdx.x; s < Rp * W2; s += blockDim.x) {
+  // a slot a thread: the ray's unit direction stays in registers for the
+  // cosine pass
+  const bool one_slot = Rp * W2 <= (int)blockDim.x;
+  float dn[3] = {0.0f, 0.0f, 0.0f};
+  bool live_ray = false;
+  if (one_slot) {
+    const int s = threadIdx.x, j = s % W2;
     float v[kCa] = {0.0f, 0.0f, 0.0f, inf, inf, inf, -inf, -inf, -inf, -inf, -inf, 0.0f};
-    const int j = s % W2;
-    if (j < W) {
-      const Ray r = fetch_ray(A, blk, (s / W2) * W + j);
-      float dn[3];
-      const float nrm = unit_dir(r.d, dn);
-      for (int k = 0; k < 3; ++k) {
-        v[kSum + k] = r.live ? dn[k] : 0.0f;
-        v[kLo + k] = r.live ? r.o[k] : kBig;
-        v[kHi + k] = r.live ? r.o[k] : -kBig;
-      }
-      v[kNrm] = r.live ? nrm : 1e-30f;
-      v[kThi] = r.live ? r.t_max * nrm : 0.0f;
-      v[kAny] = r.live ? 1.0f : 0.0f;
+    if (s < Rp * W2 && j < W) ray_channels(A, blk, (s / W2) * W + j, v, dn, live_ray);
+    warp_fold<0>(v, chn, N, Rp, W2);
+  } else {
+    for (int s = threadIdx.x; s < Rp * W2; s += blockDim.x) {
+      float v[kCa] = {0.0f, 0.0f, 0.0f, inf, inf, inf, -inf, -inf, -inf, -inf, -inf, 0.0f};
+      const int j = s % W2;
+      float d3[3];
+      bool live;
+      if (j < W) ray_channels(A, blk, (s / W2) * W + j, v, d3, live);
+      for (int c = 0; c < kCa; ++c) chn[c * N + s] = v[c];
     }
-    for (int c = 0; c < kCa; ++c) chn[c * N + s] = v[c];
+    tree_fold(chn, N, Rp, W2, 0, kCa);
   }
-  tree_fold(chn, N, Rp, W2, 0, kCa);
 
   // the unit mean direction of each sub-block
   for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
@@ -278,19 +378,29 @@ __device__ void bounds_pass(const CullArgs& A, const Shape& sh, int blk, int Rp,
   }
   __syncthreads();
   // the least cosine to it over the sub-block's live rays
-  for (int s = threadIdx.x; s < Rp * W2; s += blockDim.x) {
-    const int j = s % W2;
-    float ca = inf;
-    if (j < W) {
+  if (one_slot) {
+    const int s = threadIdx.x, j = s % W2;
+    float ca[1] = {inf};
+    if (s < Rp * W2 && j < W) {
       const float* a = s_a + (s / W2) * 3;
-      const Ray r = fetch_ray(A, blk, (s / W2) * W + j);
-      float dn[3];
-      unit_dir(r.d, dn);
-      ca = r.live ? (dn[0] * a[0] + dn[1] * a[1]) + dn[2] * a[2] : 1.0f;
+      ca[0] = live_ray ? (dn[0] * a[0] + dn[1] * a[1]) + dn[2] * a[2] : 1.0f;
     }
-    chn[kCa * N + s] = ca;
+    warp_fold<kCa>(ca, chn, N, Rp, W2);
+  } else {
+    for (int s = threadIdx.x; s < Rp * W2; s += blockDim.x) {
+      const int j = s % W2;
+      float ca = inf;
+      if (j < W) {
+        const float* a = s_a + (s / W2) * 3;
+        const Ray r = fetch_ray(A, blk, (s / W2) * W + j);
+        float d3[3];
+        unit_dir(r.d, d3);
+        ca = r.live ? (d3[0] * a[0] + d3[1] * a[1]) + d3[2] * a[2] : 1.0f;
+      }
+      chn[kCa * N + s] = ca;
+    }
+    tree_fold(chn, N, Rp, W2, kCa, kCa + 1);
   }
-  tree_fold(chn, N, Rp, W2, kCa, kCa + 1);
 
   for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
     const float* x = chn + r * W2;
@@ -324,9 +434,11 @@ __device__ void bounds_pass(const CullArgs& A, const Shape& sh, int blk, int Rp,
     const float t_cap = (norm3(dc[0], dc[1], dc[2]) + norm3(sh3[0], sh3[1], sh3[2]))
                         + norm3(oh[0], oh[1], oh[2]);
     float tn, tf;
-    cone_box(make_cone(oc, oh, axis, tan_th, t_cap), A.scene_min, A.scene_max, tn, tf);
+    cone_box(make_cone(oc, oh, axis, tan_th, t_cap, t_cap), A.scene_min, A.scene_max, tn, tf);
+    const float sec = sqrtf(1.0f + tan_th * tan_th);
+    const float t_len = fminf(t_hi, ((tf > 0.0f ? tf : 0.0f) * sec) * 1.0001f + 1e-3f);
     t_hi = fminf(t_hi, tf * 1.0001f + 1e-3f);
-    cones_out[r] = make_cone(oc, oh, axis, tan_th, t_hi);
+    cones_out[r] = make_cone(oc, oh, axis, tan_th, t_hi, t_len);
     if (nhi_out) nhi_out[r] = n_hi;
   }
   __syncthreads();
@@ -334,117 +446,148 @@ __device__ void bounds_pass(const CullArgs& A, const Shape& sh, int blk, int Rp,
 
 // --- box tests and selection ---
 
-// Test the n slots of one level and append the passing ones' keys to keys[]
-// (s_count counts them). Slot i is box i, or with group_sel member i % Gs of
-// group group_sel[i / Gs]. L lanes share a slot; lane q holds the cones
-// q + L*t (t < CPL, those set in cmask).
-// Test the n slots of one level and append the passing ones' keys to keys[]
-// (s_count counts them). Slot i is box i, or with group_sel member i % Gs of
-// group group_sel[i / Gs]. L lanes share a slot; lane q holds the cones
-// q + L*t (t < CPL, those set in cmask); every test runs, failures masked.
-template <int CPL>
-__device__ void test_level(const Cone (&cn)[CPL], unsigned cmask, int L, int n,
-                           const float* __restrict__ boxes, const int* group_sel, int Gs,
-                           int n_ids, int packed, unsigned idm, unsigned long long* keys,
-                           int* s_count) {
-  const int lane = threadIdx.x & 31;
-  const int per = 32 / L;
-  const int stride = (blockDim.x >> 5) * per;
-  const unsigned below = (1u << lane) - 1u;
-  const bool leader = lane % L == 0;
-  // slot i = g * Gs + r, stepped without a division a step
-  int i = (threadIdx.x >> 5) * per + lane / L;
-  int g = i / Gs, r = i % Gs;
-  const int step_g = stride / Gs, step_r = stride % Gs;
-  for (int base = i - lane / L; base < n; base += stride) {
-    int id = i;
-    bool in_range = i < n;
-    if (in_range && group_sel) {
-      const int grp = group_sel[g];
-      id = grp * Gs + r;
-      in_range = grp >= 0 && id < n_ids;
-    }
-    unsigned bits = kNoPass;
-    if (in_range) {
-      const float* b = boxes + (size_t)id * 6;
-      const float bmin0[3] = {b[0], b[1], b[2]};
-      const float bmax0[3] = {b[3], b[4], b[5]};
-#pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        for (int rep = 0; rep < kTestRepeat; ++rep) {
-          float bmin[3], bmax[3], tn, tf;
-          for (int k = 0; k < 3; ++k) {
-            bmin[k] = bmin0[k];
-            bmax[k] = bmax0[k];
-            if (rep) asm volatile("" : "+f"(bmin[k]), "+f"(bmax[k]));  // no reuse of rep 0
-          }
-          const bool ok = cone_box(cn[t], bmin, bmax, tn, tf) & ((cmask >> t) & 1u);
-          bits = ok ? min(bits, __float_as_uint(tn)) : bits;
-        }
-      }
-    }
-    if (L == 32) {
-      bits = __reduce_min_sync(0xffffffffu, bits);
-    } else {
-      for (int off = L >> 1; off > 0; off >>= 1)
-        bits = min(bits, __shfl_xor_sync(0xffffffffu, bits, off));
-    }
-    const bool pass = leader && bits != kNoPass;
-    const unsigned ballot = __ballot_sync(0xffffffffu, pass);
-    if (ballot) {
-      int at = 0;
-      if (lane == 0) at = atomicAdd(s_count, __popc(ballot));
-      at = __shfl_sync(0xffffffffu, at, 0);
-      if (pass) {
-        keys[at + __popc(ballot & below)] =
-            packed ? (unsigned long long)((bits & ~idm) | (unsigned)id)
-                   : (((unsigned long long)bits << 32) | (unsigned)i);
-      }
-    }
-    i += stride;
-    g += step_g;
-    r += step_r;
-    if (r >= Gs) {
-      r -= Gs;
-      ++g;
-    }
-  }
+// cone t of a lane's registers (kRegs), else cone c of shared memory
+template <bool kRegs, int N>
+__device__ __forceinline__ const Cone& cone_at(const Cone (&cn)[N], const Cone* cones, int t,
+                                               int c) {
+  if constexpr (kRegs)
+    return cn[t];
+  else
+    return cones[c];
 }
 
-// id and tn of sorted key k of m (id -1 and tn 3e38 past m)
-__device__ void decode(const unsigned long long* keys, int k, int m, int packed, unsigned idm,
-                       const int* group_sel, int Gs, int* id, float* tn) {
-  if (k >= m) {
-    *id = -1;
-    *tn = kBig;
-    return;
-  }
-  const unsigned long long key = keys[k];
+// A level's tests as key_sort.cuh's `each`: slot i of n is box i, or with
+// group_sel member i % Gs of group group_sel[i / Gs]. L lanes share a slot;
+// lane q holds the cones q + L*t of the R in shared memory (t < CPL); every
+// test runs, failures masked. With kShared every cone has the same origin
+// box (the factored front end's), so a lane forms the box's gap once for
+// its CPL cones and holds one origin box. The slot's key goes to visit at
+// its first lane: packed (bits(tn) & ~idm) | id, else (bits(tn) << sh) | i.
+template <int T, int CPL, bool kShared, bool kRegs = true>
+__device__ __forceinline__ auto box_tests(const Cone* cones, int R, int L, int n,
+                                          const float* boxes, const int* group_sel, int Gs,
+                                          int n_ids, int packed, unsigned idm, int sh) {
+  return [cones, R, L, n, boxes, group_sel, Gs, n_ids, packed, idm, sh](auto&& visit) {
+    const int lane = threadIdx.x & 31;
+    // this lane's cones q + L t, in registers for the level (kRegs), else
+    // read from shared memory a test; a lane's spare cones are tested and
+    // masked
+    const int q = lane % L;
+    Cone cn[kRegs ? CPL : 1];
+    unsigned cmask = 0;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int c = q + L * t;
+      if constexpr (kRegs) cn[t] = cones[c < R ? c : 0];
+      if (c < R) cmask |= 1u << t;
+    }
+    const int per = 32 / L;
+    const int stride = (T >> 5) * per;
+    const bool leader = lane % L == 0;
+    // slot i = g * Gs + r, stepped without a division a step
+    int i = (threadIdx.x >> 5) * per + lane / L;
+    int g = i / Gs, r = i % Gs;
+    const int step_g = stride / Gs, step_r = stride % Gs;
+    for (int base = i - lane / L; base < n; base += stride) {
+      int id = i;
+      bool in_range = i < n;
+      if (in_range && group_sel) {
+        const int grp = group_sel[g];
+        id = grp * Gs + r;
+        in_range = grp >= 0 && id < n_ids;
+      }
+      unsigned bits = kNoPass;
+      if (in_range) {
+        const float* b = boxes + (size_t)id * 6;
+        const float bmin0[3] = {b[0], b[1], b[2]};
+        const float bmax0[3] = {b[3], b[4], b[5]};
+        Gap shared_gap;
+        if constexpr (kShared)
+          shared_gap = box_gap(cone_at<kRegs>(cn, cones, 0, q < R ? q : 0), bmin0, bmax0);
+#pragma unroll
+        for (int t = 0; t < CPL; ++t) {
+          for (int rep = 0; rep < kTestRepeat; ++rep) {
+            float bmin[3], bmax[3], tn, tf;
+            for (int k = 0; k < 3; ++k) {
+              bmin[k] = bmin0[k];
+              bmax[k] = bmax0[k];
+              if (rep) asm volatile("" : "+f"(bmin[k]), "+f"(bmax[k]));  // no reuse of rep 0
+            }
+            const int c = q + L * t;
+            const Cone& cone = cone_at<kRegs>(cn, cones, t, c < R ? c : 0);
+            Gap gap;
+            if constexpr (kShared)
+              gap = shared_gap;
+            else
+              gap = box_gap(cone, bmin, bmax);
+            const bool ok = cone_test(cone, gap, tn, tf) & ((cmask >> t) & 1u);
+            bits = ok ? min(bits, __float_as_uint(tn)) : bits;
+          }
+        }
+      }
+      if (L == 32) {
+        bits = __reduce_min_sync(0xffffffffu, bits);
+      } else {
+        for (int off = L >> 1; off > 0; off >>= 1)
+          bits = min(bits, __shfl_xor_sync(0xffffffffu, bits, off));
+      }
+      const u64 key =
+          packed ? (u64)((bits & ~idm) | (unsigned)id) : (((u64)bits << sh) | (unsigned)i);
+      visit(leader && bits != kNoPass, key);
+      i += stride;
+      g += step_g;
+      r += step_r;
+      if (r >= Gs) {
+        r -= Gs;
+        ++g;
+      }
+    }
+  };
+}
+
+// id and tn of a kept key (see box_tests)
+__device__ __forceinline__ int decode(u64 key, int packed, unsigned idm, int sh,
+                                      const int* group_sel, int Gs, float* tn) {
   if (packed) {
     const unsigned k32 = (unsigned)key;
-    *id = (int)(k32 & idm);
     *tn = __uint_as_float(k32 & ~idm);
-  } else {
-    const int pos = (int)(key & 0xffffffffu);
-    *id = group_sel ? group_sel[pos / Gs] * Gs + pos % Gs : pos;
-    *tn = __uint_as_float((unsigned)(key >> 32));
+    return (int)(k32 & idm);
   }
+  const int pos = (int)(key & ((1ULL << sh) - 1ULL));
+  *tn = __uint_as_float((unsigned)(key >> sh));
+  return group_sel ? group_sel[pos / Gs] * Gs + pos % Gs : pos;
 }
 
 // floats of the shared region that holds the keys, or the bounds tree
-__host__ __device__ int region_floats(const Shape& sh) {
-  const int keys = sh.key_cap * 2, tree = sh.n_slots * kChannels;
-  return keys > tree ? keys : tree;
+// (even: the cone records after it stay 8-byte aligned)
+__host__ __device__ int region_floats(const CullArgs& A, const Shape& sh) {
+  const int keys = A.key_slots * 2, tree = sh.n_slots * kChannels;
+  return ((keys > tree ? keys : tree) + 1) & ~1;
 }
 
-template <int CPL>
-// one cone a lane fits three CTAs an SM without spills
-__global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
+// the dynamic shared bytes that the kernel's layout needs; the launch takes
+// ops/cull_cuda.py::cull_launch_plan's and is refused where the two differ
+__host__ __device__ size_t shared_bytes(const CullArgs& A, const Shape& sh) {
+  return (size_t)region_floats(A, sh) * sizeof(float) + (size_t)(A.R + 1) * sizeof(Cone) +
+         (size_t)4 * A.R * sizeof(float) +
+         (size_t)((A.ch > 0 ? A.ch : 1) + A.cs + (A.cm > 0 ? A.cm : 1)) * sizeof(int);
+}
+
+// CTAs an SM that each build's registers must allow without spilling (T
+// threads a CTA, CPL cones a lane, the streamed passes built or not): the
+// cap is 65,536 / (T x blocks) registers
+constexpr int min_blocks(int T, int cpl, bool stream) {
+  return cpl == 1 ? (T == 128 ? (stream ? 6 : 7) : 2)
+                  : cpl == 2 ? 512 / T : (T == 128 ? (stream ? 3 : 4) : 1);
+}
+
+template <int T, int CPL, bool kShared, bool kStream>
+__global__ void __launch_bounds__(T, min_blocks(T, CPL, kStream))
     cull_kernel(const CullArgs A, const Shape sh) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ u64 smem[];
   // keys, or the bounds tree before the first level
-  const int region = region_floats(sh);
-  unsigned long long* s_keys = smem;
+  const int region = region_floats(A, sh);
+  u64* s_keys = smem;
   float* s_chn = reinterpret_cast<float*>(smem);
   Cone* s_cones = reinterpret_cast<Cone*>(reinterpret_cast<float*>(smem) + region);  // R
   Cone* s_fat = s_cones + A.R;
@@ -453,23 +596,20 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
   int* s_hyp = reinterpret_cast<int*>(s_a + 3 * A.R);  // max(ch, 1)
   int* s_sup = s_hyp + (A.ch > 0 ? A.ch : 1);          // cs
   int* s_mid = s_sup + A.cs;                            // max(cm, 1)
+  __shared__ Scratch s;
   __shared__ float s_obox[6];
-  __shared__ int s_count;
   __shared__ int s_sat;
   __shared__ float s_scale;
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    s_count = 0;
-    s_sat = 0;
-  }
+  if (tid == 0) s_sat = 0;
   if (A.mode == kCones) {
-    for (int r = tid; r <= A.R; r += blockDim.x) {
+    for (int r = tid; r <= A.R; r += T) {
       if (r == A.R && A.ch == 0) break;
       const float* in = r < A.R ? A.cones + ((size_t)blk * A.R + r) * kConeIn
                                 : A.fat + (size_t)blk * kConeIn;
-      s_cones[r] = make_cone(in, in + 3, in + 6, in[9], in[10]);  // s_cones[R] is s_fat
+      s_cones[r] = make_cone(in, in + 3, in + 6, in[9], in[10], in[11]);  // s_cones[R] is s_fat
     }
     if (tid == 0) s_scale = A.n_hi[blk];
     __syncthreads();
@@ -503,49 +643,44 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
     __syncthreads();
   }
 
-  // this lane's sub-block cones, in registers for the R-cone levels
   const int L = sh.L;
-  const int q = (tid & 31) % L;
-  Cone cn[CPL];
-  unsigned cmask = 0;
-#pragma unroll
-  for (int t = 0; t < CPL; ++t) {
-    const int c = q + L * t;
-    cn[t] = s_cones[c < A.R ? c : 0];  // a lane's spare cones are tested and masked
-    if (c < A.R) cmask |= 1u << t;
-  }
-
-  // level 0 -> s_sup
-  int m;
+  // level 0 -> s_sup: the supers, or the hypers and then their supers
+  u64* kept;
+  float tn;
+  int m, sh_pos;
   if (A.ch > 0) {
-    const Cone fat[1] = {*s_fat};
-    test_level<1>(fat, 1u, 1, A.n_hyper, A.hyper_aabb, nullptr, 1, A.n_hyper, A.hyp_packed,
-                  A.idm_hyp, s_keys, &s_count);
-    m = take_count(&s_count);
-    sort_keys(s_keys, m);
-    for (int k = tid; k < A.ch; k += blockDim.x) {
-      float tn;
-      decode(s_keys, k, m, A.hyp_packed, A.idm_hyp, nullptr, 1, s_hyp + k, &tn);
-    }
+    sh_pos = bit_width(A.n_hyper - 1);
+    m = cull_level<T, kSortItems, kSortSpread, kStream>(
+        box_tests<T, 1, false>(s_fat, 1, 1, A.n_hyper, A.hyper_aabb, nullptr, 1, A.n_hyper,
+                               A.hyp_packed, A.idm_hyp, sh_pos),
+        box_tests<T, 1, false, false>(s_fat, 1, 1, A.n_hyper, A.hyper_aabb, nullptr, 1,
+                                      A.n_hyper, A.hyp_packed, A.idm_hyp, sh_pos),
+        A.n_hyper, A.ch, A.hyp_packed ? 31 : 31 + sh_pos, s_keys, A.key_slots, s, &kept);
+    const int n_hyp = min(m, A.ch);
+    for (int k = tid; k < n_hyp; k += T)
+      s_hyp[k] = decode(kept[k], A.hyp_packed, A.idm_hyp, sh_pos, nullptr, 1, &tn);
     if (tid == 0) s_sat |= m > A.ch;
     __syncthreads();
-    test_level<1>(fat, 1u, 1, min(m, A.ch) * A.H, A.super_aabb, s_hyp, A.H, A.n_super,
-                  A.sup_packed, A.idm_sup, s_keys, &s_count);
-    m = take_count(&s_count);
-    sort_keys(s_keys, m);
-    for (int k = tid; k < A.cs; k += blockDim.x) {
-      float tn;
-      decode(s_keys, k, m, A.sup_packed, A.idm_sup, s_hyp, A.H, s_sup + k, &tn);
-    }
+    const int n = n_hyp * A.H;
+    sh_pos = bit_width(n - 1);
+    m = cull_level<T, kSortItems, kSortSpread, kStream>(
+        box_tests<T, 1, false>(s_fat, 1, 1, n, A.super_aabb, s_hyp, A.H, A.n_super,
+                               A.sup_packed, A.idm_sup, sh_pos),
+        box_tests<T, 1, false, false>(s_fat, 1, 1, n, A.super_aabb, s_hyp, A.H, A.n_super,
+                                      A.sup_packed, A.idm_sup, sh_pos),
+        n, A.cs, A.sup_packed ? 31 : 31 + sh_pos, s_keys, A.key_slots, s, &kept);
+    for (int k = tid; k < min(m, A.cs); k += T)
+      s_sup[k] = decode(kept[k], A.sup_packed, A.idm_sup, sh_pos, s_hyp, A.H, &tn);
   } else {
-    test_level<CPL>(cn, cmask, L, A.n_super, A.super_aabb, nullptr, 1, A.n_super, 0, 0u,
-                    s_keys, &s_count);
-    m = take_count(&s_count);
-    sort_keys(s_keys, m);
-    for (int k = tid; k < A.cs; k += blockDim.x) {
-      float tn;
-      decode(s_keys, k, m, 0, 0u, nullptr, 1, s_sup + k, &tn);
-    }
+    sh_pos = bit_width(A.n_super - 1);
+    m = cull_level<T, kSortItems, kSortSpread, kStream>(
+        box_tests<T, CPL, kShared>(s_cones, A.R, L, A.n_super, A.super_aabb, nullptr, 1,
+                                   A.n_super, 0, 0u, sh_pos),
+        box_tests<T, CPL, kShared, false>(s_cones, A.R, L, A.n_super, A.super_aabb, nullptr, 1,
+                                          A.n_super, 0, 0u, sh_pos),
+        A.n_super, A.cs, 31 + sh_pos, s_keys, A.key_slots, s, &kept);
+    for (int k = tid; k < min(m, A.cs); k += T)
+      s_sup[k] = decode(kept[k], 0, 0u, sh_pos, nullptr, 1, &tn);
   }
   if (tid == 0) s_sat |= m > A.cs;
   __syncthreads();
@@ -555,14 +690,16 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
   int group_size = A.S;
   int n_groups = min(m, A.cs);
   if (A.cm > 0) {
-    test_level<CPL>(cn, cmask, L, n_groups * A.Sm, A.mid_aabb, s_sup, A.Sm, A.n_mid_ids,
-                    A.mid_packed, A.idm_mid, s_keys, &s_count);
-    m = take_count(&s_count);
-    sort_keys(s_keys, m);
-    for (int k = tid; k < A.cm; k += blockDim.x) {
-      float tn;
-      decode(s_keys, k, m, A.mid_packed, A.idm_mid, s_sup, A.Sm, s_mid + k, &tn);
-    }
+    const int n = n_groups * A.Sm;
+    sh_pos = bit_width(n - 1);
+    m = cull_level<T, kSortItems, kSortSpread, kStream>(
+        box_tests<T, CPL, kShared>(s_cones, A.R, L, n, A.mid_aabb, s_sup, A.Sm, A.n_mid_ids,
+                                   A.mid_packed, A.idm_mid, sh_pos),
+        box_tests<T, CPL, kShared, false>(s_cones, A.R, L, n, A.mid_aabb, s_sup, A.Sm,
+                                          A.n_mid_ids, A.mid_packed, A.idm_mid, sh_pos),
+        n, A.cm, A.mid_packed ? 31 : 31 + sh_pos, s_keys, A.key_slots, s, &kept);
+    for (int k = tid; k < min(m, A.cm); k += T)
+      s_mid[k] = decode(kept[k], A.mid_packed, A.idm_mid, sh_pos, s_sup, A.Sm, &tn);
     if (tid == 0) s_sat |= m > A.cm;
     __syncthreads();
     groups = s_mid;
@@ -570,46 +707,73 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 3 : kMinBlocks)
     n_groups = min(m, A.cm);
   }
 
-  // level 1: the kept groups' bins
-  test_level<CPL>(cn, cmask, L, n_groups * group_size, A.bin_aabb, groups, group_size, A.n_bins,
-                  A.bin_packed, A.idm_bin, s_keys, &s_count);
-  m = take_count(&s_count);
-  sort_keys(s_keys, m);
-  for (int k = tid; k < A.cb; k += blockDim.x) {
-    int id;
-    float tn;
-    decode(s_keys, k, m, A.bin_packed, A.idm_bin, groups, group_size, &id, &tn);
+  // level 1: the kept groups' bins; tnear = the key's tn / n_hi
+  const int n = n_groups * group_size;
+  const int sh_b = bit_width(n - 1);
+  m = cull_level<T, kSortItems, kSortSpread, kStream>(
+      box_tests<T, CPL, kShared>(s_cones, A.R, L, n, A.bin_aabb, groups, group_size, A.n_bins,
+                                 A.bin_packed, A.idm_bin, sh_b),
+      box_tests<T, CPL, kShared, false>(s_cones, A.R, L, n, A.bin_aabb, groups, group_size,
+                                        A.n_bins, A.bin_packed, A.idm_bin, sh_b),
+      n, A.cb, A.bin_packed ? 31 : 31 + sh_b, s_keys, A.key_slots, s, &kept);
+  const int n_kept = min(m, A.cb);
+  for (int k = tid; k < A.cb; k += T) {
+    const int id = k < n_kept ? decode(kept[k], A.bin_packed, A.idm_bin, sh_b, groups,
+                                       group_size, &tn)
+                              : -1;
     A.cand_bin[(size_t)blk * A.cb + k] = id;
     A.cand_tnear[(size_t)blk * A.cb + k] = id >= 0 ? tn / s_scale : kBig;
   }
   if (tid == 0) {
-    A.cand_count[blk] = min(m, A.cb);
+    A.cand_count[blk] = n_kept;
     A.sat[blk] = (unsigned char)(s_sat | (m > A.cb));
   }
 }
 
-template <int CPL>
-int launch(const CullArgs& A, const Shape& sh, size_t smem, cudaStream_t stream) {
-  // small CTAs for big grids: more of them an SM, so one CTA's barriers and
-  // selections overlap another's box tests; big CTAs fill small grids
-  const int threads = A.Cb >= kBigGrid ? kBigGridThreads : kThreads;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cull_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cull_kernel<CPL><<<A.Cb, threads, smem, stream>>>(A, sh);
-  return (int)cudaGetLastError();
-}
+// K3's builds, (threads, cones a lane, origin box shared, streamed passes):
+// every width and cone count with the streamed passes, which runs any
+// launch; at the big grids' width also one cone a lane without them (64
+// registers: 8 CTAs an SM) and four sharing their origin box without them
+// (the pose sweep's per-ray cones). A launch runs the first build that can
+// take it.
+using Kernel = void (*)(const CullArgs, const Shape);
+
+struct Build {
+  int threads, cpl, shared, stream;
+  Kernel kernel;
+};
+
+const Build kBuilds[] = {
+    {kBigGridThreads, 1, 0, 0, cull_kernel<kBigGridThreads, 1, false, false>},
+    {kBigGridThreads, 4, 1, 0, cull_kernel<kBigGridThreads, 4, true, false>},
+    {kBigGridThreads, 1, 0, 1, cull_kernel<kBigGridThreads, 1, false, true>},
+    {kBigGridThreads, 2, 0, 1, cull_kernel<kBigGridThreads, 2, false, true>},
+    {kBigGridThreads, 4, 0, 1, cull_kernel<kBigGridThreads, 4, false, true>},
+    {kThreads, 1, 0, 1, cull_kernel<kThreads, 1, false, true>},
+    {kThreads, 2, 0, 1, cull_kernel<kThreads, 2, false, true>},
+    {kThreads, 4, 0, 1, cull_kernel<kThreads, 4, false, true>},
+};
+constexpr int kNumBuilds = sizeof(kBuilds) / sizeof(kBuilds[0]);
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Returns cudaGetLastError() after
-// the launch: 0 on success; cudaErrorInvalidValue for more than 128 cones a
-// block.
+// Plain C entry point (loaded with ctypes). The launch plan (threads, key
+// slots, shared bytes, whether a level may outgrow its stage) comes from
+// ops/cull_cuda.py::cull_launch_plan; it runs the first of kBuilds that
+// can take it. A lane's cones have one origin box in the factored front end
+// (every sub-block spans the block's origins) and in the expanded one when
+// L x W (W rays a sub-block) is a multiple of P (sub-block r spans origins
+// (r W + j) % P, the same for r + L).
+// Returns cudaGetLastError() after the launch: 0 on success;
+// cudaErrorInvalidValue for more than 128 cones a block, a width other than
+// 128 or 256, key slots below a kept list, or shared bytes other than the
+// layout's; the attribute's error for shared memory beyond what a CTA may
+// hold.
 extern "C" int rmcl_cull(const CullArgs* args, void* stream) {
   const CullArgs& A = *args;
   if (A.Cb == 0) return 0;
+  if (A.key_slots < std::max(std::max(A.ch, A.cs), std::max(A.cm, A.cb)))
+    return (int)cudaErrorInvalidValue;
   Shape sh;
   sh.L = A.R <= 32 ? pow2_at_least(A.R) : 32;
   const int cpl = (A.R + sh.L - 1) / sh.L;
@@ -618,40 +782,46 @@ extern "C" int rmcl_cull(const CullArgs* args, void* stream) {
     const int n_rays = A.mode == kFactored ? A.G : A.Rb;
     sh.n_slots = std::max(A.R * pow2_at_least(n_rays / A.R), pow2_at_least(n_rays));
   }
-  // level 1's keys (and the mid level's), then level 0's
-  int slots = A.cm > 0 ? std::max(A.cs * A.Sm, A.cm * A.M) : A.cs * A.S;
-  if (A.ch > 0) {
-    slots = std::max(slots, std::max(A.n_hyper, A.ch * A.H));
-  } else {
-    slots = std::max(slots, A.n_super);
+  if (shared_bytes(A, sh) != (size_t)A.smem_bytes) return (int)cudaErrorInvalidValue;
+  const size_t smem = A.smem_bytes;
+  const bool shared = A.mode == kFactored ||
+                      (A.mode == kExpanded && (sh.L * (A.Rb / A.R)) % A.P == 0);
+  for (const Build& b : kBuilds) {
+    if (b.threads != A.threads || b.cpl != (cpl == 3 ? 4 : cpl) || (b.shared && !shared) ||
+        (A.stream && !b.stream))
+      continue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          b.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) {
+        cudaGetLastError();  // not left for the next launch's check
+        return (int)err;
+      }
+    }
+    b.kernel<<<A.Cb, A.threads, smem, (cudaStream_t)stream>>>(A, sh);
+    return (int)cudaGetLastError();
   }
-  sh.key_cap = pow2_at_least(std::max(slots, 32));  // the warp sort writes 32
-  const size_t smem = (size_t)region_floats(sh) * sizeof(float) + (size_t)(A.R + 1) * sizeof(Cone) +
-                      (size_t)4 * A.R * sizeof(float) +
-                      (size_t)((A.ch > 0 ? A.ch : 1) + A.cs + (A.cm > 0 ? A.cm : 1)) * sizeof(int);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cpl) {
-    case 1: return launch<1>(A, sh, smem, s);
-    case 2: return launch<2>(A, sh, smem, s);
-    case 3:
-    case 4: return launch<4>(A, sh, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Registers and local-memory bytes a thread (spills show as local memory) of
-// the kernel built for `cpl` cones a lane (1, 2 or 4). Returns the
-// cudaFuncGetAttributes error.
-extern "C" int rmcl_cull_attrs(int cpl, int* regs, int* local_bytes) {
+// Build i of K3's builds: its threads, cones a lane, whether its lane's
+// cones share their origin box and whether it holds the streamed passes;
+// its registers, local-memory bytes (spills show as local memory) and
+// static shared bytes. Returns cudaErrorInvalidValue past the last build,
+// else the cudaFuncGetAttributes error.
+extern "C" int rmcl_cull_attrs(int i, int* flags, int* regs, int* local_bytes,
+                               int* static_smem) {
+  if (i < 0 || i >= kNumBuilds) return (int)cudaErrorInvalidValue;
+  const Build& b = kBuilds[i];
   cudaFuncAttributes a;
-  cudaError_t err;
-  switch (cpl) {
-    case 1: err = cudaFuncGetAttributes(&a, cull_kernel<1>); break;
-    case 2: err = cudaFuncGetAttributes(&a, cull_kernel<2>); break;
-    case 4: err = cudaFuncGetAttributes(&a, cull_kernel<4>); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = cudaFuncGetAttributes(&a, b.kernel);
+  if (err != cudaSuccess) return (int)err;
+  flags[0] = b.threads;
+  flags[1] = b.cpl;
+  flags[2] = b.shared;
+  flags[3] = b.stream;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  return (int)err;
+  *static_smem = (int)a.sharedSizeBytes;
+  return 0;
 }

@@ -43,26 +43,20 @@
 // wide and the grid is about one wave (phases 8 and 12), 128 where the grid
 // is many waves (phase 9); ops/closest_cuda.py::cp_launch_plan picks. The
 // block's box and bound are reduced by warp shuffles. Each level's tests
-// are spread one box a thread and the passing keys compacted by ballot and
-// popcount (one shared atomic a warp step) into a stage in shared memory.
-// When more keys pass than the level keeps, an MSB-first radix select finds
-// the kept-th least key (8-bit digits over the key's live bits; a shared
-// histogram built with warp-aggregated atomics, scanned by one warp; it
-// stops as soon as the digit's bucket is taken whole), then the keys at or
-// below it are compacted: exactly the kept count, since keys are unique.
-// Only those are sorted, by a bitonic network whose comparators all put the
-// lesser key at the lower index, so the keys past the count are virtual (no
-// padding to a power of two): strides inside a warp's tile of 256 keys run
-// in registers (8 a lane, striped) and by shuffles, only wider strides go
-// through shared memory with a barrier; a list of up to 32, 64 or 128 keys
-// takes a tile of 1, 2 or 4 keys a lane. A level that passes more keys than
-// its stage holds is streamed: each radix pass and the compaction recompute
-// its tests (the boxes sit in L2), so shared memory scales with the kept
-// counts, not with the levels' widths; only a kept list that does not fit a
-// CTA (cb, with cs super ids, past ~28,000 keys) is refused.
+// are spread one box a thread; the level's keys are selected and sorted by
+// key_sort.cuh (shared with K3): compacted into a stage in shared memory, a
+// radix select of the kept-th key where more pass than the level keeps, a
+// bitonic sort of the kept keys alone in warps' registers with the wide
+// strides in shared memory, and a level wider than its stage streamed
+// (each pass recomputes its tests; the boxes sit in L2). So shared memory
+// scales with the kept counts, not with the levels' widths; only a kept
+// list that does not fit a CTA (cb, with cs super ids, past ~28,000 keys)
+// is refused.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "key_sort.cuh"
 
 // the kernel's arguments, mirrored field for field by ops/closest_cuda.py::_BoxArgs
 struct BoxArgs {
@@ -82,19 +76,7 @@ struct BoxArgs {
 
 namespace {
 
-using u64 = unsigned long long;
-
 constexpr float kBig = 3.0e38f;
-constexpr u64 kSentinel = ~0ULL;
-constexpr int kItems = 8;           // keys a lane holds in a full sort tile
-constexpr int kTile = kItems * 32;  // keys a warp sorts in registers
-
-struct Scratch {
-  int count;            // keys appended by the current pass
-  int digit, bucket;    // the radix select's step: its digit and that bucket's count,
-  int rank;             // and the rank left inside the bucket
-  unsigned hist[256];   // the radix select's digit histogram
-};
 
 __device__ __forceinline__ float box_box_d2(const float* lo, const float* hi, const float* b) {
   float g[3];
@@ -104,286 +86,6 @@ __device__ __forceinline__ float box_box_d2(const float* lo, const float* hi, co
     g[k] = gap * gap;
   }
   return (g[0] + g[1]) + g[2];
-}
-
-__device__ __forceinline__ int bit_width(int n) { return n > 0 ? 32 - __clz(n) : 0; }
-
-__device__ __forceinline__ int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// append key to keys[] where pass holds and its slot is below cap: the
-// warp's passes compacted by ballot and popcount, one shared atomic a warp
-// step; the count goes on past cap
-__device__ __forceinline__ void append(bool pass, u64 key, u64* keys, int cap, int* count) {
-  const int lane = threadIdx.x & 31;
-  const unsigned ballot = __ballot_sync(0xffffffffu, pass);
-  if (!ballot) return;
-  int at = 0;
-  if (lane == 0) at = atomicAdd(count, __popc(ballot));
-  at = __shfl_sync(0xffffffffu, at, 0) + __popc(ballot & ((1u << lane) - 1u));
-  if (pass && at < cap) keys[at] = key;
-}
-
-// the keys of items 0..n-1 that pass and are <= thr appended to keys[] (at
-// most cap stored); returns how many passed. src(i, key) sets item i's key
-// and returns whether it passes.
-template <int T, class Src>
-__device__ int gather(const Src& src, int n, u64 thr, u64* keys, int cap, Scratch& s) {
-  if (threadIdx.x == 0) s.count = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += T) {
-    const int i = base + threadIdx.x;
-    u64 key = 0;
-    const bool pass = i < n && src(i, key) && key <= thr;
-    append(pass, key, keys, cap, &s.count);
-  }
-  __syncthreads();
-  const int m = s.count;
-  __syncthreads();
-  return m;
-}
-
-// the rank-th least (1-based) of the passing keys of items 0..n-1, each
-// below 2^bits and unique, by an MSB-first radix select; returns the
-// threshold t with exactly rank passing keys <= t
-template <int T, class Src>
-__device__ u64 select_kth(const Src& src, int n, int rank, int bits, Scratch& s) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  u64 prefix = 0, mask = 0;
-  int left = bits;
-  for (;;) {
-    const int shift = left > 8 ? left - 8 : 0;
-    const unsigned dmask = (1u << (left - shift)) - 1u;
-    for (int b = tid; b < 256; b += T) s.hist[b] = 0;
-    __syncthreads();
-    for (int base = 0; base < n; base += T) {
-      const int i = base + tid;
-      u64 key = 0;
-      const bool in = i < n && src(i, key) && (key & mask) == prefix;
-      const int digit = in ? (int)((key >> shift) & dmask) : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu, digit);
-      if (in && lane == __ffs(peers) - 1) atomicAdd(&s.hist[digit], (unsigned)__popc(peers));
-    }
-    __syncthreads();
-    if (tid < 32) {  // one warp scans the 256 buckets, 8 a lane
-      unsigned c[8], sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += (c[j] = s.hist[lane * 8 + j]);
-      unsigned incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-      }
-      unsigned below = incl - sum;
-      const unsigned r = (unsigned)rank;
-      if (below < r && r <= incl) {
-        bool found = false;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (!found && r <= below + c[j]) {
-            found = true;
-            s.digit = lane * 8 + j;
-            s.bucket = (int)c[j];
-            s.rank = (int)(r - below);
-          }
-          below += c[j];
-        }
-      }
-    }
-    __syncthreads();
-    const int bucket = s.bucket;
-    rank = s.rank;
-    prefix |= (u64)s.digit << shift;
-    mask |= (u64)dmask << shift;
-    // the bucket taken whole: every key below it, and all of it
-    if (bucket == rank || shift == 0) return prefix | ((1ULL << shift) - 1ULL);
-    left = shift;
-  }
-}
-
-// --- the sort: a bitonic network with every comparator ascending --------
-//
-// Block size K: first element e against e ^ (K - 1) (the mirror), then
-// against e ^ j for j = K/4 .. 1. The lesser key always goes to the lower
-// index, so keys past the count c act as +inf and are never touched. A
-// warp's tile of 32 N keys holds r[t] = element base + t * 32 + lane; the
-// tile is sized to the count (N = 1, 2, 4 or 8), so a short list spends no
-// issue slots on empty items.
-
-__device__ __forceinline__ void order2(u64& lo, u64& hi) {
-  const u64 a = lo;
-  lo = min(a, hi);
-  hi = max(a, hi);
-}
-
-// the stage of partners e ^ J (J < 32 across lanes, else across a lane's
-// items); items wholly past the count hold sentinels, which a stage across
-// lanes leaves as they are
-template <int N, int J>
-__device__ __forceinline__ void stage_xor(u64 (&r)[N], int lane, int live) {
-  if constexpr (J < 32) {
-    const bool lower = (lane & J) == 0;
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if (t * 32 < live) {
-        const u64 o = __shfl_xor_sync(0xffffffffu, r[t], J);
-        r[t] = lower ? min(r[t], o) : max(r[t], o);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < N; ++t)
-      if ((t & (J / 32)) == 0) order2(r[t], r[t | (J / 32)]);
-  }
-}
-
-// the mirror stage of block size K: partners e ^ (K - 1)
-template <int N, int K>
-__device__ __forceinline__ void stage_mirror(u64 (&r)[N], int lane, int live) {
-  if constexpr (K <= 32) {
-    const bool lower = (lane & (K / 2)) == 0;
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if (t * 32 < live) {
-        const u64 o = __shfl_xor_sync(0xffffffffu, r[t], K - 1);
-        r[t] = lower ? min(r[t], o) : max(r[t], o);
-      }
-    }
-  } else {  // lane ^ 31 and item t ^ X: r[t] is the lower of its pair when bit H of t is clear
-    constexpr int X = K / 32 - 1, H = K / 64;
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if ((t & H) == 0) {
-        const u64 a = __shfl_xor_sync(0xffffffffu, r[t ^ X], 31);
-        const u64 b = __shfl_xor_sync(0xffffffffu, r[t], 31);
-        r[t] = min(r[t], a);
-        r[t ^ X] = max(r[t ^ X], b);
-      }
-    }
-  }
-}
-
-template <int N, int J>
-__device__ __forceinline__ void stages_down(u64 (&r)[N], int lane, int live) {
-  if constexpr (J >= 1) {
-    stage_xor<N, J>(r, lane, live);
-    stages_down<N, J / 2>(r, lane, live);
-  }
-}
-
-// block sizes K, 2K, ... up to min(p2, 32 N), whole
-template <int N, int K>
-__device__ __forceinline__ void tile_sort(u64 (&r)[N], int lane, int live, int p2) {
-  if constexpr (K <= 32 * N) {
-    if (K <= p2) {
-      stage_mirror<N, K>(r, lane, live);
-      stages_down<N, K / 4>(r, lane, live);
-      tile_sort<N, 2 * K>(r, lane, live, p2);
-    }
-  }
-}
-
-// every warp's tiles of 32 N keys: sorted whole up to block size 32 N, or
-// (merge) the strides below 32 N of a larger block
-template <int T, int N>
-__device__ void tile_pass(u64* keys, int c, int p2, bool merge) {
-  const int lane = threadIdx.x & 31;
-  for (int base = (threadIdx.x >> 5) * 32 * N; base < c; base += T * N) {
-    u64 r[N];
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      const int e = base + t * 32 + lane;
-      r[t] = e < c ? keys[e] : kSentinel;
-    }
-    const int live = c - base;
-    if (merge)
-      stages_down<N, 16 * N>(r, lane, live);
-    else
-      tile_sort<N, 2>(r, lane, live, p2);
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      const int e = base + t * 32 + lane;
-      if (e < c) keys[e] = r[t];
-    }
-  }
-}
-
-// one stage in shared memory: pairs (i, i ^ x), i with bit hb clear
-template <int T>
-__device__ void shared_stage(u64* keys, int c, int p2, int x, int hb) {
-  for (int p = threadIdx.x; p < p2 / 2; p += T) {
-    const int i = ((p & ~(hb - 1)) << 1) | (p & (hb - 1));
-    const int pi = i ^ x;
-    if (pi < c) {
-      const u64 a = keys[i], b = keys[pi];
-      if (a > b) {
-        keys[i] = b;
-        keys[pi] = a;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// ascending order of keys[0..c-1] (written before a barrier): a list of up
-// to kTile keys in one warp's registers, a longer one in tiles of kTile
-// with the wider strides in shared memory
-template <int T>
-__device__ void sort_kept(u64* keys, int c) {
-  const int p2 = pow2_at_least(c);
-  if (p2 <= 32) {
-    tile_pass<T, 1>(keys, c, p2, false);
-  } else if (p2 <= 64) {
-    tile_pass<T, 2>(keys, c, p2, false);
-  } else if (p2 <= 128) {
-    tile_pass<T, 4>(keys, c, p2, false);
-  } else {
-    tile_pass<T, kItems>(keys, c, p2, false);
-    for (int k = 2 * kTile; k <= p2; k <<= 1) {
-      __syncthreads();
-      shared_stage<T>(keys, c, p2, k - 1, k >> 1);
-      for (int j = k >> 2; j >= kTile; j >>= 1) shared_stage<T>(keys, c, p2, j, j);
-      tile_pass<T, kItems>(keys, c, p2, true);
-    }
-  }
-  __syncthreads();
-}
-
-// A level: the keep least keys that pass among items 0..n-1 (all of them
-// when fewer pass), sorted; returns their count and sets *kept to where
-// they lie. region[0..keep) takes the kept list, region[keep..slots) the
-// level's stage; a level no wider than keep appends straight into the list.
-template <int T, class Item>
-__device__ int cull_level(const Item& item, int n, int keep, int bits, u64* region, int slots,
-                          Scratch& s, u64** kept) {
-  const bool direct = n <= keep;
-  u64* stage = direct ? region : region + keep;
-  const int cap = direct ? keep : slots - keep;
-  const int m = gather<T>(item, n, kSentinel, stage, cap, s);
-  if (m <= keep && m <= cap) {
-    sort_kept<T>(stage, m);
-    *kept = stage;
-    return m;
-  }
-  const auto staged = [stage](int i, u64& key) {
-    key = stage[i];
-    return true;
-  };
-  if (m <= keep) {  // more than the stage holds, all kept
-    gather<T>(item, n, kSentinel, region, keep, s);
-  } else if (m <= cap) {
-    gather<T>(staged, m, select_kth<T>(staged, m, keep, bits, s), region, keep, s);
-  } else {  // streamed: every pass recomputes the level's tests
-    gather<T>(item, n, select_kth<T>(item, n, keep, bits, s), region, keep, s);
-  }
-  const int k = m < keep ? m : keep;
-  sort_kept<T>(region, k);
-  *kept = region;
-  return k;
 }
 
 template <int T>
@@ -443,7 +145,10 @@ __global__ void __launch_bounds__(T) cull_boxes_kernel(const BoxArgs A) {
     return d2 <= d2cap;
   };
   u64* kept;
-  const int k0 = cull_level<T>(super_key, A.n_super, A.cs, 31 + sh0, region, A.key_slots, s, &kept);
+  const auto supers = on_threads<T>(A.n_super, super_key);
+  const int k0 = min(cull_level<T>(supers, supers, A.n_super, A.cs, 31 + sh0, region,
+                                   A.key_slots, s, &kept),
+                     A.cs);
   for (int k = tid; k < k0; k += T) s_sup[k] = (int)(kept[k] & ((1ULL << sh0) - 1ULL));
   __syncthreads();
 
@@ -457,8 +162,10 @@ __global__ void __launch_bounds__(T) cull_boxes_kernel(const BoxArgs A) {
     key = A.packed ? (u64)((bits & ~A.idm) | (unsigned)gbin) : (((u64)bits << sh1) | (unsigned)pos);
     return d2 <= d2cap;
   };
-  const int m = cull_level<T>(bin_key, k0 * A.S, A.cb, A.packed ? 31 : 31 + sh1, region,
-                              A.key_slots, s, &kept);
+  const auto bins = on_threads<T>(k0 * A.S, bin_key);
+  const int m = min(cull_level<T>(bins, bins, k0 * A.S, A.cb, A.packed ? 31 : 31 + sh1, region,
+                                  A.key_slots, s, &kept),
+                    A.cb);
   for (int k = tid; k < A.cb; k += T) {
     int id = -1;
     float dlb = kBig;
@@ -488,7 +195,10 @@ int launch(const BoxArgs& A, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         cull_boxes_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch's check
+      return (int)err;
+    }
   }
   cull_boxes_kernel<T><<<A.n_blk, T, smem, stream>>>(A);
   return (int)cudaGetLastError();

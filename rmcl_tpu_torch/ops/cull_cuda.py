@@ -26,9 +26,10 @@ over a zero-padded power of two (:func:`_tree_sum`), ``1 / sqrt`` in place
 of ``rsqrt`` — so the kernel, built without FMA contraction, agrees with
 them bitwise.
 
-Back-end contract (:func:`cull_blocks`): ``cones (Cb, R, 11)`` per block R
-sub-block cones ``[oc(3), oh(3), axis(3), tan_th, t_hi]``; ``fat (Cb,
-11)`` one block cone for the coarse levels (used only when ``ch > 0``);
+Back-end contract (:func:`cull_blocks`): ``cones (Cb, R, 12)`` per block R
+sub-block cones ``[oc(3), oh(3), axis(3), tan_th, t_hi, t_len]`` (``t_hi``
+the reach along the axis, ``t_len`` along a ray: see
+:func:`_cone_box_test`); ``fat (Cb, 12)`` one block cone for the coarse levels (used only when ``ch > 0``);
 ``n_hi (Cb,)`` the blocks' direction-length scale; boxes ``bin_aabb
 (n_bins, 6)``, ``super_aabb (n_super, 6)``, ``hyper_aabb (n_hyper, 6)``
 with ``S`` bins per super and ``H`` supers per hyper; budgets ``ch`` (0: no
@@ -55,7 +56,7 @@ Tensor = torch.Tensor
 
 _BIG = 3.0e38
 _SENTINEL_KEY = 0x7FFFFFF0
-CONE_WIDTH = 11  # oc(3), oh(3), axis(3), tan_th, t_hi
+CONE_WIDTH = 12  # oc(3), oh(3), axis(3), tan_th, t_hi, t_len
 
 
 def _dot3(x: Tensor, y: Tensor) -> Tensor:
@@ -91,7 +92,7 @@ def _top_k_desc(score: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
+def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax, t_len=None):
     """Conservative (origin-box x direction-cone) vs AABB test.
 
     The ray block is the Minkowski sum of an origin box (center ``oc``,
@@ -99,8 +100,20 @@ def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
     = tan of the max angular deviation); intersected with the ball bound.
     Never false-culls.
 
-    Shapes: oc/oh/a (..., 1, 3), tan_th/t_hi (..., 1), bmin/bmax (..., K, 3).
+    Two reaches: ``t_hi`` bounds a ray's distance along the axis (it sizes
+    the cone's radii), ``t_len`` its length (default ``t_hi``). The slab
+    interval is axial; ``d_near``, the boxes' Euclidean distance, bounds a
+    ray's length, so a ray at most theta_max off the axis enters the box at
+    an axial distance of at least ``d_near * cos(theta_max)``: the slab is
+    held against that, never against ``d_near`` itself (JAX's
+    ``_cone_box_test`` compares the two directly and drops flat boxes seen
+    off-axis). The entry distance returned, ``max(slab tn, d_near)``, is
+    JAX's: a lower bound on the ray's length, held against ``t_len``.
+
+    Shapes: oc/oh/a (..., 1, 3), tan_th/t_hi/t_len (..., 1), bmin/bmax (..., K, 3).
     Returns (pass (..., K), t_near (..., K) >= +0.0, t_far (..., K))."""
+    if t_len is None:
+        t_len = t_hi
     a_safe = torch.where(torch.abs(a) < 1e-30, 1e-30, a)
     inv = 1.0 / a_safe
     b0 = bmin - oh - oc
@@ -112,6 +125,7 @@ def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
     # the cone's displacement off the axis is perpendicular to it: its reach
     # along axis k is r * sqrt(1 - a_k^2)
     s_perp = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
+    cos_th = 1.0 / torch.sqrt(1.0 + tan_th * tan_th)
 
     def slab(r):
         rk = r * s_perp
@@ -125,18 +139,19 @@ def _cone_box_test(oc, oh, a, tan_th, t_hi, bmin, bmax):
     _, tf0 = slab(r0)
     # refine: over the box's own window the cone radius is tf0 * tan_th
     r1 = (torch.minimum(torch.clamp(tf0, min=0.0), t_hi) * tan_th)[..., None]
-    tn, tf = slab(r1)
-    tn = torch.maximum(tn, d_near)
+    tn_s, tf = slab(r1)
+    tn = torch.maximum(tn_s, d_near)
     tf = torch.minimum(tf, d_far)
-    ok = (tn <= tf) & (tf >= 0.0) & (tn <= t_hi) & (d_near <= t_hi)
+    ok = (torch.maximum(tn_s, d_near * cos_th) <= tf) & (tf >= 0.0) & (tn <= t_len)
     # +0.0 for every non-positive entry: the packed keys take tn's bits, and
     # torch.clamp keeps the sign of -0.0
     return ok, torch.where(tn > 0.0, tn, 0.0), tf
 
 
-def pack_cones(oc, oh, axis, tan_th, t_hi) -> Tensor:
-    """Cone bounds (L..., 3) x 3 and (L...,) x 2 as one (L..., 11) tensor."""
-    return torch.cat([oc, oh, axis, tan_th[..., None], t_hi[..., None]], dim=-1).contiguous()
+def pack_cones(oc, oh, axis, tan_th, t_hi, t_len) -> Tensor:
+    """Cone bounds (L..., 3) x 3 and (L...,) x 3 as one (L..., 12) tensor."""
+    return torch.cat([oc, oh, axis, tan_th[..., None], t_hi[..., None], t_len[..., None]],
+                     dim=-1).contiguous()
 
 
 # --- the cone bounds: plain versions of the kernel's front ends ---
@@ -255,7 +270,10 @@ def _dead_axis(axis, dead):
 
 def _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi):
     """Cap each block's reach at its conservative exit from the scene box.
-    Bounds have a leading batch shape L; returns t_hi (L)."""
+    Bounds have a leading batch shape L; returns (t_hi, t_len) (L): the
+    reach along the axis, capped at the scene's axial exit, and along a
+    ray, capped at that exit over cos(theta_max) (no ray leaves the scene
+    later); each is at least the uncapped reach where that is smaller."""
     scene_c = 0.5 * (bins.aabb_min + bins.aabb_max)
     scene_h = 0.5 * (bins.aabb_max - bins.aabb_min)
     t_cap = _norm(oc - scene_c) + _norm(scene_h) + _norm(oh)
@@ -266,18 +284,21 @@ def _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi):
         bins.aabb_min.reshape(lead[:-1] + (1, 3)),
         bins.aabb_max.reshape(lead[:-1] + (1, 3)),
     )
-    return torch.minimum(t_hi, scene_far[..., 0] * 1.0001 + 1e-3)
+    far = scene_far[..., 0]
+    sec = torch.sqrt(1.0 + tan_th * tan_th)
+    t_len = torch.minimum(t_hi, (torch.where(far > 0.0, far, 0.0) * sec) * 1.0001 + 1e-3)
+    return torch.minimum(t_hi, far * 1.0001 + 1e-3), t_len
 
 
 def _capped_bounds(bins, raw):
     """Sub-block bounds ``raw = (oc, oh, axis, tan_th, t_hi, n_hi, dead)``
     (Cb, r, ...) with dead sub-blocks parked and every reach capped at the
-    scene's exit: (cones (Cb, r, 11), n_hi (Cb, r))."""
+    scene's exit: (cones (Cb, r, 12), n_hi (Cb, r))."""
     oc, oh, axis, tan_th, t_hi, n_hi, dead = raw
     axis = _dead_axis(axis, dead)
     t_hi = torch.where(dead, 0.0, t_hi)
-    t_hi = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
-    return pack_cones(oc, oh, axis, tan_th, t_hi), n_hi
+    t_hi, t_len = _scene_exit_cap(bins, oc, oh, axis, tan_th, t_hi)
+    return pack_cones(oc, oh, axis, tan_th, t_hi, t_len), n_hi
 
 
 def _cull_args(bins, raw_bounds, sub_blocks, cs, cb, ch, cm=0):
@@ -309,7 +330,8 @@ def _group_box_tests(cones: Tensor, boxes: Tensor) -> Tuple[Tensor, Tensor]:
     passing cones, 3e38 where none passes)."""
     c = cones[:, :, None]
     pass_b, tn_b, _ = _cone_box_test(c[..., 0:3], c[..., 3:6], c[..., 6:9], c[..., 9],
-                                     c[..., 10], boxes[:, None, :, 0:3], boxes[:, None, :, 3:6])
+                                     c[..., 10], boxes[:, None, :, 0:3], boxes[:, None, :, 3:6],
+                                     c[..., 11])
     return torch.any(pass_b, dim=1), torch.amin(torch.where(pass_b, tn_b, _BIG), dim=1)
 
 
@@ -505,7 +527,7 @@ _PTRS = ("cones", "fat", "n_hi", "o", "d", "t_min", "t_max", "alive", "scene_min
          "bin_aabb", "super_aabb", "hyper_aabb", "mid_aabb", "cand_bin", "cand_count",
          "cand_tnear", "sat")
 _INTS = ("mode", "Cb", "R", "Rb", "P", "G", "n_bins", "n_super", "n_hyper", "S", "H", "ch",
-         "cs", "cb", "M", "Sm", "cm", "n_mid_ids")
+         "cs", "cb", "M", "Sm", "cm", "n_mid_ids", "threads", "key_slots", "smem_bytes", "stream")
 _UINTS = ("idm_hyp", "idm_sup", "idm_bin", "idm_mid")
 _FLAGS = ("hyp_packed", "sup_packed", "bin_packed", "mid_packed")
 _FLOATS = ("t_min_s", "t_max_s", "origin_margin", "tan_dm")
@@ -534,18 +556,93 @@ def _kernel():
 
 def kernel_registers() -> dict:
     """Registers and local-memory bytes a thread (spills show as local
-    memory) of K3's kernel as built for 1, 2 and 4 cones a lane, by
-    ``cudaFuncGetAttributes``: ``{"K3 CPL=1": (regs, local), ...}``. Needs a
-    card."""
+    memory) of each of K3's builds (``kBuilds`` in ``csrc/cull_blocks.cu``),
+    by ``cudaFuncGetAttributes``: ``{"K3 CPL=1 T=128 short": (regs,
+    local), ...}``, named by cones a lane, threads a CTA, "shared" where the
+    lane's cones share one origin box and "short" where the build holds no
+    streamed passes. Raises where a build holds more static shared memory
+    than the launch plan reserves. Needs a card."""
     fn = _build.load_library("cull_blocks").rmcl_cull_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
     out = {}
-    for cpl in (1, 2, 4):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        if fn(cpl, ctypes.byref(regs), ctypes.byref(local)):
-            raise RuntimeError(f"cudaFuncGetAttributes failed for K3 at {cpl} cones a lane")
-        out[f"K3 CPL={cpl}"] = (regs.value, local.value)
+    flags = (ctypes.c_int * 4)()
+    regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    i = 0
+    while fn(i, flags, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static)) == 0:
+        threads, cpl, shared, stream = flags
+        if static.value > _K3_STATIC_SMEM:
+            raise RuntimeError(f"K3 holds {static.value} bytes of static shared memory, more "
+                               f"than the launch plan's {_K3_STATIC_SMEM}")
+        name = (f"K3 CPL={cpl} T={threads}" + (" shared" if shared else "")
+                + ("" if stream else " short"))
+        out[name] = (regs.value, local.value)
+        i += 1
+    if not out:
+        raise RuntimeError("cudaFuncGetAttributes failed for K3's first build")
     return out
+
+
+# shared memory one CTA may hold on an H100 (232,448 bytes)
+_SMEM_CAP = 232448
+# K3's static shared memory (the select's scratch, ~1.1 KB), with room to
+# spare; kernel_registers checks it
+_K3_STATIC_SMEM = 2048
+# K3's CTA widths: the narrow one for grids of _K3_BIG_GRID blocks or more
+K3_THREADS, K3_BIG_GRID_THREADS = 256, 128
+_K3_BIG_GRID = 1024
+# the most keys a level's stage holds; a level that passes more is streamed
+_K3_STAGE_MAX = 16384
+# bytes of the kernel's cone record (struct Cone: 16 floats) and of its
+# bounds tree's channels a slot
+_K3_CONE_BYTES = 64
+_K3_CHANNELS = 13
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def cull_launch_plan(Cb: int, R: int, n_rays: int, n_super: int, S: int, cs: int, cb: int,
+                     ch: int = 0, n_hyper: int = 0, H: int = 1, cm: int = 0,
+                     M: int = 1) -> Tuple[int, int, int, bool]:
+    """K3's launch shape for Cb blocks of R cones (``n_rays`` rays a block
+    in its bounds tree; 0 for precomputed cones) on n_super supers of S
+    bins (n_hyper hypers of H supers, mids of M bins) at budgets (ch, cs,
+    cm, cb): ``(threads a CTA, key slots, dynamic shared bytes, stream)``,
+    the bytes those of ``shared_bytes``'s layout in
+    ``csrc/cull_blocks.cu`` (the kernel refuses others). The key slots
+    hold a level's kept list and past it the level's stage, up to
+    ``_K3_STAGE_MAX`` keys where the level is wider than its list, cut to
+    what fits (the region also holds the bounds tree before the first
+    level); a level that may pass more keys than its stage is streamed, so
+    no level width is refused, and ``stream`` says whether any may (the
+    launch then takes the build with the streamed passes, else the one
+    without, which holds fewer registers). Raises ``ValueError`` naming a
+    kept list that does not fit one CTA."""
+    fixed = ((R + 1) * _K3_CONE_BYTES + 16 * R
+             + 4 * ((ch if ch > 0 else 1) + cs + (cm if cm > 0 else 1)))
+    most = (_SMEM_CAP - _K3_STATIC_SMEM - fixed) // 8
+    if cm:
+        levels = [("mid", cs * (S // M), cm), ("bin", cm * M, cb)]
+    else:
+        levels = [("bin", cs * S, cb)]
+    levels = ([("hyper", n_hyper, ch), ("super", ch * H, cs)] if ch
+              else [("super", n_super, cs)]) + levels
+    for name, _, keep in levels:
+        if keep > most:
+            raise ValueError(f"the {name} level's kept list of {keep} keys does not fit a "
+                             f"CTA's shared memory: it holds at most {most} keys")
+    slots = min(most, max(keep + (min(n, _K3_STAGE_MAX) if n > keep else 0)
+                          for _, n, keep in levels))
+    tree = 0
+    if n_rays:
+        tree = max(R * _pow2(n_rays // R), _pow2(n_rays)) * _K3_CHANNELS
+    region = (max(2 * slots, tree) + 1) & ~1
+    if 4 * region + fixed > _SMEM_CAP - _K3_STATIC_SMEM:
+        raise ValueError(f"the bounds of {n_rays} rays a block do not fit a CTA's shared memory")
+    threads = K3_BIG_GRID_THREADS if Cb >= _K3_BIG_GRID else K3_THREADS
+    stream = any(n > keep and n > slots - keep for _, n, keep in levels)
+    return threads, slots, 4 * region + fixed, stream
 
 
 def _idm(n: int) -> int:
@@ -565,6 +662,9 @@ def _launch(mode, Cb, R, boxes, tensors, **scalars):
     n_bins, n_super = bin_aabb.shape[0], super_aabb.shape[0]
     n_hyper = hyper_aabb.shape[0] if ch else 0
     n_mid = mid_aabb.shape[0] if cm else 1
+    n_rays = 0 if mode == "cones" else (scalars["G"] if mode == "factored" else scalars["Rb"])
+    threads, key_slots, smem_bytes, stream = cull_launch_plan(Cb, R, n_rays, n_super, S, cs,
+                                                              cb, ch, n_hyper, H, cm, M)
     outs = dict(cand_bin=torch.empty((Cb, cb), dtype=torch.int32, device=dev),
                 cand_count=torch.empty((Cb,), dtype=torch.int32, device=dev),
                 cand_tnear=torch.empty((Cb, cb), dtype=torch.float32, device=dev),
@@ -575,7 +675,9 @@ def _launch(mode, Cb, R, boxes, tensors, **scalars):
                      idm_hyp=_idm(max(n_hyper, 1)), idm_sup=_idm(n_super), idm_bin=_idm(n_bins),
                      idm_mid=_idm(n_mid), hyp_packed=int(_packs(max(n_hyper, 1))),
                      sup_packed=int(_packs(n_super)), bin_packed=int(_packs(n_bins)),
-                     mid_packed=int(_packs(n_mid)), **scalars)
+                     mid_packed=int(_packs(n_mid)), threads=threads, key_slots=key_slots,
+                     smem_bytes=smem_bytes, stream=int(stream),
+                     **scalars)
     ptrs = dict(tensors, bin_aabb=bin_aabb, super_aabb=super_aabb,
                 hyper_aabb=hyper_aabb if ch else None, mid_aabb=mid_aabb if cm else None,
                 **outs)

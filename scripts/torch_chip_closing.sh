@@ -10,8 +10,9 @@
 # 3. the card tests, tests/test_torch_cuda.py (marker cuda);
 # 4. python -m rmcl_tpu_torch.bench with the factored engine, the dense
 #    engine (BENCH_ENGINE=dense) and the fused reduction (BENCH_FUSED=1);
-# 5. scripts/torch_cp_split_probe.py, scripts/torch_k5_probe.py and
-#    scripts/torch_k7_probe.py (each with --parent PARENT_DIR if given), and
+# 5. scripts/torch_cp_split_probe.py, scripts/torch_k5_probe.py,
+#    scripts/torch_k7_probe.py and scripts/torch_k3_probe.py (each with
+#    --parent PARENT_DIR if given), and
 #    scripts/torch_trace_probe.py
 #    (K2g and K1 at phase 13's inputs by the device trace, in a process of
 #    their own).
@@ -52,7 +53,7 @@ for pair in factored:BENCH_ENGINE=factored dense:BENCH_ENGINE=dense fused:BENCH_
   step "$name" . env "${pair#*:}" python3 -m rmcl_tpu_torch.bench
   tail -n 1 "$out/closing_$name.log"
 done
-for probe in cp_split k5 k7; do
+for probe in cp_split k5 k7 k3; do
   if [ -n "$parent" ]; then
     step "probe_$probe" . python3 -m "scripts.torch_${probe}_probe" --parent "$parent"
   else

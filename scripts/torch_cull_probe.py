@@ -10,17 +10,18 @@ phases, on one NVIDIA card:
   113,904 blocks of 16 poses x 8 directions, 128 cones, the hyper level).
 
 Each variant is the kernel's source with some named constants replaced
-(``VARIANTS``), built by nvcc with the package's flags into
-``build/cull_probe/``. For every variant and phase it prints one JSON line:
-the fused kernel's and the back end's time (CUDA events around the wrapper,
-median of ``REPS``; and the kernels' device time by ``torch.profiler``,
-null where the profiler sees none), and whether the lists equal the plain
-version's bitwise. Two more lines: how torch's CUDA ``rsqrt`` and ``sqrt``
-round against ``1 / sqrt`` (the kernel's and the plain version's
-formulation) and against the CPU; and, at phase 7, the tests, candidates
-and K4 visits of the lists the bounds give in their present fixed order
-against those of the bounds' former order (``torch.rsqrt``,
-``torch.sum``). Run from the repo root on the card (~2 minutes):
+(``VARIANTS``), or the wrapper's launch plan set otherwise (``PLANS``),
+built by nvcc with the package's flags into ``build/cull_probe/``. For every
+variant and phase it prints one JSON line: the fused kernel's and the back
+end's time (CUDA events around the wrapper, median of ``REPS``; and the
+kernels' device time by ``torch.profiler``, null where the profiler sees
+none), and whether the lists equal the plain version's bitwise. Two more
+lines: how torch's CUDA ``rsqrt`` and ``sqrt`` round against ``1 / sqrt``
+(the kernel's and the plain version's formulation) and against the CPU; and,
+at phase 7, the tests, candidates and K4 visits of the lists the bounds give
+in their present fixed order against those of the bounds' former order
+(``torch.rsqrt``, ``torch.sum``).
+Run from the repo root on the card (~2 minutes):
 
     python -m scripts.torch_cull_probe
 """
@@ -42,8 +43,11 @@ REPS = 10
 VARIANTS = {
     "as built": {},
     "each cone test twice": {"kTestRepeat": "2"},
-    "256-thread CTAs": {"kBigGridThreads": "256"},
+    "256-thread CTAs": {},
 }
+# name -> launch-plan settings of ops/cull_cuda.py for that variant: 256
+# threads a CTA at every grid
+PLANS = {"256-thread CTAs": {"_K3_BIG_GRID": 1 << 30}}
 
 
 def build_variant(name, consts):
@@ -56,13 +60,14 @@ def build_variant(name, consts):
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = out_dir / "".join(c if c.isalnum() else "_" for c in name)
     stem.with_suffix(".cu").write_text(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                           str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))],
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                           str(_build.CSRC), "-o", str(stem.with_suffix(".so")),
+                           str(stem.with_suffix(".cu"))],
                           check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(stem.with_suffix(".so"))).rmcl_cull
     fn.argtypes = [ctypes.POINTER(cc._CullArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # registers and spills of the three instantiations (1, 2, 4 cones a lane)
+    # registers and spills of each build (csrc/cull_blocks.cu's kBuilds)
     ptxas = [line.replace("ptxas info    :", "").strip() for line in proc.stderr.splitlines()
              if "registers" in line or "spill" in line]
     return fn, ptxas
@@ -225,6 +230,9 @@ def main():
     for variant, (kernel, ptxas) in kernels.items():
         print(json.dumps(dict(variant=variant, ptxas=ptxas)), flush=True)
         cc._kernel = lambda kernel=kernel: kernel
+        saved = {k: getattr(cc, k) for k in PLANS.get(variant, {})}
+        for k, v in PLANS.get(variant, {}).items():
+            setattr(cc, k, v)
         for name, fn, _, args, back in cases:
             out = fn(*args)
             bitwise = all(torch.equal(a, b) for a, b in zip(out, plain[name]))
@@ -234,6 +242,8 @@ def main():
                 fused_device_ms=device_ms(lambda: fn(*args)),
                 back_end_ms=events_ms(lambda: cc.cull_blocks(*back)),
                 back_end_device_ms=device_ms(lambda: cc.cull_blocks(*back)))), flush=True)
+        for k, v in saved.items():
+            setattr(cc, k, v)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ a yaw, seed 14), 128-ray blocks at c_super 3,072 and c_bin 12,288 (phase
 package the rays whose hit or winner differs from the exact engine's
 (``cast_rays`` on the BVH) beyond a near-tie, whether the packages' sets
 coincide, and for the port's how many exact winners' bins the cull left
-out of the ray's block list. For each ray left out, the cone-box test of
+out of the ray's block list (none: the port's cone-box test holds the
+slab's axial interval against an axial bound; JAX's leaves some out). For
+each ray left out, the cone-box test of
 the ray's own sub-block cone against the winner's super and bin is taken
 apart clause by clause (``ops/cull_cuda.py::_cone_box_test``, the same
 arithmetic as JAX's ``_cone_box_test``, which is run on the same inputs
@@ -153,7 +155,7 @@ def main():
                 failed, detail = clauses(cone, box)
                 port_ok = bool(_cone_box_test(*(x[None] for x in (
                     cone[0:3], cone[3:6], cone[6:9])), cone[9:10], cone[10:11],
-                    box[None, 0:3], box[None, 3:6])[0][0])
+                    box[None, 0:3], box[None, 3:6], cone[11:12])[0][0])
                 jax_ok = bool(np.asarray(jrb._cone_box_test(*(jnp.asarray(x[None].numpy()) for x in (
                     cone[0:3], cone[3:6], cone[6:9])), jnp.asarray(cone[9:10].numpy()),
                     jnp.asarray(cone[10:11].numpy()), jnp.asarray(box[None, 0:3].numpy()),

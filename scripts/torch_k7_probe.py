@@ -76,13 +76,17 @@ def build(src_dir=_build.CSRC, tag="as built"):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(Path(src_dir) / "cull_boxes.cu")], check=True, capture_output=True,
                    text=True)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    # an entry that takes the launch plan (CTA width, key slots), or the
+    # older one that sizes its keys by the widest level
+    lib.planned = "int key_slots;" in (Path(src_dir) / "cull_boxes.cu").read_text()
+    return lib
 
 
 def launcher(lib, bins, qb, d2b, cs, cb, parent=False):
     """A function that launches ``lib``'s K7 on these blocks into fixed
-    outputs and returns them; None where the parent refuses the shape (its
-    widest level past its shared memory)."""
+    outputs and returns them; None where an older parent refuses the shape
+    (its widest level past its shared memory)."""
     fn = lib.rmcl_cull_boxes
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -90,7 +94,7 @@ def launcher(lib, bins, qb, d2b, cs, cb, parent=False):
     S, n_super, n_bins = bins.bins_per_super, bins.n_super, bins.n_bins
     id_bits = max(1, (n_bins - 1).bit_length())
     packed = id_bits <= closest_point._PACKED_ID_BITS
-    if parent:
+    if parent and not lib.planned:
         key_cap = 1 << (max(n_super, cs * S, 32) - 1).bit_length()
         if key_cap * 8 + cs * 4 > closest_cuda._SMEM_CAP:
             return None

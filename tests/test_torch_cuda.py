@@ -10,6 +10,7 @@ imports JAX):
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -m cuda -q
 """
 
+import functools
 import re
 
 import numpy as np
@@ -512,7 +513,8 @@ def _fused_case(card, case):
         R, margins = 4, (0.05, 0.01)
     else:
         o, d = _sweep_blocks(card)
-        R, margins = (128, (0.03, 0.0)) if case.startswith("per_ray") else (4, (0.05, 0.01))
+        R, margins = ((int(re.search(r"_r(\d+)", case).group(1)), (0.03, 0.0))
+                      if case.startswith("per_ray") else (4, (0.05, 0.01)))
     o_p, d_p, alive, *_ = _pad_factored_blocks(o, d, None, 512)
     if case.endswith("_dead"):
         alive[::3] = 0.0
@@ -529,6 +531,7 @@ def _fused_case(card, case):
     "tracking_r4",  # factored, G % R == 0, both margins
     "sweep_r4", "sweep_r4_dead",  # factored 16 x 8 with the hyper level, both margins
     "per_ray_r128", "per_ray_r128_dead",  # R = 128 > G = 8: expanded order, margin 0.03
+    "per_ray_r64",  # 2-ray sub-blocks: 2 cones a lane sharing their origin box
 ])
 def test_fused_cull_matches_plain_version(card, case):
     from rmcl_tpu_torch.ops.cull_cuda import cull_disagreements
@@ -589,13 +592,77 @@ def test_mid_cull_kernel_matches_plain_version(card, monkeypatch, mode, keys, cm
         assert torch.equal(a, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_bins(S, card):
+    """The phase-4 building at 16 faces a bin, S bins a super."""
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+    return build_bins(make_building_scene(subdiv=45), bin_size=16, bins_per_super=S, device=card)
+
+
+def _k3_wide_case(card, case):
+    """K3 inputs past the 16,384 keys a level that the kernel once refused:
+    phase 8's scan of the building at 16 faces a bin, 476 supers of 64 at
+    c_super 300, c_bin 4,000 (19,200 keys at level 1), or 30,409 supers of
+    one bin at 96, 96 (30,409 keys at level 0); or an MCL-like hyper level
+    (c_hyper 8, c_super 48, c_bin 288, 8 cones: 768 keys at level 1; the
+    small building at 16 faces a bin, 137 supers of 16 in 18 hypers)."""
+    from rmcl_tpu_torch.geom.mesh import make_building_scene
+    if case == "hyper":
+        bins = build_bins(make_building_scene(subdiv=12), bin_size=16, bins_per_super=16,
+                          supers_per_hyper=8, device=card)
+        rng = np.random.default_rng(8)
+        n_part, n_beam = 2048, 100
+        pos = torch.from_numpy(np.stack([rng.uniform(1, 11, n_part), rng.uniform(1, 11, n_part),
+                                         np.full(n_part, 1.5)], -1).astype(np.float32))
+        az = torch.from_numpy(rng.uniform(-np.pi, np.pi, n_beam).astype(np.float32))
+        el = torch.from_numpy(rng.uniform(-0.26, 0.26, n_beam).astype(np.float32))
+        d = torch.stack([el.cos() * az.cos(), el.cos() * az.sin(), el.sin()], -1)
+        o = pos[None].expand(n_beam, n_part, 3).reshape(-1, 3).to(card)  # beam-major
+        d = d[:, None].expand(n_beam, n_part, 3).reshape(-1, 3).to(card)
+        t = torch.full((o.shape[0],), 30.0, device=card)
+        blocks = trb._pad_rays(o, d, torch.zeros_like(t), t, 128)
+        return (bins, *blocks, 8, 48, 288, 8, 0)
+    S, cs, cb = (64, 300, 4000) if case == "level1" else (1, 96, 96)
+    bins = _wide_bins(S, card)
+    assert max(bins.n_super, cs * S) > 16384
+    blocks = trb._pad_rays(*_vlp16_rays((9.0, 3.0, 1.5), card), 128)
+    return (bins, *blocks, 4, cs, cb, 0, 0)
+
+
+@pytest.mark.parametrize("stage", ["planned", "streamed"])
+@pytest.mark.parametrize("threads", [256, 128])
+@pytest.mark.parametrize("case", ["level1", "level0", "hyper"])
+def test_cull_kernel_on_wide_levels_matches_plain_version(card, monkeypatch, case, threads,
+                                                         stage):
+    """K3 bitwise its plain version on levels past the old cap and at an
+    MCL-like hyper level, at either CTA width (forced by the grid threshold
+    of the launch plan), with the launch plan's stage or with a
+    stage of 64 keys, so that every level wider than its kept list streams
+    (each radix pass recomputing the tests)."""
+    from rmcl_tpu_torch.ops import cull_cuda as cc
+    monkeypatch.setattr(cc, "_K3_BIG_GRID", 1 if threads == 128 else 1 << 30)
+    if stage == "streamed":
+        monkeypatch.setattr(cc, "_K3_STAGE_MAX", 64)
+    args = _k3_wide_case(card, case)
+    before = cc.cull_rays.launches
+    k_out = cc.cull_rays(*args)
+    p_out = cc.cull_rays_reference(*args)
+    torch.cuda.synchronize()
+    assert cc.cull_rays.launches == before + 1
+    assert float(p_out[1].float().mean()) > 2
+    for a, b in zip(k_out, p_out):
+        assert torch.equal(a, b)
+
+
 def test_cull_kernel_has_no_spills(card):
-    """K3's kernel as built, with the mid level, for 1, 2 and 4 cones a
-    lane: registers within the 255 a thread allows, no local memory."""
+    """K3's builds, with the mid level: 1, 2 and 4 cones a lane at either
+    CTA width with the streamed passes, and at 128 threads 1 cone a lane
+    and 4 sharing their origin box without them: registers within the 255 a
+    thread allows, no local memory."""
     from rmcl_tpu_torch.ops.cull_cuda import kernel_registers
 
     regs = kernel_registers()
-    assert len(regs) == 3
+    assert len(regs) == 8
     for r, local in regs.values():
         assert 0 < r <= 255 and local == 0
 

@@ -5,11 +5,14 @@ the chunked one, and a model of the kernel's selection rule (compacted
 keys in any order, sorted) against ``_select``."""
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import rmcl_tpu.ops.raycast_binned as jrb
 from rmcl_tpu.bvh.bins import build_bins
@@ -17,6 +20,7 @@ from rmcl_tpu.geom.mesh import make_sphere
 from rmcl_tpu_torch.convert import bins_from_arrays
 from rmcl_tpu_torch.ops import cull_cuda as cc
 from rmcl_tpu_torch.ops import raycast_binned as trb
+from torch_cull_expect import fixed_test
 
 torch.set_num_threads(2)
 
@@ -346,3 +350,229 @@ def test_mid_level_rejects_bad_budgets():
     bad = dataclasses.replace(tb, mid_aabb=None)
     with pytest.raises(ValueError):  # no mid level to cull with
         cc.cull_rays(bad, *rays, 4, 8, 48, 0, 12)
+
+
+# --- the flat-bin fix: the cone-box test held axial against axial ---
+
+def _unit(v):
+    return v / np.linalg.norm(v)
+
+
+def _cone_rays(rng, oc, oh, axis, theta, n):
+    """n rays of a block: origins in the box oc +- oh, directions at most
+    theta (a little less) off the unit axis (float64)."""
+    o = oc + oh * rng.uniform(-1.0, 1.0, (n, 3))
+    u = _unit(np.cross(axis, [1.0, 0.0, 0.0] if abs(axis[0]) < 0.9 else [0.0, 1.0, 0.0]))
+    v = np.cross(axis, u)
+    alpha = theta * (1.0 - 1e-4) * np.sqrt(rng.uniform(size=(n, 1)))
+    phi = rng.uniform(0.0, 2.0 * np.pi, (n, 1))
+    d = np.cos(alpha) * axis + np.sin(alpha) * (np.cos(phi) * u + np.sin(phi) * v)
+    return o, d
+
+
+def _entry_lengths(o, d, bmin, bmax, shrink=1e-4):
+    """Each ray's entry length into the box (float64 slab; the box shrunk by
+    ``shrink`` in every axis it has width in, so the hit is no rounding
+    away from a face), or inf where it misses the box or runs parallel to a
+    zero-width axis."""
+    width = bmax - bmin
+    lo = np.where(width > 2 * shrink, bmin + shrink, bmin)
+    hi = np.where(width > 2 * shrink, bmax - shrink, bmax)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0, t1 = (lo - o) / d, (hi - o) / d
+    t_in = np.nanmax(np.minimum(t0, t1), axis=1)
+    t_out = np.nanmin(np.maximum(t0, t1), axis=1)
+    bad = ((width[None] <= 2 * shrink) & (np.abs(d) < 1e-6)).any(1)
+    return np.where((t_in <= t_out) & (t_out >= 0.0) & ~bad, np.maximum(t_in, 0.0), np.inf)
+
+
+@settings(max_examples=120, deadline=None, derandomize=True)
+@given(st.integers(0, 2**31 - 1))
+def test_fixed_cone_box_test_never_false_culls(seed):
+    """An origin box (some axes of zero width), a cone (zero spread among
+    them) and a reach; a target box around a point of one of the block's
+    rays, often of zero thickness in one axis (a flat bin), and a scene box
+    holding both. Wherever a sampled ray of the block enters the target box
+    within its reach, the fixed test passes the box, with the bare reach and
+    with the reach capped at the scene's exit (_scene_exit_cap's t_hi along
+    the axis and t_len along a ray)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: np.asarray(x, np.float32).astype(np.float64)
+    oc = f32(rng.uniform(-2.0, 2.0, 3))
+    oh = f32(rng.uniform(0.0, 0.5, 3) * (rng.uniform(size=3) < 0.7))
+    axis = f32(_unit(rng.normal(size=3)))
+    theta = 0.0 if rng.uniform() < 0.2 else rng.uniform(0.01, 1.2)
+    tan_th = f32(np.tan(theta))
+    reach = f32(rng.uniform(2.0, 30.0))
+    o, d = _cone_rays(rng, oc, oh, axis, theta, 64)
+    k = rng.integers(64)
+    p = o[k] + rng.uniform(0.05, 1.0) * reach * d[k]
+    half = rng.uniform(0.0, 1.5, 3)
+    if rng.uniform() < 0.6:
+        half[rng.integers(3)] = 0.0
+    bmin, bmax = f32(p - half), f32(p + half)
+    reached = _entry_lengths(o, d, bmin, bmax) <= reach * (1.0 - 1e-4)
+    if not reached.any():
+        return
+    t = lambda x: torch.tensor(np.asarray(x, np.float32))
+    cone = (t(oc)[None], t(oh)[None], t(axis)[None], t(tan_th)[None], t(reach)[None])
+    ok, _, _ = cc._cone_box_test(*cone, t(bmin)[None], t(bmax)[None])
+    assert bool(ok[0])
+    scene = types.SimpleNamespace(
+        aabb_min=t(np.minimum(bmin, oc - oh) - rng.uniform(0.0, 3.0, 3)),
+        aabb_max=t(np.maximum(bmax, oc + oh) + rng.uniform(0.0, 3.0, 3)))
+    t_hi, t_len = cc._scene_exit_cap(scene, *(x[None] for x in cone))
+    ok, _, _ = cc._cone_box_test(*cone[:4], t_hi[0], t(bmin)[None], t(bmax)[None], t_len[0])
+    assert bool(ok[0])
+
+
+def test_probe_case_jax_rejects_and_the_port_passes():
+    """The numbers of scripts/torch_flat_bin_probe.py: a flat wall bin
+    (zero thickness along the cone's axis) at a slab exit of 4.8725 m whose
+    nearest point lies 4.8748 m from the origin, off-axis inside a 6.2
+    degree cone. A ray of the block crosses it. JAX's test holds the
+    Euclidean 4.8748 against the axial 4.8725 and rejects the box; the
+    port's holds 4.8748 x cos(6.2 deg) and passes it, with JAX's entry
+    distance. This is the stated difference between the two packages."""
+    x = 4.8725
+    y0 = float(np.sqrt(4.8748**2 - x**2))
+    bmin = np.float32([[x, y0, -0.5]])
+    bmax = np.float32([[x, y0 + 0.3, 0.5]])
+    cone = [np.float32([[0.0, 0.0, 0.0]]), np.float32([[0.0, 0.0, 0.0]]),
+            np.float32([[1.0, 0.0, 0.0]]), np.float32([np.tan(np.radians(6.2))]),
+            np.float32([10.0])]
+    # a ray of the block, 2.9 degrees off the axis, crosses the wall
+    ray = np.array([x, y0 + 0.1, 0.0])
+    assert np.degrees(np.arccos(ray[0] / np.linalg.norm(ray))) < 6.2
+    assert np.isfinite(_entry_lengths(np.zeros((1, 3)), ray[None] / np.linalg.norm(ray),
+                                      bmin[0].astype(np.float64), bmax[0].astype(np.float64)))
+    j_ok, j_tn, j_tf = (np.asarray(v) for v in jrb._cone_box_test(
+        *map(jnp.asarray, cone), jnp.asarray(bmin), jnp.asarray(bmax)))
+    t_ok, t_tn, t_tf = cc._cone_box_test(*map(torch.from_numpy, cone), torch.from_numpy(bmin),
+                                         torch.from_numpy(bmax))
+    np.testing.assert_allclose(j_tn, 4.8748, atol=1e-4)  # d_near
+    np.testing.assert_allclose(j_tf, 4.8725, atol=1e-4)  # the slab's axial exit
+    assert not bool(j_ok[0]) and bool(t_ok[0])
+    assert t_tn.numpy().view(np.uint32)[0] == j_tn.view(np.uint32)[0]
+    assert t_tf.numpy()[0] == j_tf[0]
+
+
+def test_every_box_jax_passes_keeps_its_entry_bits():
+    """Random cones against random boxes, flat ones among them: every box
+    JAX's test passes, the port's passes, at the same reach along a ray and
+    at a longer one (the scene cap's t_len >= t_hi), and some that JAX's
+    rejects. The entry distance is JAX's: the port sums its norms in the
+    kernel's fixed order, so its bits are JAX's to 1 ulp (as before the
+    fix), and they are exactly the bits that JAX's clauses, evaluated on the
+    port's own tn and tf, pass: every such box passes the fixed test. The
+    port passes exactly the boxes that the fixed clause restated in numpy
+    passes (tests/torch_cull_expect.py), with its entry bits to 1 ulp
+    (torch's float32 sqrt on the CPU is not always correctly rounded,
+    numpy's is), and the boxes it adds to JAX's stay a small share: 2.0% of
+    all at the axial reach (flat boxes seen off-axis), 5.1% at the longer
+    one, where a test that passed every box would add 77%."""
+    rng = np.random.default_rng(11)
+    n = 20000
+    oc = rng.uniform(-3, 3, (n, 1, 3))
+    oh = rng.uniform(0, 0.4, (n, 1, 3)) * (rng.uniform(size=(n, 1, 3)) < 0.7)
+    a = rng.normal(size=(n, 1, 3))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    tan_th = np.where(rng.uniform(size=(n, 1)) < 0.1, 0.0, np.tan(rng.uniform(0, 1.3, (n, 1))))
+    t_hi = rng.uniform(1.0, 20.0, (n, 1))
+    c = rng.uniform(-8, 8, (n, 1, 3))
+    half = rng.uniform(0, 1.0, (n, 1, 3))
+    flat = rng.uniform(size=n) < 0.5
+    half[flat, 0, rng.integers(3, size=int(flat.sum()))] = 0.0
+    args = [x.astype(np.float32) for x in (oc, oh, a, tan_th, t_hi, c - half, c + half)]
+    j_ok, j_tn, _ = (np.asarray(v) for v in jrb._cone_box_test(*map(jnp.asarray, args)))
+    t_args = [torch.from_numpy(x) for x in args]
+    for t_len in (t_args[4], t_args[4] * 1.5):
+        t_ok, t_tn, t_tf = (x.numpy() for x in cc._cone_box_test(*t_args, t_len))
+        assert t_ok[j_ok].all()
+        ulps = np.abs(t_tn.view(np.int32).astype(np.int64) - j_tn.view(np.int32))
+        assert ulps[j_ok].max() <= 1
+        unfixed = (t_tn <= t_tf) & (t_tf >= 0.0) & (t_tn <= args[4])
+        assert t_ok[unfixed].all() and (unfixed == j_ok).mean() > 0.999
+        cones = np.concatenate([*args[:3], args[3][..., None], args[4][..., None],
+                                t_len.numpy()[..., None]], -1)
+        r_ok, r_tn = (x[:, 0] for x in fixed_test(cones, args[5], args[6]))
+        np.testing.assert_array_equal(t_ok, r_ok)
+        ulps = np.abs(t_tn.view(np.int32).astype(np.int64) - r_tn.view(np.int32))
+        assert ulps[t_ok].max() <= 1
+        added = (t_ok & ~j_ok).mean()
+        assert 0 < added <= (0.025 if t_len is t_args[4] else 0.06)
+
+
+def test_no_exact_winner_bin_left_out():
+    """A building floor (bins of 16 in supers of 8) scanned by 16 x 360
+    beams from one pose, 128-ray blocks of 4 cones at budgets that truncate
+    no block: every ray's exact winner (the BVH cast) lies in a bin of its
+    block's list in the port; JAX's lists leave 3 rays' winners out (the
+    flat-bin fault)."""
+    from rmcl_tpu.geom.mesh import make_building_scene
+    from rmcl_tpu_torch.bvh.builder import build_bvh
+    from rmcl_tpu_torch.geom.mesh import make_building_scene as t_building
+    from rmcl_tpu_torch.ops.raycast import cast_rays
+
+    jb = build_bins(make_building_scene(subdiv=6), bin_size=16, bins_per_super=8)
+    tb = _carry(jb)
+    az = np.linspace(-np.pi, np.pi, 360, endpoint=False) + 0.5436249914654229
+    E, A = np.meshgrid(np.radians(np.linspace(-15, 15, 16)), az, indexing="ij")
+    d = np.stack([np.cos(E) * np.cos(A), np.cos(E) * np.sin(A), np.sin(E)], -1)
+    d = d.reshape(-1, 128, 3).astype(np.float32)
+    o = np.broadcast_to(np.float32([4.639815, 5.3769794, 1.5]), d.shape).copy()
+    tmin, tmax = np.zeros(d.shape[:2], np.float32), np.full(d.shape[:2], 30.0, np.float32)
+    hits = cast_rays(build_bvh(t_building(subdiv=6), device="cpu"),
+                     torch.from_numpy(o.reshape(-1, 3)), torch.from_numpy(d.reshape(-1, 3)),
+                     t_max=30.0)
+    prim = tb.tri[:, 12, :].reshape(-1).long()
+    bin_of = torch.full((int(prim.max()) + 1,), -1, dtype=torch.long)
+    bin_of[prim[prim >= 0]] = torch.nonzero(prim >= 0).squeeze(1) // tb.bin_size
+    blk = torch.arange(hits.hit.numel()) // 128
+    want = bin_of[hits.prim_id.long().clamp(min=0)]
+
+    def left_out(cand, count):
+        cand, count = torch.tensor(np.asarray(cand)), torch.tensor(np.asarray(count))
+        slot = torch.arange(cand.shape[1])
+        listed = ((cand[blk] == want[:, None]) & (slot[None] < count[blk][:, None])).any(1)
+        return int((hits.hit & ~listed).sum())
+
+    cs, cb = jb.n_super, jb.n_bins
+    t_out = trb._chunk_candidates(tb, *map(torch.from_numpy, (o, d, tmin, tmax)), cs, cb, 4)
+    j_out = jrb._chunk_candidates(jb, *map(jnp.asarray, (o, d, tmin, tmax)), cs, cb, 4)
+    assert not t_out[3].any() and hits.hit.float().mean() > 0.9
+    assert left_out(*t_out[:2]) == 0
+    assert left_out(*j_out[:2]) == 3
+
+
+# --- K3's launch plan: shared memory by the kept lists ---
+
+@pytest.mark.parametrize("n_super,S,cs,cb", [
+    (476, 64, 300, 4000),  # the building at 16 faces a bin: 19,200 keys at level 1
+    (30409, 1, 96, 96),  # supers of one bin: 30,409 keys at level 0
+])
+def test_launch_plan_fits_levels_past_the_old_cap(n_super, S, cs, cb):
+    """Levels past 16,384 keys, which the kernel refused while it sized its
+    key region by the widest level (a power of two of 8-byte keys), plan
+    within the 232,448 bytes a CTA may hold: the kept lists and a stage,
+    the rest streamed (the build with the streamed passes)."""
+    widest = max(n_super, cs * S)
+    assert (1 << (widest - 1).bit_length()) * 8 > cc._SMEM_CAP
+    threads, slots, smem, stream = cc.cull_launch_plan(113, 4, 128, n_super, S, cs, cb)
+    assert threads == cc.K3_THREADS and stream
+    assert smem + cc._K3_STATIC_SMEM <= 232448
+    assert max(cs, cb) <= slots <= max(cs, cb) + cc._K3_STAGE_MAX < max(cs, cb) + widest
+    assert cc.cull_launch_plan(204800, 8, 128, n_super, S, cs, cb)[0] == cc.K3_BIG_GRID_THREADS
+
+
+def test_launch_plan_sizes_every_level_and_names_a_list_too_long():
+    # with the hyper and mid levels: the widest kept list (cb) sets the slots
+    threads, slots, smem, stream = cc.cull_launch_plan(51200, 8, 128, 183, 64, 192, 3072,
+                                                       ch=12, n_hyper=12, H=16, cm=384, M=16)
+    assert slots == 3072 + 384 * 16 and smem <= cc._SMEM_CAP - cc._K3_STATIC_SMEM
+    assert not stream  # every level fits its stage: the build without streamed passes
+    # precomputed cones carry no bounds tree; the widest level's stage (8
+    # supers' 128 bins) past its kept list
+    assert cc.cull_launch_plan(10, 4, 0, 13, 16, 8, 48)[1] == 48 + 8 * 16
+    with pytest.raises(ValueError, match="bin level's kept list of 40000"):
+        cc.cull_launch_plan(113, 4, 128, 476, 64, 300, 40000)

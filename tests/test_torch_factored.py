@@ -262,7 +262,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     args = (tb.tri, o_p, d_p, alive, 0.0, 100.0, cand, count, tnear)
     for a, b in zip(intersect_factored(*args), intersect_factored_reference(*args)):
         assert torch.equal(a, b)
-    cones = torch.rand((3, 4, 11))
+    cones = torch.rand((3, 4, 12))
     cones[..., 6:9] = torch.nn.functional.normalize(cones[..., 6:9], dim=-1)
     boxes = (tb.bin_aabb, tb.super_aabb, tb.hyper_aabb)
     for ch in (0, 3):

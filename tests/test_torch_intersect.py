@@ -21,6 +21,7 @@ from rmcl_tpu.ops.raycast_pallas import intersect_bins_pallas
 from rmcl_tpu_torch.convert import bins_from_arrays
 from rmcl_tpu_torch.ops import raycast_binned as trb
 from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_bins_reference, winner_t
+from torch_cull_expect import assert_lists_extend_jax, block_cones
 
 torch.set_num_threads(2)
 
@@ -106,24 +107,11 @@ def test_intersect_matches_pallas_interpret(name):
     np.testing.assert_allclose(tie_t.numpy(), jt[mis], rtol=TIE_RTOL)
 
 
-def _assert_same_candidates(j_out, t_out):
-    jc, jn, jt = (np.asarray(x) for x in j_out[:3])
-    tc, tn, tt = (x.numpy() for x in t_out[:3])
-    np.testing.assert_array_equal(jn, tn)
-    for i, k in enumerate(jn):
-        j_near = dict(zip(jc[i, :k].tolist(), jt[i, :k].tolist()))
-        t_near = dict(zip(tc[i, :k].tolist(), tt[i, :k].tolist()))
-        assert set(j_near) == set(t_near), i
-        for b, tj in j_near.items():
-            np.testing.assert_allclose(t_near[b], tj, rtol=TNEAR_RTOL, atol=1e-7)
-        # the order may differ only between entries whose tnear agree
-        for a, b in zip(jc[i, :k], tc[i, :k]):
-            if a != b:
-                np.testing.assert_allclose(j_near[a], j_near[b], rtol=TNEAR_RTOL, atol=1e-7)
-    np.testing.assert_array_equal(jc[:, jn.max():], tc[:, tn.max():])
-
-
 def test_chunk_candidates_match_jax(scene):
+    """JAX's lists at budgets that cannot truncate, plus the flat bins its
+    cone-box test drops (tests/torch_cull_expect.py): each port list holds
+    JAX's bins in JAX's order, and every other bin is one that JAX's test
+    rejects on the block's cones."""
     jb, tb, origin = scene
     o, d, tmin, tmax = _scan_blocks(origin, 128)
     cs, cb = jb.n_super, jb.n_bins  # budgets that cannot truncate
@@ -131,22 +119,37 @@ def test_chunk_candidates_match_jax(scene):
     t_out = trb._chunk_candidates(tb, *map(torch.from_numpy, (o, d, tmin, tmax)), cs, cb, 4)
     np.testing.assert_array_equal(np.asarray(j_out[3]), t_out[3].numpy())
     assert not t_out[3].any()
-    _assert_same_candidates(j_out, t_out)
+    assert_lists_extend_jax(j_out, t_out, tb, block_cones(tb, o, d, tmin, tmax, 4), TNEAR_RTOL)
 
 
 def test_build_candidates_and_stats_match_jax(scene):
+    """As above for the one-cone cull; candidate_stats counts the port's
+    lists at its blocks and budgets, never fewer bins than JAX's; at budgets
+    that truncate (c_super 48, c_bin 192) every list is the restated cull's
+    and, where the port truncates no level, extends JAX's the same way."""
     jb, tb, origin = scene
     o, d, tmin, tmax = _scan_blocks(origin, 64)
     cs, cb = jb.n_super, jb.n_bins
-    _assert_same_candidates(
+    assert_lists_extend_jax(
         jrb._build_candidates(jb, *map(jnp.asarray, (o, d, tmin, tmax)), cs, cb),
-        trb._build_candidates(tb, *map(torch.from_numpy, (o, d, tmin, tmax)), cs, cb))
+        trb._build_candidates(tb, *map(torch.from_numpy, (o, d, tmin, tmax)), cs, cb),
+        tb, block_cones(tb, o, d, tmin, tmax, 1), TNEAR_RTOL)
     flat = lambda x: x.reshape(-1, 3)
-    np.testing.assert_array_equal(
-        np.asarray(jrb.candidate_stats(jb, jnp.asarray(flat(o)), jnp.asarray(flat(d)),
-                                       t_max=30.0, block_size=96)),
-        trb.candidate_stats(tb, torch.from_numpy(flat(o)), torch.from_numpy(flat(d)),
-                            t_max=30.0, block_size=96).numpy())
+    j_counts = np.asarray(jrb.candidate_stats(jb, jnp.asarray(flat(o)), jnp.asarray(flat(d)),
+                                              t_max=30.0, block_size=96))
+    t_counts = trb.candidate_stats(tb, torch.from_numpy(flat(o)), torch.from_numpy(flat(d)),
+                                   t_max=30.0, block_size=96).numpy()
+    blocks = [flat(x).reshape(-1, 96, 3) for x in (o, d)]
+    tmin96, tmax96 = np.zeros(blocks[0].shape[:2], np.float32), np.full(blocks[0].shape[:2],
+                                                                          30.0, np.float32)
+    cs, cb = min(48, jb.n_super), min(192, jb.n_bins, min(48, jb.n_super) * jb.bins_per_super)
+    j_out = jrb._build_candidates(jb, *map(jnp.asarray, (*blocks, tmin96, tmax96)), cs, cb)
+    t_out = trb._build_candidates(tb, *map(torch.from_numpy, (*blocks, tmin96, tmax96)), cs, cb)
+    np.testing.assert_array_equal(t_counts, t_out[1].numpy())
+    np.testing.assert_array_equal(j_counts, np.asarray(j_out[1]))
+    assert (t_counts >= j_counts).all()
+    assert_lists_extend_jax(j_out, t_out, tb, block_cones(tb, *blocks, tmin96, tmax96, 1),
+                            TNEAR_RTOL, cs=cs)
 
 
 def _small_inputs(B=8, n_blk=3, Rb=32, cb=4):

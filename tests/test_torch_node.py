@@ -32,9 +32,11 @@ from rmcl_tpu_torch.geom.map import MeshMap as TMap
 from rmcl_tpu_torch.io import msgs as tmsgs
 from rmcl_tpu_torch.math.se3 import Transform as TTransform
 from rmcl_tpu_torch.micp import node as tnode
+from rmcl_tpu_torch.ops import raycast_binned as trb
 from rmcl_tpu_torch.ops.raycast_binned import block_cull_stats as t_block_cull_stats
 from rmcl_tpu_torch.sensors.models import SphericalModel as TSpherical
 
+from torch_cull_expect import block_cones, port_cull_under_jax, restated_cull
 from test_torch_micp import CP_POSE_TOL, POSE_TOL, START_POSE, TRUE_POSE, _quat_close
 
 torch.set_num_threads(2)
@@ -150,11 +152,16 @@ def building():
     return jmap, tmap
 
 
-def test_audit_adopts_the_same_budgets(building, capsys):
-    """Both nodes' one-shot audit on the first binned correction: the same
-    saturation flags block for block at the configured budgets, the same
-    adopted c_super, c_bin and c_mid. Unlike the JAX node, the port's
-    prints its package's name in the adoption line."""
+def test_audit_adopts_the_same_budgets(building, capsys, monkeypatch):
+    """Both nodes' one-shot audit on the first binned correction: every
+    block JAX flags saturated at the configured budgets the port flags too
+    (the port's cull also keeps the flat bins JAX's cone-box test drops, so
+    a block may fill its budget in the port alone), the port's flags and
+    counts are those of the cull restated in numpy (tests/
+    torch_cull_expect.py), and the port adopts the
+    c_super, c_bin and c_mid that JAX's audit adopts on the port's cull
+    (tests/torch_cull_expect.py). Unlike the JAX node, the port's prints its
+    package's name in the adoption line."""
     config = {"initial_pose_guess": [3.0, 3.0, 1.2, 0.0, 0.0, 0.3],
               "sensors": {"lidar": {}}}
     jn, tn = _nodes(building, config)
@@ -174,10 +181,18 @@ def test_audit_adopts_the_same_budgets(building, capsys):
                                  c_bin=96)
     to, td = tmodel.rays("cpu")
     tsm_t = TTransform.from_pose_tuple(config["initial_pose_guess"], device="cpu")
-    _, tsat = t_block_cull_stats(building[1].bins, tsm_t.apply(to), tsm_t.rotate(td),
-                                 c_super=24, c_bin=96)
-    np.testing.assert_array_equal(tsat.numpy(), np.asarray(jsat))
+    t_counts, tsat = t_block_cull_stats(building[1].bins, tsm_t.apply(to), tsm_t.rotate(td),
+                                        c_super=24, c_bin=96)
+    assert (tsat.numpy() >= np.asarray(jsat)).all()
+    # and exactly the flags and counts of the cull restated apart from the port's
+    tb = building[1].bins
+    blocks = trb._pad_rays(*trb._flat_rays(tsm_t.apply(to), tsm_t.rotate(td), 0.0,
+                                           trb.NO_HIT_T)[:4], 128)
+    restated = restated_cull(tb, block_cones(tb, *blocks, 4), 24)
+    np.testing.assert_array_equal(tsat.numpy(), [w.size > 96 or n > 24 for w, n in restated])
+    np.testing.assert_array_equal(t_counts.numpy(), [min(w.size, 96) for w, _ in restated])
     assert 0 < tsat.float().mean() < 1
+    port_cull_under_jax(monkeypatch, [(building[0].bins, building[1].bins)])
     jn.step()
     tn.step()
     jc, tc = jn.micp_config, tn.micp_config

@@ -1,8 +1,9 @@
 """The port's budget tuner (``rmcl_tpu_torch.utils.tune.suggest_budgets``)
 against the JAX package's on the same rays and the same bins: the
-recommended budgets and the candidate statistics are equal, with and
-without the mid level, with the block-stride subsample, and where the
-escalation through the engine's own cull has to raise c_super."""
+recommended budgets and the candidate statistics are those of JAX's rule
+on the port's cull, with and without the mid level, with the block-stride
+subsample, and where the escalation through the engine's own cull has to
+raise c_super."""
 
 import functools
 
@@ -18,6 +19,7 @@ from rmcl_tpu.utils.tune import suggest_budgets as j_suggest
 from rmcl_tpu_torch.convert import bins_from_arrays
 from rmcl_tpu_torch.utils.tune import BudgetRecommendation
 from rmcl_tpu_torch.utils.tune import suggest_budgets as t_suggest
+from torch_cull_expect import port_cull_under_jax
 
 torch.set_num_threads(2)
 
@@ -58,15 +60,23 @@ def _rays(n_origins=16, spread=0.2, seed=0):
     ("escalate", 4, 4, 1.0, 0.2),  # the engine's cull saturates: c_super 68 -> 130
     ("saturated", 8, 4, 1.0, 0.2),  # c_super reaches every super, the mids still truncate
 ])
-def test_suggest_budgets_matches_jax(case, S, M, margin, spread):
+def test_suggest_budgets_matches_jax(case, S, M, margin, spread, monkeypatch):
+    """The port's tuner is JAX's rule on the port's cull: JAX's
+    suggest_budgets, its cull statistics answered by the port's
+    (tests/torch_cull_expect.py), recommends what the port's does. The
+    port's cull keeps the flat bins JAX's cone-box test drops, so its worst
+    block never holds fewer bins than JAX's own."""
     jb, tb = _bins(S, M)
     kw = dict(block_size=128, margin=margin)
     if case == "stride":
         kw["max_sample_blocks"] = 7
     o, d, t_max = _rays(spread=spread)
-    j = j_suggest(jb, jnp.asarray(o), jnp.asarray(d), t_max=jnp.asarray(t_max), **kw)
+    j_own = j_suggest(jb, jnp.asarray(o), jnp.asarray(d), t_max=jnp.asarray(t_max), **kw)
     t = t_suggest(tb, torch.from_numpy(o), torch.from_numpy(d), t_max=torch.from_numpy(t_max),
                   **kw)
+    assert t.max_bins >= j_own.max_bins
+    port_cull_under_jax(monkeypatch, [(jb, tb)])
+    j = j_suggest(jb, jnp.asarray(o), jnp.asarray(d), t_max=jnp.asarray(t_max), **kw)
     assert isinstance(t, BudgetRecommendation)
     assert (t.c_super, t.c_bin, t.c_mid, t.max_bins, t.saturated) == (
         j.c_super, j.c_bin, j.c_mid, j.max_bins, j.saturated)
