@@ -1,0 +1,8 @@
+"""Median host time of ``MCLNode.sensor_update`` (ms); the node's stage
+timer waits for the device at its end."""
+
+from benchmark.trace import span_median_ms
+
+
+def read(m):
+    return span_median_ms(m, "bench.sensor_update") if m.unit == "cycle" else None
