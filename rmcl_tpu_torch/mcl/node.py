@@ -32,7 +32,7 @@ from rmcl_tpu_torch.mcl.resampling import (ResamplerConfig, adaptive_particle_co
                                            systematic_resample)
 from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig, sensor_update
 from rmcl_tpu_torch.mcl.stats import ParticleStats, estimate_stats
-from rmcl_tpu_torch.utils.timing import StageTimer
+from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -150,7 +150,7 @@ class MCLNode:
         self.device = self.bvh.device
         self.generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         self.cloud = ParticleCloud.create(self.config.n_particles, device=self.device)
-        self.timer = StageTimer()
+        self.timer = timing.StageTimer(prefix="rmcl.mcl.")
         self.tbo_last: Optional[Transform] = None
         self.stamp_last: Optional[float] = None
         self.motion_updates = 0
@@ -310,7 +310,8 @@ class MCLNode:
         if self.sensor_updates % period and self._engine_gate_seen:
             return
         self._engine_gate_seen = True
-        spread, hspread = (float(x) for x in self._spread_metrics(self.cloud).cpu())
+        with timing.span("rmcl.mcl.gate"):
+            spread, hspread = (float(x) for x in self._spread_metrics(self.cloud).cpu())
         thresh = self.config.auto_engine_spread
         hthresh = self.config.auto_engine_heading_spread
         prev = self._engine_choice
@@ -351,9 +352,10 @@ class MCLNode:
     def sensor_update(self, points_s: Tensor, points_mask: Tensor, tsb: Transform) -> None:
         """Sensor stage on one point-cloud message. With a dynamic count,
         only the live prefix (padded to a power of two) is cast."""
-        points_s = torch.as_tensor(points_s, dtype=torch.float32).to(self.device)
-        points_mask = torch.as_tensor(points_mask, dtype=torch.bool).to(self.device)
-        tsb = Transform(rot=tsb.rot.to(self.device), trans=tsb.trans.to(self.device))
+        with timing.span("rmcl.mcl.upload"):
+            points_s = torch.as_tensor(points_s, dtype=torch.float32).to(self.device)
+            points_mask = torch.as_tensor(points_mask, dtype=torch.bool).to(self.device)
+            tsb = Transform(rot=tsb.rot.to(self.device), trans=tsb.trans.to(self.device))
         if self.config.sensor.engine == "auto":
             self._auto_select_engine()
         eff_cfg = self.effective_sensor_config()
@@ -417,8 +419,9 @@ class MCLNode:
     # -- outputs ---------------------------------------------------------------
 
     def estimate(self) -> ParticleStats:
-        return estimate_stats(self.cloud,
-                              max_induction_particles=self.config.max_induction_particles)
+        with timing.span("rmcl.mcl.estimate"):
+            return estimate_stats(self.cloud,
+                                  max_induction_particles=self.config.max_induction_particles)
 
     def pose_map_odom(self, tbo: Transform) -> Transform:
         """map -> odom: Tom = Tbm * ~Tbo."""

@@ -44,6 +44,7 @@ from rmcl_tpu_torch.ops.closest_point import (closest_points, closest_points_bin
 from rmcl_tpu_torch.ops.order import cluster_order
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, _map_hits, cast_rays, cast_rays_seeded
 from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -227,7 +228,8 @@ def cast_update_rays(accel, config: SensorUpdateConfig, tsm: Transform, layout: 
     """Cast every (particle, beam) ray with the configured engine. Returns
     (orig_m (N, Sp, 3), dirs_m (N, Sp, 3), hits with batch (N, Sp))."""
     N, Sp = tsm.batch_shape[0], layout.dirs.shape[0]
-    orig_m, dirs_m, t_max = update_rays(tsm, layout)
+    with timing.span("rmcl.cast.rays"):
+        orig_m, dirs_m, t_max = update_rays(tsm, layout)
     dense = dict(block_size=config.block_size, flip_normals=False, c_super=config.c_super,
                  c_bin=config.c_bin, c_mid=config.c_mid, c_hyper=config.c_hyper,
                  sub_blocks=config.sub_blocks)
@@ -316,16 +318,21 @@ def sensor_update(accel, cloud: ParticleCloud, generator: Optional[torch.Generat
     a large cloud score one beam set; else ``generator`` draws them."""
     if config is None:
         config = SensorUpdateConfig.create()
-    if beams is None:
-        beams = sample_beams(generator, points_s, points_mask, config.samples)
-    layout = beam_layout(config, beams)
-    tsm, perm_inv = cluster_poses(cloud, tsb, config)
+    with timing.span("rmcl.mcl.beams"):
+        if beams is None:
+            beams = sample_beams(generator, points_s, points_mask, config.samples)
+        layout = beam_layout(config, beams)
+    with timing.span("rmcl.mcl.cluster"):
+        tsm, perm_inv = cluster_poses(cloud, tsb, config)
     if config.correspondence_type == "CP":
-        error = score_cp(accel, config, tsm, layout, chunk_size)
+        with timing.span("rmcl.mcl.score"):
+            error = score_cp(accel, config, tsm, layout, chunk_size)
     else:
         orig_m, dirs_m, hits = cast_update_rays(accel, config, tsm, layout, chunk_size)
-        error = score_rc(config, layout, orig_m, dirs_m, hits)
-    return fold(cloud, config, layout, error, perm_inv)
+        with timing.span("rmcl.mcl.score"):
+            error = score_rc(config, layout, orig_m, dirs_m, hits)
+    with timing.span("rmcl.mcl.fold"):
+        return fold(cloud, config, layout, error, perm_inv)
 
 
 def probe_update_rays(cloud: ParticleCloud, generator: Optional[torch.Generator],

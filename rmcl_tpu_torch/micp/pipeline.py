@@ -39,6 +39,7 @@ from rmcl_tpu_torch.math.se3 import Quaternion, Transform
 from rmcl_tpu_torch.math.stats import umeyama_transform
 from rmcl_tpu_torch.micp.correspondences import Correspondences, find_cpc, find_rcc
 from rmcl_tpu_torch.sensors.models import RaySliceModel, SensorModel
+from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -266,12 +267,14 @@ def correct_once(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
     models whole on every rank) and gets the same replicated result: the
     search stays local and the reduction takes K + 1 all-reduces (module
     docstring)."""
-    corrs = find_correspondences(bvh, sensors, tom @ tbo, chunk_size=chunk_size,
-                                 c_super=config.c_super, c_bin=config.c_bin,
-                                 c_mid=config.c_mid, c_hyper=config.c_hyper, mesh=mesh,
-                                 axis=axis)
-    return correct_from_correspondences(sensors, corrs, tom, tbo,
-                                        convergence_progress, config, mesh=mesh, axis=axis)
+    with timing.span("rmcl.micp.correspond"):
+        corrs = find_correspondences(bvh, sensors, tom @ tbo, chunk_size=chunk_size,
+                                     c_super=config.c_super, c_bin=config.c_bin,
+                                     c_mid=config.c_mid, c_hyper=config.c_hyper, mesh=mesh,
+                                     axis=axis)
+    with timing.span("rmcl.micp.optimize"):
+        return correct_from_correspondences(sensors, corrs, tom, tbo,
+                                            convergence_progress, config, mesh=mesh, axis=axis)
 
 
 def correct_from_correspondences(
@@ -316,50 +319,53 @@ def correct_from_correspondences(
 
     t_onew_oold = Transform.identity(device=dev)
     for it in range(config.optimization_iterations):
-        if config.solver == "umeyama":
-            if mesh is None:
-                merged = CrossStatistics.empty(device=dev)
+        with timing.span("rmcl.micp.iteration"):
+            if config.solver == "umeyama":
+                if mesh is None:
+                    merged = CrossStatistics.empty(device=dev)
+                    for (d_o, m_o, n_o, ok, scfg), max_dist in zip(lifted, gates):
+                        corr_o = Correspondences(model_points=m_o, model_normals=n_o, found=ok)
+                        merged = merged + statistics_p2l(
+                            t_onew_oold, d_o, corr_o, ok, max_dist).scale_weight(scfg.weight)
+                else:
+                    # raw-moment sums, one packed all-reduce
+                    raw = torch.zeros(16, dtype=torch.float32, device=dev)
+                    for (d_o, m_o, n_o, ok, scfg), max_dist in zip(lifted, gates):
+                        corr_o = Correspondences(model_points=m_o, model_normals=n_o, found=ok)
+                        sd, sm, sdm, nn = _p2x_raw_moments(t_onew_oold, d_o, corr_o, ok,
+                                                           max_dist, c0)
+                        raw = raw + scfg.weight * torch.cat([sd, sm, sdm.reshape(9), nn[None]])
+                    raw = mesh.psum(raw, axis)
+                    merged = _stats_from_raw(raw[0:3], raw[3:6], raw[6:15].reshape(3, 3),
+                                             raw[15], c0)
+                with timing.span("rmcl.micp.solve"):
+                    delta = umeyama_transform(merged)
+            elif config.solver == "p2l_gn":
+                A = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+                b = torch.zeros((6,), dtype=torch.float32, device=dev)
+                first = mesh is not None and it == 0
+                cext = torch.zeros(4, dtype=torch.float32, device=dev)
                 for (d_o, m_o, n_o, ok, scfg), max_dist in zip(lifted, gates):
-                    corr_o = Correspondences(model_points=m_o, model_normals=n_o, found=ok)
-                    merged = merged + statistics_p2l(
-                        t_onew_oold, d_o, corr_o, ok, max_dist).scale_weight(scfg.weight)
+                    A_s, b_s, _ = p2l_normal_equations(
+                        t_onew_oold, d_o, m_o, n_o, ok, max_dist, c0 if first else centroid)
+                    A = A + scfg.weight * A_s
+                    b = b + scfg.weight * b_s
+                    if first:
+                        mf = ok.to(torch.float32)
+                        cext = cext + torch.cat([torch.sum((d_o - c0) * mf[..., None], 0),
+                                                 torch.sum(mf)[None]])
+                if mesh is not None:
+                    A, b, cext = _unpack_Ab(mesh.psum(_pack_Ab(A, b, (cext,)), axis))
+                    if first:
+                        centroid = c0 + cext[:3] / torch.clamp(cext[3], min=1.0)
+                        A, b = _shift_Ab(A, b, c0 - centroid)
+                with timing.span("rmcl.micp.solve"):
+                    delta = _solve_p2l_delta(A, b, centroid, config.gn_damping)
             else:
-                # raw-moment sums, one packed all-reduce
-                raw = torch.zeros(16, dtype=torch.float32, device=dev)
-                for (d_o, m_o, n_o, ok, scfg), max_dist in zip(lifted, gates):
-                    corr_o = Correspondences(model_points=m_o, model_normals=n_o, found=ok)
-                    sd, sm, sdm, nn = _p2x_raw_moments(t_onew_oold, d_o, corr_o, ok,
-                                                       max_dist, c0)
-                    raw = raw + scfg.weight * torch.cat([sd, sm, sdm.reshape(9), nn[None]])
-                raw = mesh.psum(raw, axis)
-                merged = _stats_from_raw(raw[0:3], raw[3:6], raw[6:15].reshape(3, 3),
-                                         raw[15], c0)
-            delta = umeyama_transform(merged)
-        elif config.solver == "p2l_gn":
-            A = torch.zeros((6, 6), dtype=torch.float32, device=dev)
-            b = torch.zeros((6,), dtype=torch.float32, device=dev)
-            first = mesh is not None and it == 0
-            cext = torch.zeros(4, dtype=torch.float32, device=dev)
-            for (d_o, m_o, n_o, ok, scfg), max_dist in zip(lifted, gates):
-                A_s, b_s, _ = p2l_normal_equations(
-                    t_onew_oold, d_o, m_o, n_o, ok, max_dist, c0 if first else centroid)
-                A = A + scfg.weight * A_s
-                b = b + scfg.weight * b_s
-                if first:
-                    mf = ok.to(torch.float32)
-                    cext = cext + torch.cat([torch.sum((d_o - c0) * mf[..., None], 0),
-                                             torch.sum(mf)[None]])
-            if mesh is not None:
-                A, b, cext = _unpack_Ab(mesh.psum(_pack_Ab(A, b, (cext,)), axis))
-                if first:
-                    centroid = c0 + cext[:3] / torch.clamp(cext[3], min=1.0)
-                    A, b = _shift_Ab(A, b, c0 - centroid)
-            delta = _solve_p2l_delta(A, b, centroid, config.gn_damping)
-        else:
-            raise ValueError(f"unknown solver {config.solver!r}")
-        # stats measured on pre-transformed data ⇒ the increment composes on
-        # the LEFT of the accumulated delta
-        t_onew_oold = (delta @ t_onew_oold).normalized()
+                raise ValueError(f"unknown solver {config.solver!r}")
+            # stats measured on pre-transformed data ⇒ the increment composes on
+            # the LEFT of the accumulated delta
+            t_onew_oold = (delta @ t_onew_oold).normalized()
 
     # final merged statistics for reporting — UNWEIGHTED, like the
     # reference's Cmerged_o

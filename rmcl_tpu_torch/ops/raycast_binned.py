@@ -45,6 +45,7 @@ from rmcl_tpu_torch.ops.cull_cuda import _BIG, cull_factored, cull_rays
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, _map_hits
 from rmcl_tpu_torch.ops.raycast_cuda import (intersect_bins, intersect_factored, intersect_groups,
                                              plane_of)
+from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -153,10 +154,11 @@ def _kernel_inputs(bins, o, d, t_min_r, t_max_r, block_size, c_super, c_bin, sub
     B = bins.bin_size
     if B & (B - 1):
         raise ValueError("bin_size must be a power of two (packed-key min)")
-    cs, cb, cm = _resolve_budgets(bins, c_super, c_bin, c_mid)
-    ob, db, t_min_b, t_max_b = _pad_rays(o, d, t_min_r, t_max_r, Rb)
-    cand_bin, cand_count, cand_tnear, sat = _chunk_candidates(
-        bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, cm, c_hyper)
+    with timing.span("rmcl.cast.cull"):
+        cs, cb, cm = _resolve_budgets(bins, c_super, c_bin, c_mid)
+        ob, db, t_min_b, t_max_b = _pad_rays(o, d, t_min_r, t_max_r, Rb)
+        cand_bin, cand_count, cand_tnear, sat = _chunk_candidates(
+            bins, ob, db, t_min_b, t_max_b, cs, cb, sub_blocks, cm, c_hyper)
     return (ob, db, t_min_b, t_max_b, cand_bin, cand_count, cand_tnear), sat
 
 
@@ -213,21 +215,26 @@ def cast_rays_binned(
     pmode = {True: "select", False: "none"}.get(payload, payload)
     if pmode not in ("select", "index", "none"):
         raise ValueError(f"unknown payload mode {payload!r}")
-    o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
+    with timing.span("rmcl.cast.rays"):
+        o, d, t_min_r, t_max_r, batch_shape = _flat_rays(orig, dirs, t_min, t_max)
     # the cull and the kernels choose winners only: no gradient enters them
     # (t, point and normal are re-derived from the winner's plane below)
     inputs, sat = _kernel_inputs(bins, o.detach(), d.detach(), t_min_r.detach(),
                                  t_max_r.detach(), block_size, c_super, c_bin, sub_blocks,
                                  c_hyper, c_mid)
-    order = None
-    if sort_blocks:
-        order = torch.argsort(inputs[5], stable=True).to(torch.int32)
-    if dir_groups:
-        t_best_b, ref_b = intersect_groups(bins.tri, *inputs, dir_groups, order=order)
-    else:
-        t_best_b, ref_b = intersect_bins(bins.tri, *inputs, order=order)
-    hits = _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode, flip_normals)
-    hits = _map_hits(lambda x: x.reshape(batch_shape + tuple(x.shape[1:])), hits)
+    # the ray-bin pairs the cull hands the intersection (padding rays too)
+    timing.count_device("rmcl.cast.pairs", inputs[5], block_size)
+    with timing.span("rmcl.cast.intersect"):
+        order = None
+        if sort_blocks:
+            order = torch.argsort(inputs[5], stable=True).to(torch.int32)
+        if dir_groups:
+            t_best_b, ref_b = intersect_groups(bins.tri, *inputs, dir_groups, order=order)
+        else:
+            t_best_b, ref_b = intersect_bins(bins.tri, *inputs, order=order)
+    with timing.span("rmcl.cast.payload"):
+        hits = _hits_from_winners(bins, o, d, t_max_r, t_best_b, ref_b, pmode, flip_normals)
+        hits = _map_hits(lambda x: x.reshape(batch_shape + tuple(x.shape[1:])), hits)
     if with_lossless:
         lossless = (~sat)[:, None].expand(sat.shape[0], block_size).reshape(-1)[:o.shape[0]]
         return hits, lossless.reshape(batch_shape)

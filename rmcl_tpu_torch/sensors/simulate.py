@@ -15,6 +15,7 @@ from rmcl_tpu_torch.math.se3 import Transform
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, cast_rays
 from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
 from rmcl_tpu_torch.sensors.models import SensorModel
+from rmcl_tpu_torch.utils import timing
 
 
 def simulate(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
@@ -33,10 +34,11 @@ def simulate(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
     if not isinstance(bvh, (BVH, TriangleBins)):
         raise TypeError(f"simulate needs a BVH or TriangleBins, got {type(bvh).__name__}")
     dev = bvh.device
-    o_s, d_s = model.rays(dev)  # (N, 3) sensor frame
-    tsm_b = tsm.expand_dims(-1) if tsm.batch_shape else tsm
-    o_m = tsm_b.apply(o_s)
-    d_m = tsm_b.rotate(d_s)
+    with timing.span("rmcl.cast.rays"):
+        o_s, d_s = model.rays(dev)  # (N, 3) sensor frame
+        tsm_b = tsm.expand_dims(-1) if tsm.batch_shape else tsm
+        o_m = tsm_b.apply(o_s)
+        d_m = tsm_b.rotate(d_s)
     t_max = min(model.range.max, NO_HIT_T)
     if isinstance(bvh, TriangleBins):
         hits = cast_rays_binned(bvh, o_m, d_m, t_min=model.range.min, t_max=t_max, **binned_kw)
@@ -44,16 +46,17 @@ def simulate(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
         hits = cast_rays(bvh, o_m, d_m, t_min=model.range.min, t_max=t_max,
                          chunk_size=chunk_size)
     # fold back into the sensor frame
-    inv = tsm_b.inverse()
-    hit3 = hits.hit[..., None]
-    return RayHits(
-        t=hits.t,
-        hit=hits.hit,
-        prim_id=hits.prim_id,
-        inst_id=hits.inst_id,
-        point=inv.apply(hits.point).where(hit3, 0.0),
-        normal=inv.rotate(hits.normal).where(hit3, 0.0),
-    )
+    with timing.span("rmcl.cast.payload"):
+        inv = tsm_b.inverse()
+        hit3 = hits.hit[..., None]
+        return RayHits(
+            t=hits.t,
+            hit=hits.hit,
+            prim_id=hits.prim_id,
+            inst_id=hits.inst_id,
+            point=inv.apply(hits.point).where(hit3, 0.0),
+            normal=inv.rotate(hits.normal).where(hit3, 0.0),
+        )
 
 
 def simulate_ranges(bvh: BVH, model: SensorModel, tsm: Transform, miss_value: float = 0.0,
