@@ -23,7 +23,8 @@ Phases (any failure ends the run with a nonzero exit code):
    K1 and K3 launches (one K3 launch a cull); both kernels are then held
    against their plain versions on the main path's own inputs and timed
    beside their bounds, and the cast is repeated with no candidate budget
-   to measure the hits the default budgets cost;
+   to measure the hits the default budgets cost; the Gauss-Newton kernel
+   launches once a correction (phase 16 checks and times it);
 5. reference-size cast: 1000 poses x VLP-16 (14.4M rays) against the
    ~1M-face sphere through the dense engine, with the split between the
    cull (K3, held against its plain version) and K1; the default 128-ray
@@ -154,7 +155,17 @@ Phases (any failure ends the run with a nonzero exit code):
    block of any shard saturates: both scene-sharded casts against the
    unsharded cast (no ray may differ; any that does is named), every ray's
    exact winner's bin in its block's list (unsharded and each shard's), the
-   election's collectives counted. A failed rank fails the run.
+   election's collectives counted. A failed rank fails the run;
+16. MICP-L's Gauss-Newton kernel (``ops/solve_cuda.py::p2l_gauss_newton``,
+   run right after phase 4 on its map and scan): correspondences from
+   phase 4's start pose, at the node's shape (14,400 pairs) and on three
+   copies of them (43,200 pairs), the kernel against its plain version
+   (the pipeline's torch loop, ``micp/pipeline.py::_correct_torch``)
+   (pose within 1e-5 m and 1e-6 rad, matches within one, the covariance
+   trace and the progress within 1e-5 relative; two launches bitwise),
+   timed by the profiler's device trace beside its bound, the call by
+   events, the wrapper's host time, the plain version's time, its
+   registers (no spill) and its shared memory.
 
 K3 is checked in its fused form (bounds and cull in one launch:
 ``cull_rays``, ``cull_factored``) and, on the plain version's cones, as
@@ -253,6 +264,27 @@ OPS_PER_BW_TRI = 55
 OPS_PER_GROUP_PAIR = 24
 OPS_PER_GROUP_TERM = 49
 OPS_PER_GROUP_TRI = 9
+
+# the Gauss-Newton kernel (csrc/p2l_gauss_newton.cu), float instructions a
+# pair: the lift (two poses applied, 33 each, and a normal rotated, 30) and
+# the centroid's sums, 8: 104; an iteration (T applied 33, the residual 8,
+# the gate 2, (d' - c) x n 12, J 6, r g 1, A's 21 sums and b's 6 at a
+# product, a weight and an add each, 81): 143; the statistics' two passes
+# (the residual and gate again 43 each, the projection 6 each, the sums 13,
+# the trace's 15): 126. Bytes: the pairs read once (three float32 triples,
+# mask, found) and the 12 floats written.
+OPS_PER_GN_LIFT = 104
+OPS_PER_GN_ITER = 143
+OPS_PER_GN_STATS = 126
+GN_BYTES_PER_PAIR = 38
+GN_OUT_BYTES = 48
+# kernel vs plain version: the same float32 arithmetic a pair, the sums in
+# another order and another 6 x 6 elimination
+GN_POSE_TOL_M, GN_POSE_TOL_RAD, GN_REL_TOL = 1e-5, 1e-6, 1e-5
+# the kernel's stack frame: sinf's and cosf's reduction of a huge argument
+# (seven words; ptxas reports 0 bytes of spills), never reached at a solve's
+# angles
+GN_STACK_BYTES = 32
 
 # tolerances kernel vs plain version: built with --fmad=false the two round
 # alike and agree bitwise; 1e-5 relative leaves room for the rounding of a
@@ -622,15 +654,16 @@ def wrappers():
     fused on ray blocks (K3r) and on
     factored blocks (K3f), and its back end alone (K3b); the exact engine's
     traversal (K5) and closest-point walk (K6), the binned closest-point
-    loop (K6b) and its candidate cull (K7)."""
+    loop (K6b) and its candidate cull (K7); MICP-L's Gauss-Newton loop (GN)."""
     from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates
     from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_factored, cull_rays
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, intersect_groups
+    from rmcl_tpu_torch.ops.solve_cuda import p2l_gauss_newton
     from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
 
     return {"K1": intersect_bins, "K2g": intersect_groups, "K3r": cull_rays, "K3f": cull_factored, "K3b": cull_blocks,
             "K4": intersect_factored, "K5": traverse_rays, "K6": closest_bvh,
-            "K6b": closest_bins, "K7": cp_candidates}
+            "K6b": closest_bins, "K7": cp_candidates, "GN": p2l_gauss_newton}
 
 
 def reset_counts():
@@ -967,10 +1000,12 @@ def phase_main_path():
         f"final |dt| {err_t:.2e} m, |<q, q_true>| {dq:.8f}, "
         f"matches {float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}, "
         f"progress {float(stats.convergence_progress):.4f}, launches K1 {counts['K1']}, "
-        f"K3 {counts['K3r']}, K4 {counts['K4']}")
+        f"K3 {counts['K3r']}, K4 {counts['K4']}, GN {counts['GN']}")
     if not err_t < 0.01:
         fail(f"main path did not converge: translation error {err_t} m")
-    require_launches("phase 4 main path", counts, ("K1", "K3r"), culls=N_CORRECTIONS)
+    require_launches("phase 4 main path", counts, ("K1", "K3r", "GN"), culls=N_CORRECTIONS)
+    if counts["GN"] != N_CORRECTIONS:
+        fail(f"phase 4: {N_CORRECTIONS} corrections launched GN {counts['GN']} times")
     if not bool(torch.isfinite(tom.rot).all() & torch.isfinite(tom.trans).all()):
         fail("non-finite pose")
 
@@ -1027,6 +1062,92 @@ def phase_main_path():
         fail("phase 4: the unbudgeted cull still truncated a block")
     r.update(bmap=bmap, model=model, sensor=sensor, true_pose=true_pose, config=config)
     return r
+
+
+def gn_bound(n_pairs, iterations):
+    """Least time for the Gauss-Newton kernel's work: each pair lifted once,
+    K iterations and the statistics' two passes (float instructions), or
+    the pairs read once and the output written (bytes)."""
+    ops = n_pairs * (OPS_PER_GN_LIFT + iterations * OPS_PER_GN_ITER + OPS_PER_GN_STATS)
+    return bound_of(n_pairs * GN_BYTES_PER_PAIR + GN_OUT_BYTES, ops)
+
+
+def gn_gaps(got, want):
+    """(pose m, pose rad, matches, largest relative gap of the covariance
+    trace and the progress) between two outputs of the Gauss-Newton loop."""
+    got, want = got.double().cpu(), want.double().cpu()
+    a, b = got[:4], want[:4]
+    vec = a[0] * b[1:] - b[0] * a[1:] - torch.linalg.cross(a[1:], b[1:])
+    rel = max(abs(float(got[k] - want[k])) / max(abs(float(want[k])), 1e-30) for k in (10, 11))
+    return (float(torch.linalg.vector_norm(got[4:7] - want[4:7])),
+            2.0 * math.asin(min(1.0, float(torch.linalg.vector_norm(vec)))),
+            abs(float(got[9] - want[9])), rel)
+
+
+def phase_gauss_newton(main_r):
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.micp.pipeline import MICPStats, _correct_torch, find_correspondences
+    from rmcl_tpu_torch.ops import solve_cuda as sc
+
+    def plain(sensors, corrs, tom, tbo, progress, config):
+        t, stats = _correct_torch(sensors, corrs, tom, tbo, progress, config, None, "rays")
+        return torch.cat([t.rot, t.trans] + [getattr(stats, f.name).reshape(1)
+                                             for f in dataclasses.fields(MICPStats)])
+
+    bins, sensor, config = main_r["bmap"].bins, main_r["sensor"], main_r["config"]
+    tom, tbo = Transform.from_pose_tuple(EXACT_START), Transform.identity()
+    corrs = find_correspondences(bins, [sensor], tom @ tbo, c_super=config.c_super,
+                                 c_bin=config.c_bin)
+    progress = torch.tensor(0.3, device="cuda")
+    regs, local, static_smem = sc.kernel_registers()["GN"]
+    if local > GN_STACK_BYTES:
+        fail(f"phase 16: the Gauss-Newton kernel spills ({local} local bytes a thread)")
+    rows = {}
+    for name, copies in (("node", 1), ("3x", 3)):
+        inputs = ([sensor] * copies, list(corrs) * copies, tom, tbo, progress, config)
+        n = copies * int(sensor.points.shape[0])
+        chunk = -(-n // sc._CLUSTER)
+        launches = sc.p2l_gauss_newton.launches
+        got, again = sc.p2l_gauss_newton(*inputs), sc.p2l_gauss_newton(*inputs)
+        want = plain(*inputs)
+        torch.cuda.synchronize()
+        if sc.p2l_gauss_newton.launches - launches != 2:
+            fail(f"phase 16 {name}: two calls launched the kernel "
+                 f"{sc.p2l_gauss_newton.launches - launches} times")
+        if not torch.equal(got, again):
+            fail(f"phase 16 {name}: two launches on the same inputs differ")
+        gap_m, gap_rad, gap_match, gap_rel = gn_gaps(got, want)
+        if not (gap_m <= GN_POSE_TOL_M and gap_rad <= GN_POSE_TOL_RAD and gap_match <= 1
+                and gap_rel <= GN_REL_TOL and torch.equal(got[7:9], want[7:9])):
+            fail(f"phase 16 {name}: kernel against plain version: {gap_m:.3g} m, "
+                 f"{gap_rad:.3g} rad, {gap_match} matches, {gap_rel:.3g} relative")
+        ms = device_ms(lambda: sc.p2l_gauss_newton(*inputs), "p2l_gauss_newton_kernel")
+        if ms is None:
+            fail(f"phase 16 {name}: the trace holds no Gauss-Newton launch")
+        t0 = time.perf_counter()
+        for _ in range(100):
+            sc.p2l_gauss_newton(*inputs)
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        bound_ms, bound_by = gn_bound(n, config.optimization_iterations)
+        rows[name] = dict(
+            pairs=n, ms=ms, timed_by="device trace",
+            call_ms=cuda_ms(lambda: sc.p2l_gauss_newton(*inputs)), host_us=host_us,
+            plain_ms=cuda_ms(lambda: plain(*inputs)),
+            bound_ms=bound_ms, bound_by=bound_by, launches=1, max_abs_err=gap_m,
+            gaps=dict(m=gap_m, rad=gap_rad, matches=gap_match, rel=gap_rel),
+            chunk=chunk, static_shared_bytes=static_smem, registers=regs,
+            matches=float(got[9]), valid=float(got[8]))
+        r = rows[name]
+        log(f"phase 16 Gauss-Newton kernel, {name} ({n} pairs, {chunk} a CTA, "
+            f"{static_smem} B shared, {regs} registers): kernel {ms:.4f} ms by the trace, call {r['call_ms']:.4f} ms "
+            f"by events, wrapper {host_us:.1f} us host, plain {r['plain_ms']:.3f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), share {bound_ms / ms:.2%}; gaps {gap_m:.3g} m, "
+            f"{gap_rad:.3g} rad, {gap_match:.0f} matches, {gap_rel:.3g} relative; two "
+            f"launches bitwise")
+    return dict(rows["node"], phase16_3x=rows["3x"])
 
 
 def phase_reference_cast(sphere_bins):
@@ -1150,10 +1271,12 @@ def phase_tracking(main_r):
     log(f"phase 6 tracking: {TRACK_STEPS} steps x {model.n_rays} rays, median "
         f"{statistics.median(times):.3f} ms/step (min {min(times):.3f}), final |dt| "
         f"{err_t:.2e} m, re-culls {state.n_reculls} (init included), launches K3 "
-        f"{counts['K3f']}, K4 {counts['K4']}, K1 {counts['K1']}")
+        f"{counts['K3f']}, K4 {counts['K4']}, K1 {counts['K1']}, GN {counts['GN']}")
     if not err_t < 0.01:
         fail(f"phase 6: tracking did not converge: translation error {err_t} m")
-    require_launches("phase 6 tracking", counts, ("K3f", "K4"), culls=state.n_reculls)
+    require_launches("phase 6 tracking", counts, ("K3f", "K4", "GN"), culls=state.n_reculls)
+    if counts["GN"] != TRACK_STEPS:
+        fail(f"phase 6: {TRACK_STEPS} tracked corrections launched GN {counts['GN']} times")
 
     # K3 and K4 on the last step's inputs: its blocks, a cull there, and
     # the lists the step cast through
@@ -1779,7 +1902,7 @@ def phase_exact_main_path(main_r):
             + ", ".join(f"{k} {v}{split.get(k, '')}" for k, v in counts.items() if v))
         if not (err <= EXACT_ERR_JAX[key] + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
             fail(f"phase 8 {label}: final translation error {err} m, JAX's {EXACT_ERR_JAX[key]} m")
-        for k in (kernel, "K7") if key == "cp_bins" else (kernel,):
+        for k in (kernel, "K7", "GN") if key == "cp_bins" else (kernel, "GN"):
             if counts[k] != N_CORRECTIONS:
                 fail(f"phase 8 {label}: {k} launched {counts[k]} times in "
                      f"{N_CORRECTIONS} corrections (one a correction expected)")
@@ -4680,6 +4803,7 @@ def main():
 
     phase_kernel_vs_plain(sphere)
     main_r = phase_main_path()
+    r16 = phase_gauss_newton(main_r)
     phase_reference_cast(sphere)
     phase_tracking(main_r)
     sweep_r = phase_sweep()
@@ -4760,6 +4884,11 @@ def main():
                                             "threads", "shared_bytes", "floor_ms")}
                      for ph, r in (("8", exact_r["k7"]), ("9", ref_r["k7"]), ("12", r12["k7"]))},
              wide_levels=exact_r["k7"]["wide_levels"]),
+        dict(row("p2l_gauss_newton", "rmcl_tpu_torch/csrc/p2l_gauss_newton.cu",
+                 "none: the XLA-fused loop of rmcl_tpu/micp/pipeline.py::correct_once_jit "
+                 "(:349-548)", r16),
+             **{k: r16[k] for k in ("timed_by", "call_ms", "host_us", "registers", "chunk",
+                                    "static_shared_bytes", "gaps", "phase16_3x")}),
     ]}))
     log("phase 13 dense and fused sweeps: " + json.dumps(
         {k: r13[k] for k in ("ms", "rays_per_s", "hit_frac", "sat_share", "iter_err", "steps",

@@ -8,9 +8,12 @@ guard on the new pose (reference micp_localization.cpp:856-1016).
 
 Correspondences are ray-cast (``corr_type="RC"``) or closest-point
 (``"CP"``), found on a ``BVH`` (the exact engine) or on ``TriangleBins``
-(the dense binned engine). The normal-equation and covariance sums are
-broadcast products summed over the points, so they stay in full float32 on
-the card (the JAX package asks for ``Precision.HIGHEST``).
+(the dense binned engine). Unsharded, the point-to-plane Gauss-Newton loop
+(the default solver) on the card is one hand-written kernel
+(:mod:`rmcl_tpu_torch.ops.solve_cuda`). Elsewhere the loop runs as torch
+operations; their normal-equation and covariance sums are broadcast products
+summed over the points, so they stay in full float32 on the card (the JAX
+package asks for ``Precision.HIGHEST``).
 
 Sharded over rays (``mesh`` and ``axis`` given; every rank runs the same
 call on its shard, as JAX's ``psum_axis`` body runs inside ``shard_map``):
@@ -38,6 +41,7 @@ from rmcl_tpu_torch.math.gaussian import CrossStatistics
 from rmcl_tpu_torch.math.se3 import Quaternion, Transform
 from rmcl_tpu_torch.math.stats import umeyama_transform
 from rmcl_tpu_torch.micp.correspondences import Correspondences, find_cpc, find_rcc
+from rmcl_tpu_torch.ops.solve_cuda import OUT_SLICES, p2l_gauss_newton
 from rmcl_tpu_torch.sensors.models import RaySliceModel, SensorModel
 from rmcl_tpu_torch.utils import timing
 
@@ -290,9 +294,35 @@ def correct_from_correspondences(
     """The optimization half of :func:`correct_once`: K iterations over
     given correspondences → new Tom (reference :915-1016). ``mesh``: the
     correspondences are this rank's shard over ``axis``, reduced by one
-    packed all-reduce an iteration plus one for the statistics."""
+    packed all-reduce an iteration plus one for the statistics.
+
+    Unsharded with ``solver="p2l_gn"`` on CUDA tensors, the whole loop is
+    one launch of :func:`~rmcl_tpu_torch.ops.solve_cuda.p2l_gauss_newton`
+    and no host sync; every other call runs :func:`_correct_torch`."""
     dev = tom.trans.device
     progress_in = torch.as_tensor(convergence_progress, dtype=torch.float32, device=dev)
+    if mesh is None and config.solver == "p2l_gn" and dev.type == "cuda":
+        return _correct_fused(sensors, corrs, tom, tbo, progress_in, config)
+    return _correct_torch(sensors, corrs, tom, tbo, progress_in, config, mesh, axis)
+
+
+def _correct_fused(sensors, corrs, tom: Transform, tbo: Transform, progress_in: Tensor,
+                   config: MICPConfig) -> Tuple[Transform, MICPStats]:
+    """The unsharded point-to-plane loop as one kernel launch: the new pose
+    and the statistics are views of its ``(12,)`` output."""
+    out = p2l_gauss_newton(sensors, corrs, tom, tbo, progress_in, config)
+    timing.count("rmcl.micp.optimize.fused", 1)
+    return Transform(rot=out[OUT_SLICES["rot"]], trans=out[OUT_SLICES["trans"]]), MICPStats(
+        **{f.name: out[OUT_SLICES[f.name]] for f in dataclasses.fields(MICPStats)})
+
+
+def _correct_torch(sensors, corrs, tom: Transform, tbo: Transform, progress_in: Tensor,
+                   config: MICPConfig, mesh, axis: str) -> Tuple[Transform, MICPStats]:
+    """:func:`correct_from_correspondences` as torch operations, on any
+    device, sharded or not: each iteration in its ``rmcl.micp.iteration``
+    span, each solve in ``rmcl.micp.solve``. The plain version the kernel
+    is held to."""
+    dev = tom.trans.device
     # lift per-sensor data into the odom frame once
     lifted = []
     for s, corr in zip(sensors, corrs):
