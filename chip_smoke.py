@@ -11,7 +11,8 @@ Phases (any failure ends the run with a nonzero exit code):
    ``rmcl_tpu_torch/csrc`` in parallel (K1 candidate-bin intersection and
    its dir_groups form K2g, K3 block cull with its bounds, K4 factored pair
    loop, K5 BVH traversal, K6 closest point over the BVH, K6b closest point
-   over candidate bins, K7 the closest-point candidate cull), and beside
+   over candidate bins, K7 the closest-point candidate cull, MICP-L's
+   Gauss-Newton loop, the batch corrector's epilogue), and beside
    them the native host library (the kd bin order, the SAH BVH) by g++;
    every map below is binned in the native order, or the run fails;
 3. K1 vs plain version: the intersection kernel against its plain PyTorch
@@ -39,7 +40,9 @@ Phases (any failure ends the run with a nonzero exit code):
    hypers -> supers -> bins, one reuse cull per 16-step chain): the
    dataset's hits, ms per correction over three chains, ten iterated
    corrections from +0.2 m z, and K3/K4 against their plain versions with
-   timings and bounds;
+   timings and bounds; the batch corrector's epilogue kernel (one launch a
+   correction) against the torch path on one correction's winners, timed
+   by the trace beside its bound and the torch path's epilogue;
 8. MICP-L on the exact engine and with closest-point correspondences:
    phase 4's map (now with its BVH) and start pose, the exact engine's scan
    at the true pose, ten
@@ -285,6 +288,19 @@ GN_POSE_TOL_M, GN_POSE_TOL_RAD, GN_REL_TOL = 1e-5, 1e-6, 1e-5
 # (seven words; ptxas reports 0 bytes of spills), never reached at a solve's
 # angles
 GN_STACK_BYTES = 32
+# the batch corrector's epilogue kernel (phase 7): a hit pair's float32
+# instructions (the denominator and t 13 with the division, the normal 16
+# with the square root and the division, the hit point 6, the measured point
+# 3, the signed distance 8, the gate 4, the projection 6: 56) and its
+# float64 ones (the relative points 12, the 16 sums 25: 37, counted twice:
+# the card's float64 rate is half its float32 one): 130. Bytes: a pair's
+# slot, t, row index, measured point and mask (25), the distinct winner
+# rows' planes (16 B) once, the positions and directions, the output
+OPS_PER_EPI_PAIR = 130
+EPI_BYTES_PER_PAIR = 25
+# kernel vs the torch path: float64 sums against float32 ones, and torch's
+# approximate rsqrt on the card, which can flip a pair at its gate
+EPI_POSE_TOL_M, EPI_POSE_TOL_RAD = 2e-5, 1e-6
 
 # tolerances kernel vs plain version: built with --fmad=false the two round
 # alike and agree bitwise; 1e-5 relative leaves room for the rounding of a
@@ -654,16 +670,19 @@ def wrappers():
     fused on ray blocks (K3r) and on
     factored blocks (K3f), and its back end alone (K3b); the exact engine's
     traversal (K5) and closest-point walk (K6), the binned closest-point
-    loop (K6b) and its candidate cull (K7); MICP-L's Gauss-Newton loop (GN)."""
+    loop (K6b) and its candidate cull (K7); MICP-L's Gauss-Newton loop (GN);
+    the batch corrector's epilogue (EP)."""
     from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates
     from rmcl_tpu_torch.ops.cull_cuda import cull_blocks, cull_factored, cull_rays
+    from rmcl_tpu_torch.ops.epilogue_cuda import batch_epilogue
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_factored, intersect_groups
     from rmcl_tpu_torch.ops.solve_cuda import p2l_gauss_newton
     from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
 
     return {"K1": intersect_bins, "K2g": intersect_groups, "K3r": cull_rays, "K3f": cull_factored, "K3b": cull_blocks,
             "K4": intersect_factored, "K5": traverse_rays, "K6": closest_bvh,
-            "K6b": closest_bins, "K7": cp_candidates, "GN": p2l_gauss_newton}
+            "K6b": closest_bins, "K7": cp_candidates, "GN": p2l_gauss_newton,
+            "EP": batch_epilogue}
 
 
 def reset_counts():
@@ -1320,6 +1339,86 @@ def phase_tracking(main_r):
                 counts=counts, k3=r3, k4=r4)
 
 
+def quat_gaps(a, b):
+    """Angles (rad) between unit quaternions a, b (N, 4): twice the arcsine
+    of the vector part of conj(a) b."""
+    a, b = a.double(), b.double()
+    vec = a[:, :1] * b[:, 1:] - b[:, :1] * a[:, 1:] - torch.linalg.cross(a[:, 1:], b[:, 1:])
+    return 2.0 * torch.asin(torch.clamp(torch.linalg.vector_norm(vec, dim=-1), max=1.0))
+
+
+def epilogue_bound(won, slots):
+    """Least time for the epilogue kernel's work (OPS_PER_EPI_PAIR,
+    EPI_BYTES_PER_PAIR): every pair's inputs and the distinct winner rows
+    read once, the output written, against the hit pairs' instructions."""
+    n, d = slots.shape
+    flat = slots.reshape(-1).long()
+    hit = won.hit.reshape(-1)[flat]
+    rows = int(torch.unique(won.ref.reshape(-1)[flat][hit]).numel())
+    bytes_moved = n * d * EPI_BYTES_PER_PAIR + rows * 16 + (n + d) * 12 + n * 32
+    return (*bound_of(bytes_moved, int(hit.sum()) * OPS_PER_EPI_PAIR), bytes_moved, rows)
+
+
+def check_epilogue(name, bc, data_points, data_mask, trans, lists):
+    """The batch corrector's epilogue kernel on one correction's winners
+    (the cast through ``lists`` at ``trans``): two launches bitwise, against
+    the torch path (``BatchCorrector._correct_torch``) on the same CUDA
+    tensors, timed by the trace beside its bound, the torch path's epilogue
+    (the torch path less the winner cast) and the whole fused correction."""
+    from rmcl_tpu_torch.ops import epilogue_cuda as ec
+    from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned_factored
+
+    regs, local, smem = ec.kernel_registers()["epilogue"]
+    if local:
+        fail(f"{name}: the epilogue kernel spills ({local} local bytes a thread)")
+    o_blk, d_blk = bc.sweep.factored_rays(trans, bc.dirs)
+
+    def winner_cast():
+        return cast_rays_binned_factored(bc.bins, o_blk, d_blk, candidates=lists,
+                                         sort_blocks=True, payload="winner", **bc.cull_kw)
+
+    won = winner_cast()
+    planes, slots = bc._epilogue_tables()
+    args = (won.t, won.ref, planes, trans, bc.dirs, data_points, data_mask, slots, bc.max_dist,
+            bc.cull_kw["t_max"])
+    launches = ec.batch_epilogue.launches
+    (got, n_got), (again, n_again) = ec.batch_epilogue(*args), ec.batch_epilogue(*args)
+    want, n_want = bc._correct_torch(data_points, data_mask, trans, lists)
+    torch.cuda.synchronize()
+    if ec.batch_epilogue.launches - launches != 2:
+        fail(f"{name}: two calls launched the kernel {ec.batch_epilogue.launches - launches} times")
+    if not (torch.equal(got.rot, again.rot) and torch.equal(got.trans, again.trans)
+            and torch.equal(n_got, n_again)):
+        fail(f"{name}: two launches on the same inputs differ")
+    gap_m = float(torch.linalg.vector_norm(got.apply(trans) - want.apply(trans), dim=-1).max())
+    gap_rad = float(quat_gaps(got.rot, want.rot).max())
+    gap_match = float((n_got - n_want).abs().max())
+    if not (gap_m <= EPI_POSE_TOL_M and gap_rad <= EPI_POSE_TOL_RAD and gap_match <= 1):
+        fail(f"{name}: kernel against the torch path: {gap_m:.3g} m, {gap_rad:.3g} rad, "
+             f"{gap_match} matches")
+    ms = device_ms(lambda: ec.batch_epilogue(*args), "batch_epilogue_kernel")
+    if ms is None:
+        fail(f"{name}: the trace holds no epilogue launch")
+    cast_ms = cuda_ms(winner_cast, reps=5)
+    torch_ms = cuda_ms(lambda: bc._correct_torch(data_points, data_mask, trans, lists), reps=5)
+    bound_ms, bound_by, bytes_moved, rows = epilogue_bound(won, slots)
+    r = dict(ms=ms, timed_by="device trace", call_ms=cuda_ms(lambda: ec.batch_epilogue(*args)),
+             plain_ms=torch_ms - cast_ms, torch_path_ms=torch_ms, winner_cast_ms=cast_ms,
+             fused_correction_ms=cuda_ms(lambda: bc.correct(data_points, data_mask, trans, lists),
+                                         reps=5),
+             bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, rows=rows,
+             max_abs_err=gap_m, gaps=dict(m=gap_m, rad=gap_rad, matches=gap_match),
+             registers=regs, static_shared_bytes=smem, pairs=int(n_got.sum()))
+    log(f"{name} ({trans.shape[0]} poses x {data_points.shape[1]} rays, {r['pairs']} pairs, "
+        f"{rows} winner rows, {regs} registers, {smem} B shared): kernel {ms:.4f} ms by the "
+        f"trace, call {r['call_ms']:.4f} ms by events; bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{bytes_moved / 1e9:.3f} GB), share {bound_ms / ms:.2%}; the torch path's epilogue "
+        f"{r['plain_ms']:.3f} ms (torch path {torch_ms:.3f} less the winner cast "
+        f"{cast_ms:.3f}); fused correction {r['fused_correction_ms']:.3f} ms; gaps {gap_m:.3g} "
+        f"m, {gap_rad:.3g} rad, {gap_match:.0f} matches; two launches bitwise")
+    return r
+
+
 def phase_sweep():
     from rmcl_tpu_torch.bench import JITTER, SweepBench, settings_from_env
     from rmcl_tpu_torch.ops.cull_cuda import (_cull_args, _factored_bounds, cull_factored,
@@ -1362,7 +1461,10 @@ def phase_sweep():
         torch.cuda.synchronize()
         chain_ms.append((time.perf_counter() - t) * 1e3 / k)
     counts = read_counts()
-    require_launches("phase 7 sweep", counts, ("K3f", "K4"), culls=1 + SWEEP_CHAINS)
+    require_launches("phase 7 sweep", counts, ("K3f", "K4", "EP"), culls=1 + SWEEP_CHAINS)
+    if counts["EP"] != SWEEP_CHAINS * k:
+        fail(f"phase 7 sweep: {SWEEP_CHAINS * k} corrections launched the epilogue kernel "
+             f"{counts['EP']} times")
     hit_frac = float(data_mask.float().mean())
     ms = statistics.median(chain_ms)
     rays_per_s = bench.n_rays / (ms * 1e-3)
@@ -1414,14 +1516,19 @@ def phase_sweep():
         f"run), bound {r4['bound_ms']:.3f} ms ({r4['bound_by']}; {r4['visits']:.0f} bin "
         f"visits); the cast through both lists agrees")
 
+    # the epilogue kernel on the same correction
+    r_ep = check_epilogue("phase 7 epilogue", bench.corrector, data_points, data_mask, est0,
+                          kl[:3])
+    r_ep.update(launches=counts["EP"])
+
     # where one correction's time goes (CUDA events, reused lists)
     cands = bench.candidates(est0)
     cast_ms = cuda_ms(lambda: bench.cast_sweep(est0, cands), reps=3)
     corr_ms = cuda_ms(lambda: bench.correction(data_points, data_mask, est0, cands), reps=3)
-    log(f"phase 7 one correction (reused lists): {corr_ms:.3f} ms = cast {cast_ms:.3f} ms "
-        f"(K4 {r4['ms']:.3f} ms + payload, unpermute {cast_ms - r4['ms']:.3f} ms) + reduction "
-        f"and {bench.trans_true.shape[0]} Umeyama solves {corr_ms - cast_ms:.3f} ms; the reuse "
-        f"cull adds {reuse_ms / k:.3f} ms a correction over a {k}-step chain")
+    log(f"phase 7 one correction (reused lists): {corr_ms:.3f} ms, the epilogue kernel's; "
+        f"the plane cast {cast_ms:.3f} ms (K4 {r4['ms']:.3f} ms + payload, unpermute "
+        f"{cast_ms - r4['ms']:.3f} ms); the reuse cull adds {reuse_ms / k:.3f} ms a correction "
+        f"over a {k}-step chain")
 
     # ten iterated corrections from the reference's +0.2 m z offset
     t = time.perf_counter()
@@ -1434,7 +1541,8 @@ def phase_sweep():
         f"0.2 m; max {float(err.max()):.6f} m), {iter_s:.2f} s")
     if not (med < SWEEP_ITER_ERR_MAX and bool(torch.isfinite(est).all())):
         fail(f"phase 7: the iterated correction ended at a median {med} m")
-    return dict(k3=r3, k4=r4, ms=ms, rays_per_s=rays_per_s, hit_frac=hit_frac, iter_err=med,
+    return dict(k3=r3, k4=r4, ep=r_ep, ms=ms, rays_per_s=rays_per_s, hit_frac=hit_frac,
+                iter_err=med,
                 counts=counts, bench=bench, data=(data_points, data_mask), est0=est0,
                 jitters=jit_sets)
 
@@ -4889,6 +4997,12 @@ def main():
                  "(:349-548)", r16),
              **{k: r16[k] for k in ("timed_by", "call_ms", "host_us", "registers", "chunk",
                                     "static_shared_bytes", "gaps", "phase16_3x")}),
+        dict(row("batch_epilogue", "rmcl_tpu_torch/csrc/batch_epilogue.cu",
+                 "none: the XLA ops of the JAX bench's batch correction", sweep_r["ep"]),
+             **{k: sweep_r["ep"][k] for k in ("timed_by", "call_ms", "torch_path_ms",
+                                              "winner_cast_ms", "fused_correction_ms", "bytes",
+                                              "rows", "registers", "static_shared_bytes", "gaps",
+                                              "pairs")}),
     ]}))
     log("phase 13 dense and fused sweeps: " + json.dumps(
         {k: r13[k] for k in ("ms", "rays_per_s", "hit_frac", "sat_share", "iter_err", "steps",

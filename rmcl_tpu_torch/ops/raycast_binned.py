@@ -33,6 +33,7 @@ and :func:`block_cull_stats` hand them out).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -381,6 +382,25 @@ def factored_candidates(
     return out if with_sat else out[:3]
 
 
+@dataclasses.dataclass(frozen=True)
+class FactoredWinners:
+    """K4's raw closest hits, one per ray of the real blocks (the payload
+    "winner" of :func:`cast_rays_binned_factored`): the packed, rounded-up
+    ``t`` (n_blk, Rb) float32 and the winner's triangle row ``ref`` (n_blk,
+    Rb) int32 = bin * B + lane, and each block's alive-gated ``t_max``
+    (n_blk,). Neither the plane nor the rays are derived."""
+
+    t: Tensor
+    ref: Tensor
+    t_max: Tensor
+
+    @property
+    def hit(self) -> Tensor:
+        """(n_blk, Rb) bool: the ray hit (its packed t lies below its block's
+        t_max), as every other payload's ``hit``."""
+        return (self.t < self.t_max[:, None]) & (self.t < _BIG)
+
+
 def cast_rays_binned_factored(
     bins: TriangleBins,
     o_blk: Tensor,  # (n_blk, P, 3) per-block pose origins
@@ -401,7 +421,7 @@ def cast_rays_binned_factored(
     dir_margin: float = 0.0,
     candidates: "Tuple[Tensor, Tensor, Tensor] | None" = None,
     paired: bool = False,
-) -> RayHits:
+) -> "RayHits | FactoredWinners":
     """Closest hit for *factored* ray blocks: each block is the cross
     product of P pose origins x G shared directions (ray = g*P + p within
     the block), the pose-sweep structure. Rays are never materialized for
@@ -412,7 +432,9 @@ def cast_rays_binned_factored(
     ``payload`` (resolved after the kernel from the winner's triangle row):
     "plane" gives t, point and normal re-derived from the winner's plane
     (prim_id/inst_id are -1); "full" and "index" add the ids; "none" is
-    the occlusion query (t only, the packed-key t).
+    the occlusion query (t only, the packed-key t); "winner" returns K4's
+    raw winners as :class:`FactoredWinners`, for a caller that resolves
+    them itself (the batch corrector's epilogue kernel).
 
     ``candidates``: a (cand, count, tnear) triple from
     :func:`factored_candidates` skips the cull (candidate reuse);
@@ -425,7 +447,7 @@ def cast_rays_binned_factored(
     Constraints: ``t_min >= 0`` (degenerate and padding triangles rely on
     t = 0 failing the gate); scalar t_min/t_max. Outputs have shape (n_blk,
     Rb) (and (n_blk, Rb, 3))."""
-    if payload not in ("index", "plane", "full", "none"):
+    if payload not in ("index", "plane", "full", "none", "winner"):
         raise ValueError(f"unknown payload mode {payload!r}")
     n_blk, P, _ = o_blk.shape
     G = d_blk.shape[1]
@@ -468,7 +490,10 @@ def cast_rays_binned_factored(
         ref = ref.reshape(n_blk_p, Rb)[:n_blk]
         # dead blocks start at t_best = 0 and must not read as hits: compare
         # against their own (alive-gated) t_max
-        hit = (t_best < (alive_f[:n_blk] * t_max_s)[:, None]) & (t_best < _BIG)
+        winners = FactoredWinners(t_best, ref, alive_f[:n_blk] * t_max_s)
+        if payload == "winner":
+            return winners
+        hit = winners.hit
         if payload == "none":
             neg1 = torch.full((n_blk, Rb), -1, dtype=torch.int32, device=o_p.device)
             zero3 = o_p.new_zeros((n_blk, Rb, 3))

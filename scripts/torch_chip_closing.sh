@@ -7,7 +7,8 @@
 # 2. chip_smoke.py: once, or with PARENT_DIR (an older checkout unpacked
 #    inside this one, e.g. `git archive HEAD~1 | tar -x -C build/parent`)
 #    the parent's and this tree's in turns: parent, change, change, parent;
-# 3. the card tests, tests/test_torch_cuda.py and tests/test_torch_p2l_gn.py
+# 3. the card tests, tests/test_torch_cuda.py, tests/test_torch_p2l_gn.py and
+#    tests/test_torch_epilogue.py
 #    (marker cuda);
 # 4. python -m rmcl_tpu_torch.bench with the factored engine, the dense
 #    engine (BENCH_ENGINE=dense) and the fused reduction (BENCH_FUSED=1);
@@ -45,7 +46,8 @@ if [ -n "$parent" ]; then
 else
   step smoke . python3 chip_smoke.py
 fi
-step cardtests . python3 -m pytest tests/test_torch_cuda.py tests/test_torch_p2l_gn.py --noconftest \
+step cardtests . python3 -m pytest tests/test_torch_cuda.py tests/test_torch_p2l_gn.py \
+  tests/test_torch_epilogue.py --noconftest \
   -o addopts= -m cuda -q \
   -p no:cacheprovider
 tail -n 3 "$out/closing_cardtests.log"
