@@ -41,8 +41,8 @@ Phases (any failure ends the run with a nonzero exit code):
    dataset's hits, ms per correction over three chains, ten iterated
    corrections from +0.2 m z, and K3/K4 against their plain versions with
    timings and bounds; the batch corrector's epilogue kernel (one launch a
-   correction) against the torch path on one correction's winners, timed
-   by the trace beside its bound and the torch path's epilogue;
+   correction) against its plain version on one correction's winners, timed
+   by the trace beside its bound and the plain version;
 8. MICP-L on the exact engine and with closest-point correspondences:
    phase 4's map (now with its BVH) and start pose, the exact engine's scan
    at the true pose, ten
@@ -98,22 +98,18 @@ Phases (any failure ends the run with a nonzero exit code):
    its ms per correction; K7 against its plain version on the CP run's
    last query blocks; then ``map_segmentation`` and ``rmcl_localization``
    on the log's first scans at a small size;
-13. the bench's dense engine and fused reduction at full width: (a)
-   ``SweepBench(engine="dense")`` (the JAX bench's ``BENCH_ENGINE=dense``:
-   ``cast_rays_binned`` with ``dir_groups=8`` on 113,904 blocks of 8
-   directions x 16 poses, K3 + K2g) at 1000 poses x VLP-16 on the ~1M-face
-   sphere, not cut: the dataset's hits and saturated blocks, ms per
-   correction over three 16-step chains, one correction split by events
-   (rays, cull, K2g, payload and unpermute, reduction and solves), K2g and
-   K1 on the same inputs by the device trace, ten iterated corrections held
-   to the JAX package's figure; (b) K2g bitwise its plain version on the
-   first 512 blocks in launch order and at G = 1 and G = 4, and against K1
-   (hits equal, t within 1e-4, other winners only at near-ties); (c) the
-   fused factored correction (``BENCH_FUSED=1``) timed beside phase 7's
-   unfused one in the same chains, its increments against the unfused; (d)
-   ``build_bvh_sah`` on phase 4's building: build time, slots, K5's visits
-   against the LBVH's, K5 bitwise its plain version, hits against the
-   LBVH's;
+13. K2g and the SAH BVH: (a) the library's dense cast
+   (``cast_rays_binned(dir_groups=8, sort_blocks=True)``, the JAX bench's
+   c_bin) at full width, on phase 7's sweep rays materialised at its base
+   estimate (``TiledSweep.rays``: 113,904 blocks of 8 directions x 16
+   poses, 1000 poses x VLP-16 on the ~1M-face sphere): one K3r and one K2g
+   launch, its hits against the same cast through K1; on the inputs and
+   launch order that cast's cull handed K2g: K2g and K1 by the device
+   trace, K2g bitwise its plain version on the first 512 blocks in launch
+   order (and through casts at G = 1 and G = 4), and against K1 (hits
+   equal, t within 1e-4, other winners only at near-ties); (b) ``build_bvh_sah`` on phase 4's building: build time,
+   slots, K5's visits against the LBVH's, K5 bitwise its plain version,
+   hits against the LBVH's;
 14. the differentiable cast, scene graphs and the map formats: (a) the JAX
    backward benchmark's workload (scripts/bench_backward.py, not cut:
    100 poses x VLP-16 of 900 columns, 1,440,000 rays, on the ~1M-face
@@ -181,6 +177,7 @@ kernel's roofline share, bound_ms / ms) and, last,
 printing any result.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -298,9 +295,11 @@ GN_STACK_BYTES = 32
 # rows' planes (16 B) once, the positions and directions, the output
 OPS_PER_EPI_PAIR = 130
 EPI_BYTES_PER_PAIR = 25
-# kernel vs the torch path: float64 sums against float32 ones, and torch's
-# approximate rsqrt on the card, which can flip a pair at its gate
-EPI_POSE_TOL_M, EPI_POSE_TOL_RAD = 2e-5, 1e-6
+# kernel vs its plain version: the same float32 terms (the kernel is built
+# with --fmad=false) and float64 sums in other orders, rounded to float32
+# increments: sound runs read 0 m and 8.9e-16 rad with equal pairs; float32
+# sums would read ~5e-6 m and ~1e-7 rad
+EPI_POSE_TOL_M, EPI_POSE_TOL_RAD = 1e-9, 1e-9
 
 # tolerances kernel vs plain version: built with --fmad=false the two round
 # alike and agree bitwise; 1e-5 relative leaves room for the rounding of a
@@ -462,23 +461,15 @@ NODE_ERR_MAX = 0.02
 SMALL_SCANS = 4
 SMALL_PARTICLES = 4096
 SMALL_ERR_MAX = 0.5
-# phase 13: the bench's dense engine (K3 + K2g) and fused reduction at full
-# width, K2g against its plain version on the first blocks in launch order,
-# and the SAH BVH. The JAX package's own figures come from
-# scripts/torch_dense_sweep_probe.py on the CPU at the same settings but 32
-# of the 1000 poses (JAX's engines take minutes a full-width cast there):
-# its dense engine's median error after ten corrections from +0.2 m z, and
-# the largest per-pose gap between its fused and unfused increments. The
-# dense figure is held with phase 7's room for the full pose sample
-# (0.155 against 0.1499 m there); the fused gap is (I - R) t_est, which
-# grows with the poses' spread, so it is held at twice JAX's, and after the
-# frame term to the rounding of the fused reduction's raw moments
+# phase 13: the library's dense cast (cast_rays_binned with dir_groups) at
+# full width with the JAX bench's c_bin, against the same cast through K1:
+# a ray through a shared edge may slip past one kernel's test (the sweep
+# cell's dataset check sees 0-3 in 345,600; here 108 of 14,579,712 on an
+# H100), so a share of hits may differ;
+# K2g against its plain version on the first blocks in launch order
 DENSE_CHECK_BLOCKS = 512
-DENSE_ITER_ERR_JAX = 0.150002121925354  # the port there: 0.150006 m
-DENSE_ITER_ROOM = 0.005
-FUSED_GAP_JAX = 7.821619510650635e-05  # after the frame term 4.2e-5 m (the port's 4.0e-6)
-FUSED_GAP_MAX = 2 * FUSED_GAP_JAX
-FUSED_FRAME_TOL = 1e-4
+DENSE_C_BIN = 64
+DENSE_HIT_DIFF = 1e-5
 # the SAH BVH's hits against the LBVH's: rays that graze an edge may be
 # decided apart, as phase 8 allows between the exact and dense engines
 SAH_HIT_DIFF = 0.001
@@ -1362,9 +1353,9 @@ def epilogue_bound(won, slots):
 def check_epilogue(name, bc, data_points, data_mask, trans, lists):
     """The batch corrector's epilogue kernel on one correction's winners
     (the cast through ``lists`` at ``trans``): two launches bitwise, against
-    the torch path (``BatchCorrector._correct_torch``) on the same CUDA
-    tensors, timed by the trace beside its bound, the torch path's epilogue
-    (the torch path less the winner cast) and the whole fused correction."""
+    its plain version (``batch_epilogue_reference``) on the same CUDA
+    tensors, timed by the trace beside its bound, the plain version and the
+    corrector's whole correction."""
     from rmcl_tpu_torch.ops import epilogue_cuda as ec
     from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned_factored
 
@@ -1383,7 +1374,7 @@ def check_epilogue(name, bc, data_points, data_mask, trans, lists):
             bc.cull_kw["t_max"])
     launches = ec.batch_epilogue.launches
     (got, n_got), (again, n_again) = ec.batch_epilogue(*args), ec.batch_epilogue(*args)
-    want, n_want = bc._correct_torch(data_points, data_mask, trans, lists)
+    want, n_want = ec.batch_epilogue_reference(*args)
     torch.cuda.synchronize()
     if ec.batch_epilogue.launches - launches != 2:
         fail(f"{name}: two calls launched the kernel {ec.batch_epilogue.launches - launches} times")
@@ -1393,29 +1384,28 @@ def check_epilogue(name, bc, data_points, data_mask, trans, lists):
     gap_m = float(torch.linalg.vector_norm(got.apply(trans) - want.apply(trans), dim=-1).max())
     gap_rad = float(quat_gaps(got.rot, want.rot).max())
     gap_match = float((n_got - n_want).abs().max())
-    if not (gap_m <= EPI_POSE_TOL_M and gap_rad <= EPI_POSE_TOL_RAD and gap_match <= 1):
-        fail(f"{name}: kernel against the torch path: {gap_m:.3g} m, {gap_rad:.3g} rad, "
+    if not (gap_m <= EPI_POSE_TOL_M and gap_rad <= EPI_POSE_TOL_RAD and gap_match == 0):
+        fail(f"{name}: kernel against its plain version: {gap_m:.3g} m, {gap_rad:.3g} rad, "
              f"{gap_match} matches")
     ms = device_ms(lambda: ec.batch_epilogue(*args), "batch_epilogue_kernel")
     if ms is None:
         fail(f"{name}: the trace holds no epilogue launch")
-    cast_ms = cuda_ms(winner_cast, reps=5)
-    torch_ms = cuda_ms(lambda: bc._correct_torch(data_points, data_mask, trans, lists), reps=5)
     bound_ms, bound_by, bytes_moved, rows = epilogue_bound(won, slots)
     r = dict(ms=ms, timed_by="device trace", call_ms=cuda_ms(lambda: ec.batch_epilogue(*args)),
-             plain_ms=torch_ms - cast_ms, torch_path_ms=torch_ms, winner_cast_ms=cast_ms,
-             fused_correction_ms=cuda_ms(lambda: bc.correct(data_points, data_mask, trans, lists),
-                                         reps=5),
+             plain_ms=cuda_ms(lambda: ec.batch_epilogue_reference(*args), reps=5),
+             winner_cast_ms=cuda_ms(winner_cast, reps=5),
+             correction_ms=cuda_ms(lambda: bc.correct(data_points, data_mask, trans, lists),
+                                   reps=5),
              bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, rows=rows,
              max_abs_err=gap_m, gaps=dict(m=gap_m, rad=gap_rad, matches=gap_match),
              registers=regs, static_shared_bytes=smem, pairs=int(n_got.sum()))
     log(f"{name} ({trans.shape[0]} poses x {data_points.shape[1]} rays, {r['pairs']} pairs, "
         f"{rows} winner rows, {regs} registers, {smem} B shared): kernel {ms:.4f} ms by the "
         f"trace, call {r['call_ms']:.4f} ms by events; bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{bytes_moved / 1e9:.3f} GB), share {bound_ms / ms:.2%}; the torch path's epilogue "
-        f"{r['plain_ms']:.3f} ms (torch path {torch_ms:.3f} less the winner cast "
-        f"{cast_ms:.3f}); fused correction {r['fused_correction_ms']:.3f} ms; gaps {gap_m:.3g} "
-        f"m, {gap_rad:.3g} rad, {gap_match:.0f} matches; two launches bitwise")
+        f"{bytes_moved / 1e9:.3f} GB), share {bound_ms / ms:.2%}; the plain version "
+        f"{r['plain_ms']:.3f} ms; the winner cast {r['winner_cast_ms']:.3f} ms; the corrector's "
+        f"correction {r['correction_ms']:.3f} ms; gaps {gap_m:.3g} m, {gap_rad:.3g} rad, "
+        f"{gap_match:.0f} matches; two launches bitwise")
     return r
 
 
@@ -1523,7 +1513,7 @@ def phase_sweep():
 
     # where one correction's time goes (CUDA events, reused lists)
     cands = bench.candidates(est0)
-    cast_ms = cuda_ms(lambda: bench.cast_sweep(est0, cands), reps=3)
+    cast_ms = cuda_ms(lambda: bench.corrector.cast(est0, cands), reps=3)
     corr_ms = cuda_ms(lambda: bench.correction(data_points, data_mask, est0, cands), reps=3)
     log(f"phase 7 one correction (reused lists): {corr_ms:.3f} ms, the epilogue kernel's; "
         f"the plane cast {cast_ms:.3f} ms (K4 {r4['ms']:.3f} ms + payload, unpermute "
@@ -1542,9 +1532,7 @@ def phase_sweep():
     if not (med < SWEEP_ITER_ERR_MAX and bool(torch.isfinite(est).all())):
         fail(f"phase 7: the iterated correction ended at a median {med} m")
     return dict(k3=r3, k4=r4, ep=r_ep, ms=ms, rays_per_s=rays_per_s, hit_frac=hit_frac,
-                iter_err=med,
-                counts=counts, bench=bench, data=(data_points, data_mask), est0=est0,
-                jitters=jit_sets)
+                iter_err=med, counts=counts, bench=bench, est0=est0)
 
 
 def traverse_bound(visits, n_rays, slots_read):
@@ -3228,47 +3216,35 @@ def groups_bound(inputs, t_best, B, G):
     return bound_of(bytes_moved, ops) + (float(visits.sum()),)
 
 
-def dense_steps(bench, data_points, data_mask, est):
-    """One correction of the dense bench composed step by step, with CUDA
-    events between the steps: the sweep's rays, the cull (K3, and the
-    launch order), K2g, the payload (winner rows, plane re-derivation, the
-    7-channel packing and un-permute), the reduction and the solves.
-    Returns (increment, n_meas, {step: ms}, the kernel's inputs, order)."""
-    from rmcl_tpu_torch.bench import MAX_DIST
-    from rmcl_tpu_torch.math.gaussian import CrossStatistics
-    from rmcl_tpu_torch.math.stats import umeyama_transform
-    from rmcl_tpu_torch.ops.raycast import NO_HIT_T
-    from rmcl_tpu_torch.ops.raycast_binned import _flat_rays, _hits_from_winners, _kernel_inputs
-    from rmcl_tpu_torch.ops.raycast_cuda import intersect_groups
+@contextlib.contextmanager
+def recorded(module, name):
+    """Within the block, every call of ``module.name`` passes through and is
+    recorded: yields the list of (args, kwargs)."""
+    fn, calls = getattr(module, name), []
 
-    kw = bench.cast_kw
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    o, d = bench.sweep.rays(est, bench.dirs)
-    o, d, t_min, t_max, _ = _flat_rays(o, d, 0.0, NO_HIT_T)
-    ev[1].record()
-    # cast_rays_binned's own defaults: c_super 24, sub_blocks 4, no hyper level
-    inputs, _ = _kernel_inputs(bench.bins, o, d, t_min, t_max, kw["block_size"], 24, kw["c_bin"],
-                               4, 0, kw["c_mid"])
-    order = torch.argsort(inputs[5], stable=True).to(torch.int32)
-    ev[2].record()
-    t_best, ref = intersect_groups(bench.bins.tri, *inputs, kw["dir_groups"], order=order)
-    ev[3].record()
-    hits = _hits_from_winners(bench.bins, o, d, t_max, t_best, ref, "select")
-    up = bench.sweep.unpermute(torch.cat([hits.point, hits.normal,
-                                          hits.hit[:, None].to(torch.float32)], dim=1))
-    sim_p, sim_n, sim_hit = up[..., 0:3], up[..., 3:6], up[..., 6] > 0.5
-    ev[4].record()
-    d_map = data_points + est[:, None, :]
-    signed = torch.sum(sim_n * (d_map - sim_p), dim=-1)
-    ok = data_mask & sim_hit & (torch.abs(signed) <= MAX_DIST)
-    stats = CrossStatistics.from_masked_points(d_map, d_map - signed[..., None] * sim_n, ok)
-    delta = umeyama_transform(stats)
-    ev[5].record()
-    ev[5].synchronize()
-    names = ("rays", "K3 cull and order", "K2g", "payload and unpermute", "reduction and solves")
-    steps = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
-    return delta, stats.n_meas, steps, inputs, order
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def dense_cast(bins, sweep, rays, **kw):
+    """The library's dense cast of a sweep's rays through K2g
+    (``cast_rays_binned`` with the sweep's ``dir_groups``, launch order
+    sorted, ``DENSE_C_BIN``; ``kw`` for the rest). Returns (its hits, the
+    calls of K2g's wrapper it made as (args, kwargs))."""
+    from rmcl_tpu_torch.ops import raycast_binned
+
+    with recorded(raycast_binned, "intersect_groups") as calls:
+        hits = raycast_binned.cast_rays_binned(
+            bins, *rays, block_size=sweep.block_size, dir_groups=sweep.dir_groups,
+            c_bin=DENSE_C_BIN, sort_blocks=True, **kw)
+    return hits, calls
 
 
 def slice_blocks(inputs, blocks):
@@ -3294,15 +3270,13 @@ def check_groups(name, tri, inputs, G):
     return kt, kref
 
 
-def phase_dense_sweep(sweep_r, main_r):
-    """Phase 13: the bench's dense engine (K3 + K2g) and fused reduction at
-    full width, K2g against its plain version and against K1, and the SAH
-    BVH on phase 4's building."""
-    from rmcl_tpu_torch.bench import SweepBench, settings_from_env
+def phase_groups_and_sah(sweep_r, main_r):
+    """Phase 13: K2g at full width against its plain version and against K1,
+    and the SAH BVH on phase 4's building."""
     from rmcl_tpu_torch.bvh.builder import build_bvh, build_bvh_sah
     from rmcl_tpu_torch.geom.mesh import make_building_scene
     from rmcl_tpu_torch.ops.raycast import cast_rays
-    from rmcl_tpu_torch.ops.raycast_binned import TiledSweep, _flat_rays, _kernel_inputs
+    from rmcl_tpu_torch.ops.raycast_binned import TiledSweep, cast_rays_binned
     from rmcl_tpu_torch.ops.raycast_cuda import (intersect_bins, intersect_groups,
                                                  intersect_groups_reference, kernel_registers,
                                                  winner_t)
@@ -3313,72 +3287,39 @@ def phase_dense_sweep(sweep_r, main_r):
     if any(b for _, b in regs.values()):
         fail("phase 13: K1 or K2g spills to local memory")
 
-    # (a) the dense bench at full width: the JAX bench's defaults with BENCH_ENGINE=dense
-    cfg, run = settings_from_env({"BENCH_ENGINE": "dense"})
-    t0 = time.perf_counter()
-    bench = SweepBench(**cfg, device="cuda")
-    torch.cuda.synchronize()
-    bins, sweep, k = bench.bins, bench.sweep, run["steps"]
-    log(f"phase 13 map: sphere {bins.n_bins * bins.bin_size} tris in {bins.n_bins} bins of "
-        f"{bins.bin_size} ({bin_order_note()}), {bins.n_super} supers, built in "
-        f"{time.perf_counter() - t0:.2f} s; dense engine {json.dumps(bench.cast_kw)}, "
-        f"{sweep.n_rays} sweep rays in {sweep.n_rays // sweep.block_size} blocks of "
-        f"{sweep.dir_groups} groups x {sweep.pt} poses")
-    trans, est0, jit_sets = bench.trans_true, sweep_r["est0"], sweep_r["jitters"]
-    data_points, data_mask = bench.make_dataset(trans)  # warm-up: first-call allocations
-    bench.chain(data_points, data_mask, est0, jit_sets[0][:2])
-    torch.cuda.synchronize()
-
+    # (a) the library's dense cast with dir_groups (K3r + K2g) at full width on
+    # phase 7's sweep rays at its base estimate, against the same cast through
+    # K1; K2g's inputs and launch order are the ones that cast's cull made
+    bench = sweep_r["bench"]
+    bins, sweep, trans, dirs = bench.bins, bench.sweep, bench.trans_true, bench.dirs
+    G, B = sweep.dir_groups, bins.bin_size
+    rays = sweep.rays(sweep_r["est0"], dirs)
     reset_counts()
-    t = time.perf_counter()
-    data_points, data_mask = bench.make_dataset(trans)
+    (hits, lossless), calls = dense_cast(bins, sweep, rays, with_lossless=True)
     torch.cuda.synchronize()
-    dataset_ms = (time.perf_counter() - t) * 1e3
-    chain_ms = []
-    for js in jit_sets[1:]:
-        t = time.perf_counter()
-        bench.chain(data_points, data_mask, est0, js)
-        torch.cuda.synchronize()
-        chain_ms.append((time.perf_counter() - t) * 1e3 / k)
     counts = read_counts()
-    casts = 1 + SWEEP_CHAINS * k
-    require_launches("phase 13 dense sweep", counts, ("K3r", "K2g"), culls=casts)
-    if counts["K2g"] != casts or counts["K1"] or counts["K4"]:
-        fail(f"phase 13: {casts} dense casts launched K2g {counts['K2g']}, K1 {counts['K1']}, "
+    require_launches("phase 13 dense cast", counts, ("K3r", "K2g"), culls=1)
+    if counts["K2g"] != 1 or counts["K1"] or counts["K4"] or len(calls) != 1:
+        fail(f"phase 13: the dense cast launched K2g {counts['K2g']}, K1 {counts['K1']}, "
              f"K4 {counts['K4']} times")
-    hit_frac = float(data_mask.float().mean())
-    ms = statistics.median(chain_ms)
-    rays_per_s = bench.n_rays / (ms * 1e-3)
-
-    # the dataset cast's candidate lists: how many blocks a budget truncated
-    kw = bench.cast_kw
-    fo, fd, fmin, fmax, _ = _flat_rays(*sweep.rays(trans, bench.dirs), 0.0, 3.0e38)
-    fresh, sat = _kernel_inputs(bins, fo, fd, fmin, fmax, kw["block_size"], 24, kw["c_bin"], 4)
-    sat_share = float(sat.float().mean())
-    log(f"phase 13 dense sweep: dataset cast {dataset_ms:.2f} ms, hits {hit_frac:.6f}, blocks "
-        f"saturated {int(sat.sum())} of {sat.shape[0]} ({sat_share:.4%}; candidates mean "
-        f"{float(fresh[5].float().mean()):.2f}, max {int(fresh[5].max())} of c_bin "
-        f"{kw['c_bin']}); {SWEEP_CHAINS} chains of {k} corrections (no reuse): median "
-        f"{ms:.3f} ms/correction ({', '.join(f'{x:.3f}' for x in chain_ms)}), "
-        f"{rays_per_s:.4g} corr-rays/s; launches K3 {counts['K3r']}, K2g {counts['K2g']}")
-    del fresh, fo, fd, fmin, fmax
-    if not hit_frac >= 0.999:
-        fail(f"phase 13: only {hit_frac:.6f} of the dense dataset's rays hit the sphere")
-
-    # where one correction's time goes (events between the steps), and the
-    # stepped correction is the bench's
-    reset_counts()
-    delta_b, _ = bench.correction(data_points, data_mask, est0)
-    delta_s, _, steps, inputs, order = dense_steps(bench, data_points, data_mask, est0)
-    if not torch.equal(delta_b.trans, delta_s.trans):
-        fail("phase 13: the stepped dense correction differs from the bench's")
-    runs = [dense_steps(bench, data_points, data_mask, est0)[2] for _ in range(3)]
-    steps = {name: statistics.median(r[name] for r in runs) for name in steps}
-    log(f"phase 13 one dense correction by events ({sum(steps.values()):.3f} ms): "
-        + ", ".join(f"{name} {v:.3f}" for name, v in steps.items()))
-
-    # K2g and K1 on the full correction's inputs, by the device trace
-    G, B = kw["dir_groups"], bins.bin_size
+    k2g = dict(launches=counts["K2g"])
+    (_, *inputs, _), order = calls[0][0], calls[0][1]["order"]
+    hits_1 = cast_rays_binned(bins, *rays, block_size=sweep.block_size, c_bin=DENSE_C_BIN,
+                              sort_blocks=True)
+    hit_diff, both = int((hits.hit != hits_1.hit).sum()), hits.hit & hits_1.hit
+    cast_rel = float(((hits.t - hits_1.t).abs() / hits_1.t.abs())[both].max())
+    if not (hit_diff <= DENSE_HIT_DIFF * sweep.n_rays and cast_rel <= 1e-4):
+        fail(f"phase 13: the dense cast through K2g and through K1 differ ({hit_diff} hits, "
+             f"t {cast_rel:.3g} relative)")
+    log(f"phase 13 dense cast (cast_rays_binned, dir_groups={G}, c_bin {DENSE_C_BIN}): "
+        f"{sweep.n_rays} sweep rays at phase 7's base estimate in {inputs[0].shape[0]} blocks of "
+        f"{G} groups x {sweep.pt} poses, launches K3r {counts['K3r']}, K2g {counts['K2g']}; "
+        f"candidates mean {float(inputs[5].float().mean()):.2f}, max {int(inputs[5].max())}; "
+        f"{float((~lossless).float().mean()):.4%} of the rays in truncated blocks; hits "
+        f"{float(hits.hit.float().mean()):.6f}; against the cast through K1: {hit_diff} hits "
+        f"differ, t within "
+        f"{cast_rel:.3g} relative, {int((hits.prim_id != hits_1.prim_id).sum())} other winners")
+    del hits, hits_1, lossless, rays
     launch_g = lambda: intersect_groups(bins.tri, *inputs, G, order=order)
     launch_1 = lambda: intersect_bins(bins.tri, *inputs, order=order)
     kt, kref = launch_g()
@@ -3390,7 +3331,7 @@ def phase_dense_sweep(sweep_r, main_r):
         trace = device_ms(launch, kernel)
         return (trace, "device trace") if trace else (cuda_ms(launch), "events")
 
-    k2g = dict(call_ms=cuda_ms(launch_g))
+    k2g["call_ms"] = cuda_ms(launch_g)
     k2g["ms"], k2g["timed_by"] = timed(launch_g, "intersect_groups")
     k2g["k1_ms"], k1_by = timed(launch_1, "intersect_bins")
     k2g["bound_ms"], k2g["bound_by"], k2g["visits"] = groups_bound(inputs, kt, B, G)
@@ -3401,8 +3342,8 @@ def phase_dense_sweep(sweep_r, main_r):
         f"{k2g['bound_ms'] / k2g['ms']:.2%}; K1 on the same rays and candidates "
         f"{k2g['k1_ms']:.3f} ms by the {k1_by} ({k2g['k1_ms'] / k2g['ms']:.2f}x)")
 
-    # (b) K2g bitwise its plain version on the first blocks in launch order,
-    # and against K1 on them
+    # K2g bitwise its plain version on the first blocks in launch order, and
+    # against K1 on them
     blocks = order[:DENSE_CHECK_BLOCKS].long()
     part = slice_blocks(inputs, blocks)
     gt, gref = check_groups("phase 13 K2g", bins.tri, part, G)
@@ -3411,8 +3352,7 @@ def phase_dense_sweep(sweep_r, main_r):
     intersect_groups_reference(bins.tri, *part, G)
     torch.cuda.synchronize()
     k2g.update(plain_ms=(time.perf_counter() - t) * 1e3, plain_blocks=len(blocks),
-               max_abs_err=0.0, launches=counts["K2g"], dataset_hit_frac=hit_frac,
-               sat_share=sat_share, registers=regs["K2g"][0])
+               max_abs_err=0.0, registers=regs["K2g"][0])
     if not torch.equal(kt[blocks], gt) or not torch.equal(kref[blocks], gref):
         fail("phase 13: K2g on a slice differs from K2g on every block")
     t1, ref1 = intersect_bins(bins.tri, *part)
@@ -3432,67 +3372,15 @@ def phase_dense_sweep(sweep_r, main_r):
         f"(plain {k2g['plain_ms']:.1f} ms, one run); against K1 on them: hits equal, t within "
         f"{k2g['k1_t_rel']:.3g} relative, {k2g['k1_other_winners']} other winners, all near-ties")
     small = []
-    for G_s, tiles in ((1, (32, 1, 1)), (4, (16, 2, 2))):
+    for tiles in ((32, 1, 1), (16, 2, 2)):
         sw = TiledSweep(bench.trans_true_np[:64], bench.model.width, bench.model.height, *tiles)
-        so, sd, smin, smax, _ = _flat_rays(*sw.rays(trans[:64], bench.dirs), 0.0, 3.0e38)
-        s_in, _ = _kernel_inputs(bins, so, sd, smin, smax, sw.block_size, 24, kw["c_bin"], 4)
-        check_groups(f"phase 13 K2g G={G_s}", bins.tri, s_in, G_s)
-        small.append(f"G={G_s} ({s_in[0].shape[0]} blocks of {sw.block_size})")
+        s_in = dense_cast(bins, sw, sw.rays(trans[:64], dirs))[1][0][0][1:-1]
+        check_groups(f"phase 13 K2g G={sw.dir_groups}", bins.tri, s_in, sw.dir_groups)
+        small.append(f"G={sw.dir_groups} ({s_in[0].shape[0]} blocks of {sw.block_size})")
     log(f"phase 13 K2g = plain version bitwise also at {' and '.join(small)}")
+    del inputs, order, part, kt, kref
 
-    # the iterated dense correction from the reference's +0.2 m z offset
-    t = time.perf_counter()
-    est = bench.iterate(data_points, data_mask, est0, SWEEP_ITERS)
-    torch.cuda.synchronize()
-    iter_s = time.perf_counter() - t
-    err = torch.linalg.vector_norm(est - trans, dim=1)
-    med = float(err.median())
-    log(f"phase 13 iterated dense correction: median |dt| {med:.6f} m after {SWEEP_ITERS} (JAX's "
-        f"dense engine on the CPU: {DENSE_ITER_ERR_JAX:.6f} m at 32 poses), {iter_s:.2f} s")
-    if not (med < DENSE_ITER_ERR_JAX + DENSE_ITER_ROOM and bool(torch.isfinite(est).all())):
-        fail(f"phase 13: the iterated dense correction ended at a median {med} m")
-    del bench, inputs, part, kt, kref
-
-    # (c) the fused factored correction at phase 7's settings, beside the unfused one
-    unfused = sweep_r["bench"]
-    cfg7, _ = settings_from_env({"BENCH_FUSED": "1"})
-    fused = SweepBench(**cfg7, device="cuda")
-    data7, mask7 = sweep_r["data"]
-    data_sw, mask_sw = fused.correction_layout(data7, mask7)
-    fused.chain(data_sw, mask_sw, est0, jit_sets[0][:2])  # warm-up
-    times = {"fused": [], "unfused": []}
-    reset_counts()
-    for js in jit_sets[1:]:
-        for name, b, args in (("fused", fused, (data_sw, mask_sw)),
-                              ("unfused", unfused, (data7, mask7))):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            b.chain(*args, est0, js)
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t) * 1e3 / k)
-    counts = read_counts()
-    want = SWEEP_CHAINS * (k + 1)  # fused: a cull a correction; unfused: one a chain
-    if counts["K3f"] != want or counts["K4"] != 2 * SWEEP_CHAINS * k:
-        fail(f"phase 13: the chains launched K3 {counts['K3f']} ({want} expected), K4 "
-             f"{counts['K4']}")
-    f_ms, u_ms = (statistics.median(times[n]) for n in ("fused", "unfused"))
-    df, _ = fused.correction(data_sw, mask_sw, est0)
-    du, _ = unfused.correction(data7, mask7, est0)
-    gap = float((df.trans - du.trans).abs().max())
-    R = df.to_matrix()[..., :3, :3].double()
-    framed = df.trans.double() + est0.double() - torch.einsum("nij,nj->ni", R, est0.double())
-    residual = float((du.trans.double() - framed).abs().max())
-    log(f"phase 13 fused correction ({cfg7['n_poses']} poses, a fresh cull a correction): median "
-        f"{f_ms:.3f} ms/correction ({', '.join(f'{x:.3f}' for x in times['fused'])}) against "
-        f"the unfused {u_ms:.3f} ms ({', '.join(f'{x:.3f}' for x in times['unfused'])}) in the "
-        f"same chains; per-pose increments differ by at most {gap:.3g} m (JAX's own gap on the "
-        f"CPU: {FUSED_GAP_JAX:.3g} m at 32 poses), {residual:.3g} m after the frame term (I - R) t")
-    if not (gap <= FUSED_GAP_MAX and residual <= FUSED_FRAME_TOL):
-        fail(f"phase 13: the fused correction is off the unfused one ({gap} m, {residual} m after "
-             f"the frame term)")
-    del fused, data_sw, mask_sw
-
-    # (d) the SAH BVH of phase 4's building, against the LBVH on phase 4's scan
+    # (b) the SAH BVH of phase 4's building, against the LBVH on phase 4's scan
     mesh = make_building_scene(subdiv=BUILDING_SUBDIV)
     t = time.perf_counter()
     lbvh = build_bvh(mesh, device="cuda")
@@ -3530,9 +3418,7 @@ def phase_dense_sweep(sweep_r, main_r):
         + f"; hits against the LBVH cast: {diff} rays differ, t within {t_rel:.3g} relative")
     if not (diff <= SAH_HIT_DIFF * n and t_rel <= 1e-4):
         fail(f"phase 13: the SAH BVH's hits are off the LBVH's ({diff} rays, t {t_rel})")
-    return dict(k2g=k2g, ms=ms, rays_per_s=rays_per_s, hit_frac=hit_frac, sat_share=sat_share,
-                iter_err=med, steps=steps, fused_ms=f_ms, unfused_ms=u_ms, fused_gap=gap,
-                fused_residual=residual, sah=sah_r)
+    return dict(k2g=k2g, sah=sah_r)
 
 
 def host_ms(fn, reps=BW_REPS, prepare=None):
@@ -3686,8 +3572,8 @@ def phase_backward(sphere_mesh):
         return dict(ms=ms, hit_frac=hit_frac, t_rel=t_rel, launches=launches, out=out)
 
     # the benchmark's own budgets; they truncate most blocks' lists, so most
-    # rays miss (the JAX package's cast misses the same rays on the CPU:
-    # scripts/torch_backward_budget_probe.py)
+    # rays miss (the JAX package's cast misses the same rays on the CPU, as
+    # CHANGES.md records)
     bench = drive("at the benchmark's budgets", BW_CAST, False)
     del bench["out"]
     # the budgets doubled until no block saturates
@@ -4923,7 +4809,7 @@ def main():
     r11b = phase_mcl_engines(r11)
     r11c = phase_mcl_node(r11)
     r12 = phase_node_and_tools()
-    r13 = phase_dense_sweep(sweep_r, main_r)
+    r13 = phase_groups_and_sah(sweep_r, main_r)
     r14a = phase_backward(sphere_mesh)
     r14b = phase_scene_graph()
     r14c = phase_map_formats()
@@ -4999,14 +4885,11 @@ def main():
                                     "static_shared_bytes", "gaps", "phase16_3x")}),
         dict(row("batch_epilogue", "rmcl_tpu_torch/csrc/batch_epilogue.cu",
                  "none: the XLA ops of the JAX bench's batch correction", sweep_r["ep"]),
-             **{k: sweep_r["ep"][k] for k in ("timed_by", "call_ms", "torch_path_ms",
-                                              "winner_cast_ms", "fused_correction_ms", "bytes",
-                                              "rows", "registers", "static_shared_bytes", "gaps",
-                                              "pairs")}),
+             **{k: sweep_r["ep"][k] for k in ("timed_by", "call_ms", "winner_cast_ms",
+                                              "correction_ms", "bytes", "rows", "registers",
+                                              "static_shared_bytes", "gaps", "pairs")}),
     ]}))
-    log("phase 13 dense and fused sweeps: " + json.dumps(
-        {k: r13[k] for k in ("ms", "rays_per_s", "hit_frac", "sat_share", "iter_err", "steps",
-                             "fused_ms", "unfused_ms", "fused_gap", "fused_residual", "sah")}))
+    log("phase 13 the SAH BVH: " + json.dumps(r13["sah"]))
     log("phase 14 the differentiable cast, the scene graph and the map formats: " + json.dumps(
         {"14a": {k: r14a[k] for k in ("ms", "hit_frac", "t_rel", "budgets", "bvh_agree",
                                       "bvh_t_rel", "bench")},

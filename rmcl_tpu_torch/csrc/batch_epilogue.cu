@@ -4,11 +4,11 @@
 // Replaces no Pallas kernel: the JAX package runs these steps as XLA ops of
 // its batch correction (the JAX bench's `correction`: the factored cast's
 // plane payload, the un-permutation, the point-to-plane pairs, the
-// statistics and one Umeyama solve a pose), and the port ran them as some
-// 200 torch launches and two host syncs (the batched SVD and determinant) a
-// correction: rmcl_tpu_torch/micp/batch.py::BatchCorrector._correct_torch,
-// this kernel's plain version. The function, for pose p (position t_p) and
-// each direction i of the shared scan (dirs, the map's axes):
+// statistics and one Umeyama solve a pose). Its plain version is
+// rmcl_tpu_torch/ops/epilogue_cuda.py::batch_epilogue_reference, the same
+// function in torch ops (some 200 launches and two host syncs, the batched
+// SVD and determinant, on the card). The function, for pose p (position t_p)
+// and each direction i of the shared scan (dirs, the map's axes):
 //
 //   s = slots[p, i], the pair's slot in the sweep's permuted order; the ray
 //   hit where K4's packed t_best[s] < t_max (and < 3e38); its winner row
@@ -86,8 +86,7 @@ struct Params {
 __device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
 
 // One gated pair's terms, added to v; the hit and gate of the plain version
-// (ops/raycast_binned.py's plane payload, BatchCorrector.cast and
-// _correct_torch), in its operation order. Every load is issued whatever
+// (ops/epilogue_cuda.py::batch_epilogue_reference), in its operation order. Every load is issued whatever
 // the pair's fate (a miss reads row 0), so that none waits on a branch: the
 // chain is the slot, then t and the row index, then the plane.
 __device__ __forceinline__ void add_pair(const Params& p, size_t k, int i, float tx, float ty,

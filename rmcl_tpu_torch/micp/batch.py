@@ -12,10 +12,11 @@ then K4's pair loop), pairs each measured point with the hit of its own ray
 (point-to-plane, gated at ``max_dist``), reduces the pairs of each pose into
 :class:`~rmcl_tpu_torch.math.gaussian.CrossStatistics` and solves Umeyama a
 pose. The increment is applied to the position (the JAX bench's
-``iterate``); the orientation stays shared. On CUDA tensors everything after
-K4 is one hand kernel (:func:`~rmcl_tpu_torch.ops.epilogue_cuda.batch_epilogue`,
-from K4's raw winners to the increments, no host sync); on CPU tensors the
-same steps run as torch ops, the kernel's plain version.
+``iterate``); the orientation stays shared. Everything after K4 is
+:func:`~rmcl_tpu_torch.ops.epilogue_cuda.batch_epilogue`, from K4's raw
+winners to the increments: on CUDA tensors one hand kernel (no host sync),
+on CPU tensors its plain version,
+:func:`~rmcl_tpu_torch.ops.epilogue_cuda.batch_epilogue_reference`.
 
 The cull runs with its origin box inflated by ``origin_margin`` and is kept
 until some position has moved by the margin along an axis since it ran
@@ -34,9 +35,7 @@ from typing import Tuple
 import torch
 
 from rmcl_tpu_torch.bvh.bins import TriangleBins
-from rmcl_tpu_torch.math.gaussian import CrossStatistics
 from rmcl_tpu_torch.math.se3 import Transform
-from rmcl_tpu_torch.math.stats import umeyama_transform
 from rmcl_tpu_torch.micp.tracking import needs_recull
 from rmcl_tpu_torch.ops.epilogue_cuda import batch_epilogue, winner_planes
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T
@@ -78,8 +77,8 @@ class BatchCorrector:
     frame and ``data_mask`` (N, D) their validity, D = ``model.n_rays`` in
     the model's ray order. The budgets (``c_super``, ``c_bin``, ``c_hyper``,
     ``c_mid``, ``sub_blocks``) and ``block_chunk`` are the cull's and the
-    cast's; ``payload`` ("plane" or "index") is that of :meth:`cast` and of
-    the torch path's cast (the kernel path reads K4's winners)."""
+    cast's; ``payload`` ("plane" or "index") is that of :meth:`cast`
+    (:meth:`correct` reads K4's winners)."""
 
     def __init__(self, bins: TriangleBins, model: SphericalModel, origins,
                  max_dist: float = 2.0, origin_margin: float = 0.03, poses_per_tile: int = 16,
@@ -99,7 +98,7 @@ class BatchCorrector:
                             block_chunk=block_chunk)
         self._lists = None  # the kept cull's (cand, count, tnear)
         self._ref = None  # the positions it ran at
-        self._epilogue = None  # the epilogue kernel's map and sweep tables, on the card
+        self._epilogue = None  # the epilogue's map and sweep tables
 
     def candidates(self, trans: Tensor) -> Tuple[Tuple[Tensor, Tensor, Tensor], Tensor]:
         """One cull at positions ``trans``, inflated by the margin: the
@@ -128,17 +127,22 @@ class BatchCorrector:
     def correct(self, data_points: Tensor, data_mask: Tensor, trans: Tensor,
                 candidates=None) -> Tuple[Transform, Tensor]:
         """One correction's increments (map frame) and pairs (N,) at
-        positions ``trans``: cast, point-to-plane pairs, statistics and
-        Umeyama a pose. Casts through ``candidates`` where given, else
-        culls afresh without the margin. CUDA tensors take the epilogue
-        kernel after K4 (:meth:`_correct_fused`), any other the torch path
-        (:meth:`_correct_torch`)."""
-        if trans.device.type == "cuda":
-            return self._correct_fused(data_points, data_mask, trans, candidates)
-        return self._correct_torch(data_points, data_mask, trans, candidates)
+        positions ``trans``. Casts through ``candidates`` where given, else
+        culls afresh without the margin; the cast keeps K4's raw winners and
+        :func:`~rmcl_tpu_torch.ops.epilogue_cuda.batch_epilogue` turns them
+        into the increments and pairs (on the card one launch, and nothing
+        between K4 and the increments syncs)."""
+        with timing.span("rmcl.batch.correspond"):
+            o_blk, d_blk = self.sweep.factored_rays(trans, self.dirs)
+            won = cast_rays_binned_factored(self.bins, o_blk, d_blk, candidates=candidates,
+                                            sort_blocks=True, payload="winner", **self.cull_kw)
+        with timing.span("rmcl.batch.epilogue"):
+            planes, slots = self._epilogue_tables()
+            return batch_epilogue(won.t, won.ref, planes, trans, self.dirs, data_points,
+                                  data_mask, slots, self.max_dist, self.cull_kw["t_max"])
 
     def _epilogue_tables(self) -> Tuple[Tensor, Tensor]:
-        """The epilogue kernel's plane table of the map (:func:`winner_planes`)
+        """The epilogue's plane table of the map (:func:`winner_planes`)
         and slot map, int32 (N, D): the sweep-flat slot of each (pose,
         direction), what :meth:`TiledSweep.unpermute` makes of the slot
         numbers. On the map's device; built once a map."""
@@ -147,39 +151,6 @@ class BatchCorrector:
             self._epilogue = (self.bins, winner_planes(self.bins.tri),
                               self.sweep.unpermute(slots)[..., 0].to(torch.int32).contiguous())
         return self._epilogue[1:]
-
-    def _correct_fused(self, data_points: Tensor, data_mask: Tensor, trans: Tensor,
-                       candidates=None) -> Tuple[Transform, Tensor]:
-        """:meth:`correct` on the card: the cast keeps K4's raw winners and
-        one launch of the epilogue kernel turns them into the increments
-        and pairs; nothing between K4 and the increments syncs."""
-        with timing.span("rmcl.batch.correspond"):
-            o_blk, d_blk = self.sweep.factored_rays(trans, self.dirs)
-            won = cast_rays_binned_factored(self.bins, o_blk, d_blk, candidates=candidates,
-                                            sort_blocks=True, payload="winner", **self.cull_kw)
-        with timing.span("rmcl.batch.epilogue"):
-            planes, slots = self._epilogue_tables()
-            out = batch_epilogue(won.t, won.ref, planes, trans, self.dirs, data_points, data_mask,
-                                 slots, self.max_dist, self.cull_kw["t_max"])
-        timing.count("rmcl.batch.epilogue.fused", 1)
-        return out
-
-    def _correct_torch(self, data_points: Tensor, data_mask: Tensor, trans: Tensor,
-                       candidates=None) -> Tuple[Transform, Tensor]:
-        """:meth:`correct` in torch ops on any device: the cast's payload
-        un-permuted, the pairs, the statistics and the batched
-        Umeyama solves. The epilogue kernel's plain version."""
-        with timing.span("rmcl.batch.correspond"):
-            sim_p, sim_n, sim_hit = self.cast(trans, candidates)
-            d_map = data_points + trans[:, None, :]
-            signed = torch.sum(sim_n * (d_map - sim_p), dim=-1)
-            ok = data_mask & sim_hit & (torch.abs(signed) <= self.max_dist)
-            proj = d_map - signed[..., None] * sim_n
-        with timing.span("rmcl.batch.reduce"):
-            stats = CrossStatistics.from_masked_points(d_map, proj, ok)
-        with timing.span("rmcl.batch.solve"):
-            delta = umeyama_transform(stats)
-        return delta, stats.n_meas
 
     def step(self, data_points: Tensor, data_mask: Tensor, trans: Tensor) -> BatchStep:
         """One correction of every pose from positions ``trans``, through

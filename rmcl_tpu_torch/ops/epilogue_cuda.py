@@ -1,16 +1,16 @@
 """The batch corrector's epilogue, from K4's winning hits to each pose's
-Umeyama increment, as one hand-written CUDA kernel.
+Umeyama increment, as one hand-written CUDA kernel and its plain version.
 
 ``batch_epilogue`` is the half of a batch correction after the cast
-(:meth:`rmcl_tpu_torch.micp.batch.BatchCorrector.correct` on CUDA tensors):
-each winner's plane, the hit point and normal, the point-to-plane pair and
-its gate, each pose's cross-statistics and its Umeyama solve. It replaces
-no Pallas kernel: the JAX package runs these steps as XLA ops of its batch
+(:meth:`rmcl_tpu_torch.micp.batch.BatchCorrector.correct`): each winner's
+plane, the hit point and normal, the point-to-plane pair and its gate, each
+pose's cross-statistics and its Umeyama solve. It replaces no Pallas
+kernel: the JAX package runs these steps as XLA ops of its batch
 correction. The kernel source is ``rmcl_tpu_torch/csrc/batch_epilogue.cu``;
 its header says what bounds it on the card and what the design does about
-it. One launch a correction, and no host sync. Its plain version is the
-corrector's torch path, ``BatchCorrector._correct_torch``, which runs every
-CPU correction.
+it. One launch a correction, and no host sync. Its plain version,
+:func:`batch_epilogue_reference`, computes the same function in torch ops
+and runs every CPU correction.
 
 Contract: ``t_best`` (float32) and ``ref`` (int32), K4's packed t and
 winner rows of the sweep's real blocks (:class:`~rmcl_tpu_torch.ops.
@@ -20,7 +20,7 @@ TiledSweep.unpermute` of the slot numbers) index; ``planes`` (n_bins * B, 4) flo
 table (:func:`winner_planes`), which the rows index; the
 positions ``trans`` (N, 3) and the shared directions ``dirs`` (D, 3),
 float32; ``data_points`` (N, D, 3) float32 in each sensor frame and
-``data_mask`` (N, D) bool. Every tensor contiguous and on one card. Returns the increments (a Transform of
+``data_mask`` (N, D) bool. Every tensor contiguous and on one device. Returns the increments (a Transform of
 (N, 4) wxyz rotations and (N, 3) translations) and the pairs (N,) float32,
 views of one (N, 8) tensor.
 """
@@ -34,7 +34,9 @@ from typing import Tuple
 import torch
 
 from rmcl_tpu_torch import _build
+from rmcl_tpu_torch.math.gaussian import CrossStatistics
 from rmcl_tpu_torch.math.se3 import Transform
+from rmcl_tpu_torch.math.stats import umeyama_transform
 from rmcl_tpu_torch.ops.raycast_cuda import plane_of
 
 Tensor = torch.Tensor
@@ -124,17 +126,52 @@ def check_epilogue_args(t_best, ref, planes, trans, dirs, data_points, data_mask
         raise ValueError("the slots are int32: t_best must hold fewer than 2**31 slots")
 
 
+def batch_epilogue_reference(t_best: Tensor, ref: Tensor, planes: Tensor, trans: Tensor,
+                             dirs: Tensor, data_points: Tensor, data_mask: Tensor, slots: Tensor,
+                             max_dist: float, t_max: float) -> Tuple[Transform, Tensor]:
+    """:func:`batch_epilogue`'s function in torch ops, on any device: each
+    pair's plane, gate and projection in float32 as the kernel computes
+    them, the sums in float64, Umeyama a pose."""
+    s = slots.long()
+    t = t_best.reshape(-1)[s]
+    hit = (t < t_max) & (t < 3.0e38)
+    ngx, ngy, ngz, c0 = planes[torch.clamp(ref.reshape(-1)[s], min=0).long()].unbind(-1)
+    d = dirs[None].expand(data_points.shape)
+    o = trans[:, None].expand(data_points.shape)
+    denom = ngx * d[..., 0] + ngy * d[..., 1] + ngz * d[..., 2]
+    safe = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+    t_plane = (c0 - (ngx * o[..., 0] + ngy * o[..., 1] + ngz * o[..., 2])) / safe
+    inv_len = 1.0 / torch.sqrt(torch.clamp(ngx * ngx + ngy * ngy + ngz * ngz, min=1e-30))
+    normal = torch.stack([ngx, ngy, ngz], -1) * inv_len[..., None]
+    normal = normal * torch.where(denom > 0, -1.0, 1.0)[..., None]
+    p = o + t_plane[..., None] * d
+    m = data_points + o
+    diff = m - p
+    signed = (normal[..., 0] * diff[..., 0] + normal[..., 1] * diff[..., 1]
+              + normal[..., 2] * diff[..., 2])
+    ok = data_mask & hit & (torch.abs(signed) <= max_dist)
+    proj = torch.where(ok[..., None], m - signed[..., None] * normal, 0.0)
+    stats = CrossStatistics.from_masked_points(m.double(), proj.double(), ok)
+    delta = umeyama_transform(stats)
+    out = torch.cat([delta.rot, delta.trans, stats.n_meas[:, None]], 1).float()
+    return Transform(rot=out[:, 0:4], trans=out[:, 4:7]), out[:, 7]
+
+
 def batch_epilogue(t_best: Tensor, ref: Tensor, planes: Tensor, trans: Tensor, dirs: Tensor,
                    data_points: Tensor, data_mask: Tensor, slots: Tensor, max_dist: float,
                    t_max: float) -> Tuple[Transform, Tensor]:
-    """Each pose's increment and pairs from K4's winners (module docstring):
-    one kernel launch on CUDA tensors. Raises on what the kernel does not
-    take, CPU tensors included. ``batch_epilogue.launches`` counts the
-    launches."""
-    dev = trans.device if isinstance(trans, torch.Tensor) else None
-    if dev is None or dev.type != "cuda":
-        raise ValueError(f"batch_epilogue launches a CUDA kernel, got tensors on {dev}")
+    """Each pose's increment and pairs from K4's winners (module docstring).
+
+    Raises on what the kernel does not take. CUDA tensors launch the kernel
+    (once, no host sync); CPU tensors take :func:`batch_epilogue_reference`.
+    ``batch_epilogue.launches`` counts the kernel launches."""
     check_epilogue_args(t_best, ref, planes, trans, dirs, data_points, data_mask, slots)
+    dev = trans.device
+    if dev.type == "cpu":
+        return batch_epilogue_reference(t_best, ref, planes, trans, dirs, data_points, data_mask,
+                                        slots, max_dist, t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"batch_epilogue runs on cuda or cpu tensors, not {dev}")
     n, d = trans.shape[0], dirs.shape[0]
     out = torch.empty((n, OUT_WORDS), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_uint64 * 9)(*[x.data_ptr() for x in (

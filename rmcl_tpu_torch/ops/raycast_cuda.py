@@ -74,7 +74,7 @@ def lane_split(n_rays: int, B: int) -> int:
     fill the card already, where a split only adds shuffles and barrier
     waits: on an H100, K1 at 450,000 blocks of 32 rays runs fastest at
     S = 1, and at 113 blocks of 128 rays as fast at S = 4 as at 8 and
-    2.2x slower at S = 1 (scripts/torch_k1_split_probe.py)."""
+    2.2x slower at S = 1 (the lane-split measurements in CHANGES.md)."""
     S = 1
     while 2 * S <= B and 64 * S <= n_rays and -(-n_rays * 2 * S // 32) * 32 <= 1024:
         S *= 2

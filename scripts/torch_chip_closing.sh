@@ -10,8 +10,7 @@
 # 3. the card tests, tests/test_torch_cuda.py, tests/test_torch_p2l_gn.py and
 #    tests/test_torch_epilogue.py
 #    (marker cuda);
-# 4. python -m rmcl_tpu_torch.bench with the factored engine, the dense
-#    engine (BENCH_ENGINE=dense) and the fused reduction (BENCH_FUSED=1);
+# 4. python -m rmcl_tpu_torch.bench (the batch corrector);
 # 5. scripts/torch_cp_split_probe.py, scripts/torch_k5_probe.py,
 #    scripts/torch_k7_probe.py and scripts/torch_k3_probe.py (each with
 #    --parent PARENT_DIR if given), and
@@ -51,12 +50,8 @@ step cardtests . python3 -m pytest tests/test_torch_cuda.py tests/test_torch_p2l
   -o addopts= -m cuda -q \
   -p no:cacheprovider
 tail -n 3 "$out/closing_cardtests.log"
-# the corrector benchmark's three variants: factored, dense (K2g), fused
-for pair in factored:BENCH_ENGINE=factored dense:BENCH_ENGINE=dense fused:BENCH_FUSED=1; do
-  name=bench_${pair%%:*}
-  step "$name" . env "${pair#*:}" python3 -m rmcl_tpu_torch.bench
-  tail -n 1 "$out/closing_$name.log"
-done
+step bench . python3 -m rmcl_tpu_torch.bench
+tail -n 1 "$out/closing_bench.log"
 for probe in cp_split k5 k7 k3; do
   if [ -n "$parent" ]; then
     step "probe_$probe" . python3 -m "scripts.torch_${probe}_probe" --parent "$parent"

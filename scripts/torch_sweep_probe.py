@@ -58,7 +58,8 @@ def jax_track(bench, jb):
 
     def cast(tr):
         o, d = sweep.factored_rays(tr, dirs)
-        h = jrb.cast_rays_binned_factored(jb, o, d, **bench.fact_kw)
+        h = jrb.cast_rays_binned_factored(jb, o, d, sort_blocks=True, payload="plane",
+                                          **bench.corrector.cull_kw)
         n = sweep.n_rays
         up = sweep.unpermute(jnp.concatenate(
             [h.normal.reshape(n, 3), h.t.reshape(n, 1), h.hit.reshape(n, 1).astype(jnp.float32)],

@@ -9,8 +9,9 @@ On the card, from the repo root (the card's name and power limit first):
 1. a canary: K1 (``intersect_bins``) on a small sphere's cast, traced in
    ``--sessions`` profiler sessions in a row (``chip_smoke.device_ms``'s
    recipe), counting the sessions whose trace holds all its launches;
-2. phase 13's inputs: the dense bench at full width (``BENCH_ENGINE=dense``),
-   one correction's K3 lists and launch order at the truth + 0.2 m in z;
+2. phase 13's inputs: the bench's sweep rays at full width, materialised at
+   the truth + 0.2 m in z, through the library's dense cast, which records
+   the K3 lists and launch order it hands K2g (``chip_smoke.dense_cast``);
    K2g and K1 on them by the device trace and by CUDA events;
 3. phase 12 (the node and the tools, ``chip_smoke.phase_node_and_tools``),
    with the canary traced before it and after each of its command-line runs;
@@ -94,13 +95,11 @@ def main():
     from rmcl_tpu_torch.bench import SweepBench, settings_from_env
     from rmcl_tpu_torch.ops.raycast_cuda import intersect_bins, intersect_groups
 
-    cfg, _ = settings_from_env({"BENCH_ENGINE": "dense"})
+    cfg, _ = settings_from_env({})
     bench = SweepBench(**cfg, device="cuda")
-    trans = bench.trans_true
-    data_points, data_mask = bench.make_dataset(trans)
-    est = trans + torch.tensor([0.0, 0.0, 0.2], device="cuda")
-    _, _, _, inputs, order = cs.dense_steps(bench, data_points, data_mask, est)
-    G = bench.cast_kw["dir_groups"]
+    est = bench.trans_true + torch.tensor([0.0, 0.0, 0.2], device="cuda")
+    (args, kw), = cs.dense_cast(bench.bins, bench.sweep, bench.sweep.rays(est, bench.dirs))[1]
+    inputs, order, G = args[1:-1], kw["order"], args[-1]
     out = {"step": "phase 13 inputs", "blocks": int(inputs[0].shape[0]), "groups": G}
     for name, kernel, fn in (
             ("K2g", "intersect_groups",
@@ -109,7 +108,7 @@ def main():
         out[name] = dict(traced(fn, kernel), events_ms=cs.cuda_ms(fn))
     out["canary_after"] = traced(launch, "intersect_bins")
     print(json.dumps(out), flush=True)
-    del bench, data_points, data_mask, inputs, order
+    del bench, inputs, order
 
     # phase 12, with the canary traced before it and after each of its CLI runs
     canaries, run_cli = [("before", traced(launch, "intersect_bins"))], cs.run_cli

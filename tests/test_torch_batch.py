@@ -2,7 +2,8 @@
 CPU against the benchmark's plain reference (``benchmark/reference/sweep.py``:
 every ray against every face, float64 Umeyama) at a small size: a 19,800-face
 50 m sphere and 32 poses x VLP-16 at 90 wide. Also: a kept cull casts what a
-fresh one casts, the re-cull rule, and that a truncating budget is counted."""
+fresh one casts, the re-cull rule, that a truncating budget is counted, and
+that ``rmcl_tpu_torch.bench`` runs the corrector and reads its settings."""
 
 import functools
 import math
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from benchmark.reference import sweep as ref
+from rmcl_tpu_torch.bench import SweepBench, settings_from_env
 from rmcl_tpu_torch.bvh.bins import build_bins
 from rmcl_tpu_torch.geom.mesh import make_sphere
 from rmcl_tpu_torch.micp.batch import BatchCorrector
@@ -159,3 +161,65 @@ def test_needs_recull(case):
         t = ref_t.repeat(500, 1)
         t[777, 0] += 0.03
         assert bool(needs_recull(t, ref_t.repeat(500, 1), 0.03))
+
+
+def _bench():
+    """``rmcl_tpu_torch.bench``'s workload at this file's size: the same
+    sphere, poses and budgets as :func:`_corrector`."""
+    bench = SweepBench(n_poses=POSES, width=MODEL.width, sub_blocks=8, device="cpu",
+                       mesh=make_sphere(100, 100, radius=50.0))
+    assert np.array_equal(bench.trans_true_np, _world()[1])
+    assert torch.equal(bench.bins.tri, _world()[0].tri)
+    return bench
+
+
+def _same(a, b):
+    return (torch.equal(a[0].rot, b[0].rot) and torch.equal(a[0].trans, b[0].trans)
+            and torch.equal(a[1], b[1]))
+
+
+def test_bench_correction_is_the_correctors():
+    """The bench's dataset and corrections, through a reuse cull and
+    through a fresh one, are the corrector's, bitwise."""
+    bench, bc = _bench(), _corrector()
+    data = bench.make_dataset(bench.trans_true)
+    want = _dataset(bc)
+    assert torch.equal(data[0], want[0]) and torch.equal(data[1], want[1])
+    start = _start()
+    assert _same(bench.correction(*data, start, bench.candidates(start)),
+                 bc.correct(*data, start, bc.candidates(start)[0]))
+    assert _same(bench.correction(*data, start), bc.correct(*data, start))
+
+
+def test_bench_iterate_is_the_correctors_steps():
+    bench, bc = _bench(), _corrector()
+    data = _dataset(bc)
+    trans = _start()
+    got = bench.iterate(*data, trans, 3)
+    for _ in range(3):
+        trans = bc.step(*data, trans).trans
+    assert torch.equal(got, trans)
+
+
+@pytest.mark.parametrize("env", [{"BENCH_ENGINE": "dense"}, {"BENCH_ENGINE": "exact"},
+                                 {"BENCH_FUSED": "1"}])
+def test_bench_settings_refuse_the_removed_engines(env):
+    with pytest.raises(ValueError, match="removed"):
+        settings_from_env(env)
+
+
+def test_bench_settings_read_the_remaining_variables():
+    cfg, run = settings_from_env({})
+    assert run == dict(iters=3, steps=16)
+    assert cfg == dict(faces=1_000_000, n_poses=1000, bin_size=64, c_bin=64, az_tile=8,
+                       el_tile=1, poses_per_tile=16, bins_per_super=16, c_mid=0,
+                       supers_per_hyper=16, seed=0, block_chunk=512, c_hyper=20,
+                       payload="plane", c_super=24, sub_blocks=128, reuse=True, margin=0.03)
+    cfg, run = settings_from_env({"BENCH_ENGINE": "factored", "BENCH_FUSED": "0",
+                                  "BENCH_FACES": "5000000", "BENCH_POSES": "64",
+                                  "BENCH_ITERS": "5", "BENCH_STEPS": "4", "BENCH_REUSE": "0",
+                                  "BENCH_PAYLOAD": "index", "BENCH_MARGIN": "0.05"})
+    assert run == dict(iters=5, steps=4)
+    assert (cfg["faces"], cfg["n_poses"], cfg["reuse"], cfg["payload"], cfg["margin"]) == (
+        5_000_000, 64, False, "index", 0.05)
+    assert (cfg["c_bin"], cfg["c_hyper"], cfg["c_super"], cfg["sub_blocks"]) == (512, 24, 128, 128)

@@ -427,7 +427,7 @@ def test_fixed_cone_box_test_never_false_culls(seed):
 
 
 def test_probe_case_jax_rejects_and_the_port_passes():
-    """The numbers of scripts/torch_flat_bin_probe.py: a flat wall bin
+    """The flat-bin case that CHANGES.md records: a flat wall bin
     (zero thickness along the cone's axis) at a slab exit of 4.8725 m whose
     nearest point lies 4.8748 m from the origin, off-axis inside a 6.2
     degree cone. A ray of the block crosses it. JAX's test holds the

@@ -331,7 +331,7 @@ def test_sweep_correction_matches_jax():
     trans = bench.trans_true_np
     dirs = jnp.asarray(bench.dirs.numpy())
     sweep = jrb.TiledSweep(trans, 180, 16, 16, 8, 1)
-    kw = dict(bench.fact_kw)
+    kw = dict(bench.corrector.cull_kw, sort_blocks=True, payload="plane")
 
     def j_cast(tr):
         o, d = sweep.factored_rays(tr, dirs)

@@ -385,8 +385,7 @@ def test_batch_step_spans_nest(sphere):
         ("rmcl.cast.rays", "rmcl.batch.correspond"): 2,
         ("rmcl.cast.intersect", "rmcl.batch.correspond"): 2,
         ("rmcl.cast.payload", "rmcl.batch.correspond"): 2,
-        ("rmcl.batch.reduce", step): 2,
-        ("rmcl.batch.solve", step): 2,
+        ("rmcl.batch.epilogue", step): 2,
     }
     counts = timing.counters()
     assert counts["rmcl.batch.culls"] == 1 and counts["rmcl.batch.truncated_blocks"] == 0
