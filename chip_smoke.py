@@ -78,15 +78,20 @@ Phases (any failure ends the run with a nonzero exit code):
    four 262,144-particle binned sensor updates (K3 with the hyper level, K1
    in candidate-count order), gladiator resampling, statistics — after the
    budget audit, a warm cycle and three timed ones, the estimate within
-   0.1 m of the truth, the stages of one more cycle by events, K1 and K3
-   against their plain versions on a slice and timed on a whole chunk; (b)
+   0.1 m of the truth, the same cycle per engine at 1M and at 50,000
+   particles (the exact one must be faster at both), the stages of one
+   more cycle by events, K1 and K3 against their plain versions on a slice
+   and timed on a whole chunk; (b)
    one sensor update per engine on a 65,536-particle slice with one beam
    set (bvh, seeded, binned particle-major, binned beam-major with and
    without the mid level): seeded = bvh, binned = bvh on certified
    particles, mid level = two levels, K3 with the mid level bitwise its
    plain version, K5's refine launch in the seeded pass, and a CP update
-   per engine (K6, K6b); (c) ``MCLNode`` at 100,000 particles with engine
-   "auto", ten steps of +0.2 m, its final error below 0.25 m;
+   per engine (K6, K6b), timed warm; (c) ``MCLNode`` at 100,000
+   particles, ten steps of +0.2 m, with engine "auto", which on the card
+   takes the exact walk for every RC cloud (one K5 launch a step and no
+   other kernel, no budget audit), and with engine "binned" (the budget
+   audit, then K3r and K1 on every step), each ending below 0.25 m;
 12. the MICP-L node and the command-line tools at full width: phase 4's
    building written as OBJ under the git-ignored ``build/``, a 20-scan
    VLP-16 message log along a 2 m arc with odometry drifting 0.01 m and
@@ -406,6 +411,9 @@ MCL_BINNED_CLOSE = 0.99
 MCL_EDGE_PARTICLES = 0.01
 MCL_CHECK_BLOCKS = 512
 MCL_NODE_PARTICLES = 100_000
+# phase 11a's per-engine cycle at the mcl-50k-tracking cell's count
+MCL_SMALL = 50_000
+MCL_SMALL_CYCLES = 5
 MCL_NODE_STEPS = 10
 MCL_NODE_STEP = 0.2
 MCL_NODE_ERR_MAX = 0.25
@@ -2533,31 +2541,45 @@ def phase_mcl_cycle():
     if not bool(torch.isfinite(cloud.likelihood.mean).all()):
         fail("phase 11a: non-finite likelihoods")
 
-    # the same cycle on the exact engine (K5), for comparison: a warm cycle
-    # and a timed one on a copy of the cloud
-    scfg_bvh = dataclasses.replace(scfg_nc, engine="bvh")
-    bvh_ms = []
-    for _ in range(2):
-        c_b = cloud.map(lambda x: x.clone())
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        c_b = motion_update(c_b, Transform(rot=torch.tensor([1.0, 0, 0, 0], device="cuda"),
-                                           trans=torch.zeros(3, device="cuda")), 0.05, mcfg)
-        fw = c_b.poses.rotate(torch.tensor([1.0, 0.0, 0.0], device="cuda"))
-        c_b = c_b.map(lambda x: x[cluster_order(c_b.poses.trans, fw)[0].long()])
-        beams_b = sample_beams(gen, points, mask, MCL_BEAMS)
-        lik = [sensor_update(mmap.bvh, c_b.map(lambda x: x[i * MCL_CHUNK:(i + 1) * MCL_CHUNK]),
-                             None, None, None, tsb, scfg_bvh, beams=beams_b).likelihood
-               for i in range(n_chunks)]
-        c_b = dataclasses.replace(c_b, likelihood=lik[0].__class__(
-            *(torch.cat([getattr(p, f) for p in lik]) for f in ("mean", "sigma", "n_meas"))))
-        c_b = gladiator_resample(c_b, gen, rcfg)
-        estimate_stats(c_b, max_induction_particles=50_000)
-        torch.cuda.synchronize()
-        bvh_ms.append((time.perf_counter() - t) * 1e3)
-    del c_b
-    log(f"phase 11a the same cycle on the exact engine (K5): {bvh_ms[1]:.1f} ms (warm "
-        f"{bvh_ms[0]:.1f} ms), against the binned engine's median {cycle_ms:.1f} ms")
+    # the same cycle per engine on a copy of the first n particles: at 1M
+    # the exact engine (K5) beside the timed binned cycles above, at the
+    # 50k cell's count both engines; a warm cycle, then the median of the
+    # timed ones
+    def engine_cycle_ms(engine, n, reps):
+        scfg_e = dataclasses.replace(scfg_nc, engine=engine)
+        accel = mmap.bvh if engine == "bvh" else bins
+        ms = []
+        for _ in range(reps + 1):
+            c_b = cloud.map(lambda x: x[:n].clone())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            c_b = motion_update(c_b, Transform(rot=torch.tensor([1.0, 0, 0, 0], device="cuda"),
+                                               trans=torch.zeros(3, device="cuda")), 0.05, mcfg)
+            fw = c_b.poses.rotate(torch.tensor([1.0, 0.0, 0.0], device="cuda"))
+            c_b = c_b.map(lambda x: x[cluster_order(c_b.poses.trans, fw)[0].long()])
+            beams_b = sample_beams(gen, points, mask, MCL_BEAMS)
+            lik = [sensor_update(accel, c_b.map(lambda x: x[i:i + MCL_CHUNK]), None, None, None,
+                                 tsb, scfg_e, beams=beams_b).likelihood
+                   for i in range(0, n, MCL_CHUNK)]
+            c_b = dataclasses.replace(c_b, likelihood=lik[0].__class__(
+                *(torch.cat([getattr(p, f) for p in lik]) for f in ("mean", "sigma", "n_meas"))))
+            c_b = gladiator_resample(c_b, gen, rcfg)
+            estimate_stats(c_b, max_induction_particles=50_000)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms[1:])
+
+    engines_ms = {"bvh 1M": engine_cycle_ms("bvh", MCL_PARTICLES, MCL_CYCLES),
+                  "binned 1M": cycle_ms}
+    for engine in ("bvh", "binned"):
+        engines_ms[f"{engine} 50k"] = engine_cycle_ms(engine, MCL_SMALL, MCL_SMALL_CYCLES)
+    log(f"phase 11a the cycle per engine (host clock, median; exact K5, binned K3 + K1 at "
+        f"c_super {scfg.c_super}, c_bin {scfg.c_bin}, c_hyper {scfg.c_hyper}): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in engines_ms.items()))
+    for size in ("1M", "50k"):
+        if not engines_ms[f"bvh {size}"] < engines_ms[f"binned {size}"]:
+            fail(f"phase 11a: at {size} particles the exact engine's cycle is not faster than "
+                 "the binned one, and MCLNode's engine='auto' takes it on the card")
 
     # one more cycle through the update's steps, with events between them
     ev = {}
@@ -2587,7 +2609,7 @@ def phase_mcl_cycle():
     log(f"phase 11a: {int(sat0.sum())} of {k3['blocks']} blocks saturated")
     return dict(mmap=mmap, model=model, truth=truth, points=points, mask=mask, scfg=scfg,
                 cloud=cloud, gen=gen, cycle_ms=cycle_ms, stage_ms=stage_ms, err=errs[-1],
-                bvh_cycle_ms=bvh_ms[1],
+                engines_ms=engines_ms,
                 audit=audit, peak_gb=peak_gb, k1=k1, k3=k3, counts=counts)
 
 
@@ -2790,33 +2812,41 @@ def phase_mcl_engines(r11):
         f"{EXACT_SLICE} rays (plain {k5['plain_ms']:.1f} ms)")
     del o_s, d_s, t_s, seed, lossless, bound, rays5, visits, slot5, slot, slot_ex
 
-    # CP updates: K6 on the BVH, K6b on the bins (candidates in torch ops)
+    # CP updates on the tracking cloud: K6 on the BVH, K6b on the bins
+    # (candidates in torch ops); the first call checked, then timed warm
     cp_cloud = r11["cloud"].map(lambda x: x[:MCL_CP_PARTICLES].contiguous())
     cp = {}
     for name, acc, k in (("bvh", bvh, "K6"), ("binned", bins, "K6b")):
         cfg = dataclasses.replace(scfg, engine=name, correspondence_type="CP")
+        update = lambda: sensor_update(acc, cp_cloud, None, None, None, tsb, cfg,
+                                       beams=beams).likelihood
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lik = sensor_update(acc, cp_cloud, None, None, None, tsb, cfg, beams=beams).likelihood
+        lik = update()
         torch.cuda.synchronize()
-        cp[name] = ((time.perf_counter() - t0) * 1e3, lik)
+        first_ms = (time.perf_counter() - t0) * 1e3
         require_launches(f"phase 11b CP {name}", read_counts(), (k,))
         if not bool(torch.isfinite(lik.mean).all()):
             fail(f"phase 11b: CP {name} gave non-finite likelihoods")
+        cp[name] = (cuda_ms(update, reps=3), lik, first_ms)
     cp_close = float(torch.isclose(cp["binned"][1].mean, cp["bvh"][1].mean, rtol=1e-4,
                                    atol=1e-6).float().mean())
-    log(f"phase 11b CP updates on {MCL_CP_PARTICLES} particles x {MCL_BEAMS} beams: bvh (K6) "
-        f"{cp['bvh'][0]:.1f} ms, binned (K6b) {cp['binned'][0]:.1f} ms; {cp_close:.4%} of the "
-        f"particles' likelihoods agree within rtol 1e-4")
+    log(f"phase 11b CP updates on {MCL_CP_PARTICLES} particles x {MCL_BEAMS} beams (warm, "
+        f"median of 3; first call): bvh (K6) {cp['bvh'][0]:.1f} ms ({cp['bvh'][2]:.1f}), "
+        f"binned (K6b) {cp['binned'][0]:.1f} ms ({cp['binned'][2]:.1f}); {cp_close:.4%} of "
+        f"the particles' likelihoods agree within rtol 1e-4")
     return dict(ms=ms, certified_frac=certified_frac, kmid=kmid, k5=k5,
                 cp_ms={k: v[0] for k, v in cp.items()})
 
 
 def phase_mcl_node(r11):
     """Phase 11c: MCLNode end to end at MCLConfig's default 100,000
-    particles on 11a's map: engine "auto" (gate every update), the budget
-    audit, ten steps of +0.2 m in x with a scan simulated at the truth."""
+    particles on 11a's map, ten steps of +0.2 m in x with a scan simulated
+    at the truth, twice: engine "auto", which on the card is the exact walk
+    for every RC cloud (one K5 launch an update, no K1 or K3, no budget
+    audit), and engine "binned" (the budget audit on the first update, then
+    K3r and K1 alike on every update, and nothing else)."""
     import dataclasses
 
     from rmcl_tpu_torch.math.se3 import Transform
@@ -2824,39 +2854,64 @@ def phase_mcl_node(r11):
     from rmcl_tpu_torch.sensors.simulate import simulate
 
     mmap, model, truth = r11["mmap"], r11["model"], r11["truth"]
-    cfg = MCLConfig(n_particles=MCL_NODE_PARTICLES, auto_engine_period=1, seed=MCL_SEED,
-                    sensor=dataclasses.replace(r11["scfg"], engine="auto"))
-    node = MCLNode(mmap, cfg)
-    t = time.perf_counter()
-    node.warm()
-    warm_s = time.perf_counter() - t
-    node.initial_pose_guess(truth, torch.diag(torch.tensor(MCL_COV)))
     tsb = Transform.identity()
-    pose = list(MCL_TRUTH)
-    reset_counts()
-    for step in range(MCL_NODE_STEPS):
-        pose[0] += MCL_NODE_STEP
-        true_bm = Transform.from_pose_tuple(pose)
-        hits = simulate(mmap.bvh, model, true_bm)
-        points = model.polar_to_cartesian(torch.where(hits.hit, hits.t, 0.0))
-        if step == 0:  # the odometry's first reading sets its origin
-            node.motion_update(Transform.from_pose_tuple(MCL_TRUTH), 0.0)
-        node.motion_update(true_bm, 0.1 * (step + 1))
-        node.sensor_update(points, hits.hit, tsb)
-        node.resample()
-        err = float(torch.linalg.vector_norm(node.estimate().pose.trans - true_bm.trans))
-        sc = node.config.sensor
-        log(f"phase 11c step {step + 1}: engine {node._engine_choice}, budgets c_super "
-            f"{sc.c_super} c_bin {sc.c_bin} c_mid {sc.c_mid} (audit {node.last_audit}), "
-            f"error {err:.4f} m")
-    counts = {k: v for k, v in read_counts().items() if v}
-    log(f"phase 11c MCLNode: {cfg.n_particles} particles, {MCL_NODE_STEPS} steps, final error "
-        f"{err:.4f} m; kernels built by warm() in {warm_s:.2f} s; launches {counts}; "
-        f"StageTimer:\n{node.timer.report()}")
-    if not err < MCL_NODE_ERR_MAX:
-        fail(f"phase 11c: MCLNode ended {err:.4f} m off the truth (>= {MCL_NODE_ERR_MAX})")
-    return dict(err=err, engine=node._engine_choice, audit=node.last_audit, counts=counts,
-                stage_ms={k: node.timer.mean(k) * 1e3 for k in node.timer.total})
+    out = {}
+    for engine in ("auto", "binned"):
+        cfg = MCLConfig(n_particles=MCL_NODE_PARTICLES, auto_engine_period=1, seed=MCL_SEED,
+                        sensor=dataclasses.replace(r11["scfg"], engine=engine))
+        node = MCLNode(mmap, cfg)
+        t = time.perf_counter()
+        node.warm()
+        warm_s = time.perf_counter() - t
+        node.initial_pose_guess(truth, torch.diag(torch.tensor(MCL_COV)))
+        pose = list(MCL_TRUTH)
+        counts = dict.fromkeys(wrappers(), 0)
+        for step in range(MCL_NODE_STEPS):
+            pose[0] += MCL_NODE_STEP
+            true_bm = Transform.from_pose_tuple(pose)
+            hits = simulate(mmap.bvh, model, true_bm)
+            points = model.polar_to_cartesian(torch.where(hits.hit, hits.t, 0.0))
+            if step == 0:  # the odometry's first reading sets its origin
+                node.motion_update(Transform.from_pose_tuple(MCL_TRUTH), 0.0)
+            node.motion_update(true_bm, 0.1 * (step + 1))
+            if step == 1:  # the binned node's audit casts on the first update
+                audit_counts = {k: v for k, v in counts.items() if v}
+                counts = dict.fromkeys(wrappers(), 0)
+            reset_counts()
+            node.sensor_update(points, hits.hit, tsb)
+            counts = {k: counts[k] + v for k, v in read_counts().items()}
+            node.resample()
+            err = float(torch.linalg.vector_norm(node.estimate().pose.trans - true_bm.trans))
+            sc = node.effective_sensor_config()
+            log(f"phase 11c {engine} step {step + 1}: engine {sc.engine}, budgets c_super "
+                f"{sc.c_super} c_bin {sc.c_bin} c_mid {sc.c_mid} (audit {node.last_audit}), "
+                f"error {err:.4f} m")
+            if engine == "auto" and (sc.engine != "bvh" or node.last_audit is not None):
+                fail(f"phase 11c: engine 'auto' on the card took {sc.engine} (audit "
+                     f"{node.last_audit}) at step {step + 1}, not the exact walk")
+        counts = {k: v for k, v in counts.items() if v}
+        steps = MCL_NODE_STEPS - 1  # counted from the second update on
+        if engine == "auto" and (counts != {"K5": steps} or audit_counts != {"K5": 1}):
+            fail(f"phase 11c: {MCL_NODE_STEPS} sensor updates launched {audit_counts} then "
+                 f"{counts}, not one K5 each and nothing else")
+        if engine == "binned":
+            if node.last_audit is None:
+                fail("phase 11c: the binned node's budget audit never ran")
+            if set(counts) != {"K3r", "K1"} or not counts["K3r"] == counts["K1"] >= steps:
+                fail(f"phase 11c: {steps} binned sensor updates after the audit launched "
+                     f"{counts}, not K3r and K1 alike, at least once each an update, and "
+                     "nothing else")
+        log(f"phase 11c MCLNode ({engine}): {cfg.n_particles} particles, {MCL_NODE_STEPS} "
+            f"steps, final error {err:.4f} m; kernels built by warm() in {warm_s:.2f} s; "
+            f"launches {audit_counts} on the first update, {counts} on the other {steps}; "
+            f"StageTimer:\n{node.timer.report()}")
+        if not err < MCL_NODE_ERR_MAX:
+            fail(f"phase 11c: MCLNode ({engine}) ended {err:.4f} m off the truth "
+                 f"(>= {MCL_NODE_ERR_MAX})")
+        out[engine] = dict(err=err, engine=node._engine_choice, audit=node.last_audit,
+                           counts=counts, first_counts=audit_counts,
+                           stage_ms={k: node.timer.mean(k) * 1e3 for k in node.timer.total})
+    return out
 
 
 def phase_exact_reference_size(sphere_mesh, sphere_bins):

@@ -4,14 +4,21 @@ Counterpart of ``rmcl_tpu.mcl.node``: host-side orchestration of the three
 periodic stages (motion update, sensor update, resampling), the two
 re-initialization services (``initial_pose_guess``, ``global_localization``),
 pose induction and the map -> odom output; the engine choice of
-``engine="auto"`` and the binned engine's budget audit.
+``engine="auto"`` (:func:`auto_engine`) and the binned engine's budget
+audit.
 
 What differs from the JAX package: PyTorch runs eagerly, so there is no
 program to compile ahead and no compile cache; the JAX node's background
 warm threads have no counterpart. :meth:`MCLNode.warm` builds the kernels'
 libraries, the port's only first-use cost. The node owns one
 ``torch.Generator`` on the map's device, seeded from ``MCLConfig.seed``;
-its streams are not ``jax.random``'s.
+its streams are not ``jax.random``'s. ``engine="auto"`` with ray
+casting (RC) on a CUDA map takes the exact BVH walk for every cloud, where
+the JAX gate takes the binned engine once the cloud concentrates: on the
+H100 the RC cycle on the walk (K5) was faster than on the binned cast
+(K3 + K1) at every size measured, 50,000 to 1,048,576 particles. Closest
+points (CP) keep the JAX gate there, as every device does: on a tracking
+cloud the binned loop (K6b) was faster than the walk (K6) (``PERF.md`` §6).
 """
 
 from __future__ import annotations
@@ -46,6 +53,17 @@ _RESAMPLERS: dict[str, Callable] = {
 _KERNELS = ("cull_blocks", "intersect_bins", "traverse_bvh", "closest_bvh", "closest_bins")
 
 
+def auto_engine(prev: str, spread: float, hspread: float, spread_max: float,
+                heading_max: float) -> str:
+    """The JAX package's gate for ``engine="auto"``: from the exact walk,
+    ``"binned"`` once the weighted spread is under ``spread_max`` and the
+    heading spread under ``heading_max``; from binned, back to ``"bvh"``
+    once either passes twice its threshold."""
+    if prev == "binned":
+        return "bvh" if spread > 2.0 * spread_max or hspread > 2.0 * heading_max else "binned"
+    return "binned" if spread < spread_max and hspread < heading_max else "bvh"
+
+
 @dataclasses.dataclass
 class MCLConfig:
     """Per-stage configuration with the JAX package's fields and defaults:
@@ -54,7 +72,8 @@ class MCLConfig:
     under a dynamic count; ``auto_budget`` adopts :func:`suggest_budgets`'
     recommendation when the binned engine's audit saturates;
     ``auto_engine_*`` the ``engine="auto"`` gate (spread in meters, heading
-    spread as a sine, evaluated every ``auto_engine_period`` updates)."""
+    spread as a sine, evaluated every ``auto_engine_period`` updates; an RC
+    update on a CUDA map is the exact walk and reads none)."""
 
     n_particles: int = 100_000
     resampler: str = "gladiator"
@@ -298,12 +317,14 @@ class MCLNode:
         return torch.stack([spread, hspread])
 
     def _auto_select_engine(self) -> None:
-        """The engine for ``engine="auto"``: the exact BVH traversal for a
-        scattered cloud, the dense binned engine once the weighted spread
-        and heading spread fall below their thresholds (2x hysteresis to
-        flip back); evaluated every ``auto_engine_period`` updates, one
-        readback each time."""
-        if self.bins is None:
+        """The engine for ``engine="auto"``. RC on the card: the exact BVH
+        walk, with no readback. Otherwise the gate (:func:`auto_engine`):
+        the exact walk for a scattered cloud and the dense binned engine
+        once the weighted spread and heading spread fall below their
+        thresholds (2x hysteresis to flip back), evaluated every
+        ``auto_engine_period`` updates, one readback each time."""
+        if self.bins is None or (self.device.type == "cuda"
+                                 and self.config.sensor.correspondence_type != "CP"):
             self._engine_choice = "bvh"
             return
         period = max(int(self.config.auto_engine_period), 1)
@@ -312,13 +333,9 @@ class MCLNode:
         self._engine_gate_seen = True
         with timing.span("rmcl.mcl.gate"):
             spread, hspread = (float(x) for x in self._spread_metrics(self.cloud).cpu())
-        thresh = self.config.auto_engine_spread
-        hthresh = self.config.auto_engine_heading_spread
         prev = self._engine_choice
-        if prev == "binned":
-            choice = "bvh" if spread > 2.0 * thresh or hspread > 2.0 * hthresh else "binned"
-        else:
-            choice = "binned" if spread < thresh and hspread < hthresh else "bvh"
+        choice = auto_engine(prev, spread, hspread, self.config.auto_engine_spread,
+                             self.config.auto_engine_heading_spread)
         if choice != prev:
             self._engine_choice = choice
             # the binned engine needs a fresh budget audit for this cloud
@@ -366,6 +383,7 @@ class MCLNode:
             self._check_budgets(points_s, points_mask, tsb)
             eff_cfg = self.effective_sensor_config()
         accel = self._accel_for(eff_cfg.engine)
+        timing.count(f"rmcl.mcl.engine.{eff_cfg.engine}", 1)
         k = self._compact_slice()
         with self.timer.stage("sensor_update", block_on=lambda: self.cloud):
             if k is None:

@@ -1086,6 +1086,96 @@ def test_sensor_update_on_card_matches_cpu(card, engine):
     assert torch.equal(out["cuda"].n_meas.cpu(), out["cpu"].n_meas)
 
 
+def test_auto_engine_on_card_is_the_exact_walk(card):
+    """``MCLNode`` with engine "auto" on a concentrated cloud on the card
+    stays on the exact walk (the CPU's gate would flip to binned at the
+    first update): no K1 or K3 launch, one K5 a sensor update, and every
+    update's likelihoods bitwise those of a node with engine "bvh" that
+    the same seed feeds the same draws."""
+    import dataclasses
+
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.mcl.node import MCLConfig, MCLNode
+    from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig
+    from rmcl_tpu_torch.ops.cull_cuda import cull_factored, cull_rays
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays
+
+    bvh, bins, points, mask = _mcl_world(card)
+    mm = MeshMap(mesh=_exact_mesh("building"), bvh=bvh, bins=bins)
+    scfg = SensorUpdateConfig.create(samples=48, dist_sigma=0.3, engine="auto", c_super=32,
+                                     c_bin=256)
+    cov = torch.diag(torch.tensor([1e-3, 1e-3, 1e-4, 1e-6, 1e-6, 1e-4]))
+    pose = Transform.from_pose_tuple([3.1, 2.9, 1.5, 0, 0, 0.3], device=card)
+    tsb = Transform.identity(device=card)
+    nodes = {}
+    for engine in ("auto", "bvh"):
+        cfg = MCLConfig(n_particles=2000, seed=3, auto_engine_period=1,
+                        sensor=dataclasses.replace(scfg, engine=engine))
+        node = MCLNode(mm, cfg)
+        node.initial_pose_guess(pose, cov)
+        node.motion_update(Transform.identity(device=card), 0.0)
+        nodes[engine] = node
+    auto, exact = nodes["auto"], nodes["bvh"]
+    steps = 3
+    before = (intersect_bins.launches, cull_rays.launches, cull_factored.launches,
+              traverse_rays.launches)
+    for step in range(steps):
+        auto.sensor_update(points, mask, tsb)
+        assert auto.effective_sensor_config().engine == "bvh"
+        assert auto.last_audit is None
+        after = (intersect_bins.launches, cull_rays.launches, cull_factored.launches,
+                 traverse_rays.launches)
+        assert after == before[:3] + (before[3] + 1,)
+        exact.sensor_update(points, mask, tsb)
+        assert torch.equal(auto.cloud.likelihood.mean, exact.cloud.likelihood.mean)
+        assert torch.equal(auto.cloud.likelihood.sigma, exact.cloud.likelihood.sigma)
+        before = (after[0], after[1], after[2], traverse_rays.launches)
+        stamp = 0.1 * (step + 1)
+        for node in (auto, exact):
+            node.motion_update(Transform.identity(device=card), stamp)
+            assert node.resample()
+    assert bool(torch.isfinite(auto.cloud.likelihood.mean).all())
+
+
+def test_auto_engine_for_cp_on_card_keeps_the_gate(card):
+    """``MCLNode`` with engine "auto" and closest points (CP) on the card
+    keeps the JAX gate: a concentrated cloud flips to the binned loop at
+    the first gated update (one K6b launch, no K6, no budget audit), and
+    its likelihoods agree with a node with engine "binned" fed the same
+    draws."""
+    import dataclasses
+
+    from rmcl_tpu_torch.geom.map import MeshMap
+    from rmcl_tpu_torch.mcl.node import MCLConfig, MCLNode
+    from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig
+    from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh
+
+    bvh, bins, points, mask = _mcl_world(card)
+    mm = MeshMap(mesh=_exact_mesh("building"), bvh=bvh, bins=bins)
+    scfg = SensorUpdateConfig.create(samples=48, correspondence_type="CP", dist_sigma=0.3,
+                                     engine="auto")
+    cov = torch.diag(torch.tensor([1e-3, 1e-3, 1e-4, 1e-6, 1e-6, 1e-4]))
+    pose = Transform.from_pose_tuple([3.1, 2.9, 1.5, 0, 0, 0.3], device=card)
+    tsb = Transform.identity(device=card)
+    nodes = {}
+    for engine in ("auto", "binned"):
+        cfg = MCLConfig(n_particles=2000, seed=3, auto_engine_period=1,
+                        sensor=dataclasses.replace(scfg, engine=engine))
+        node = MCLNode(mm, cfg)
+        node.initial_pose_guess(pose, cov)
+        node.motion_update(Transform.identity(device=card), 0.0)
+        nodes[engine] = node
+    auto, binned = nodes["auto"], nodes["binned"]
+    before = (closest_bins.launches, closest_bvh.launches)
+    auto.sensor_update(points, mask, tsb)
+    assert auto.effective_sensor_config().engine == "binned"
+    assert auto.last_audit is None
+    assert (closest_bins.launches, closest_bvh.launches) == (before[0] + 1, before[1])
+    binned.sensor_update(points, mask, tsb)
+    assert torch.equal(auto.cloud.likelihood.mean, binned.cloud.likelihood.mean)
+    assert bool(torch.isfinite(auto.cloud.likelihood.mean).all())
+
+
 # --- the closest-point candidate cull (K7) and the MICP node ---
 
 def _cp_blocks(mesh, dev, B, S, n, max_dist, Rq=128, seed=9):

@@ -211,9 +211,11 @@ def binned_node():
 
 
 def test_auto_engine_flips_and_the_audit_adopts_budgets(binned_node):
-    """engine="auto": a scattered cloud stays on the exact walk; a
-    concentrated one flips to the binned engine, whose first update audits
-    the (too small) budgets and adopts a rung that no longer saturates."""
+    """engine="auto" on the CPU keeps the JAX package's gate (on the card RC
+    takes the exact walk for every cloud: ``tests/test_torch_cuda.py``): a
+    scattered cloud stays on the exact walk; a concentrated one flips to
+    the binned engine, whose first update audits the (too small) budgets
+    and adopts a rung that no longer saturates."""
     node, mm = binned_node
     box = ([0.5, 0.5, 1.5, 0, 0, -3.1], [12, 9, 1.5, 0, 0, 3.1])
     node.global_localization(*box)
@@ -241,6 +243,105 @@ def test_auto_engine_flips_and_the_audit_adopts_budgets(binned_node):
     node.global_localization(*box)
     node.sensor_update(points, mask, tsb)
     assert node._engine_choice == "bvh"
+
+
+class _Gate:
+    """The attributes that ``_auto_select_engine`` reads and writes, with
+    the spreads that ``_spread_metrics`` would read back."""
+
+    def __init__(self, config, prev, spreads, updates=0, seen=False, device="cpu"):
+        self.bins, self.cloud, self.device = object(), None, torch.device(device)
+        self.config, self._engine_choice, self._spreads = config, prev, spreads
+        self.sensor_updates, self._engine_gate_seen = updates, seen
+        self._budget_checked = True
+
+    def _spread_metrics(self, cloud):
+        return torch.tensor(self._spreads, dtype=torch.float32)
+
+
+# (spread, heading spread) about the default thresholds 1.0 and 0.1: inside,
+# on them, in the hysteresis band, past twice them
+SPREADS = [(0.05, 0.01), (0.99, 0.099), (1.0, 0.05), (0.5, 0.1), (1.5, 0.05), (0.5, 0.15),
+           (2.0, 0.2), (2.5, 0.05), (0.5, 0.25), (30.0, 1.0)]
+GATE = dict(auto_engine_spread=1.0, auto_engine_heading_spread=0.1, auto_engine_period=2)
+
+
+def _gates(corr, prev, spreads, updates=0, seen=False, device="cpu"):
+    """The JAX node's gate and the port's, each run once on the same state;
+    the port's config holds the correspondence type ``corr``."""
+    j = _Gate(jnode.MCLConfig(**GATE), prev, spreads, updates, seen)
+    t = _Gate(tnode.MCLConfig(**GATE, sensor=SensorUpdateConfig.create(
+        correspondence_type=corr)), prev, spreads, updates, seen, device)
+    jnode.MCLNode._auto_select_engine(j)
+    tnode.MCLNode._auto_select_engine(t)
+    return j, t
+
+
+@pytest.mark.parametrize("prev", ["bvh", "binned"])
+@pytest.mark.parametrize("spreads", [(5.0, 0.8), (0.05, 0.01), (None, None)])
+def test_auto_engine_on_the_card_is_the_exact_walk(prev, spreads):
+    """An RC update on a CUDA map takes the exact BVH walk for a scattered
+    cloud and a concentrated one alike, whatever the previous choice, and
+    reads no spreads back."""
+    t = _Gate(tnode.MCLConfig(**GATE), prev, spreads, device="cuda")
+    t._spread_metrics = lambda cloud: pytest.fail("the card's rule read the spreads back")
+    tnode.MCLNode._auto_select_engine(t)
+    assert t._engine_choice == "bvh"
+    # off the card the same cloud goes through the gate
+    if None not in spreads:
+        _, cpu = _gates("RC", prev, spreads)
+        assert cpu._engine_choice == tnode.auto_engine(prev, *spreads, 1.0, 0.1)
+
+
+@pytest.mark.parametrize("prev", ["bvh", "binned"])
+@pytest.mark.parametrize("spreads", SPREADS)
+def test_auto_engine_for_cp_on_the_card_is_jaxs_gate(prev, spreads):
+    """A CP update on a CUDA map keeps the JAX node's gate: the same choice
+    on the same spreads, with the 2x hysteresis and a fresh audit on a flip
+    to binned."""
+    j, t = _gates("CP", prev, spreads, device="cuda")
+    assert (t._engine_choice, t._budget_checked, t._engine_gate_seen) == (
+        j._engine_choice, j._budget_checked, j._engine_gate_seen)
+
+
+@pytest.mark.parametrize("prev", ["bvh", "binned"])
+@pytest.mark.parametrize("spreads", SPREADS)
+@pytest.mark.parametrize("updates,seen", [(0, False), (3, True), (4, True)])
+def test_auto_engine_off_the_card_is_jaxs_gate(prev, spreads, updates, seen):
+    """Off the card the port's rule and gate choose as the JAX node's gate
+    on the same spreads: 2x hysteresis from binned, the period (2 here), a
+    fresh audit on a flip to binned."""
+    j, t = _gates("RC", prev, spreads, updates, seen)
+    assert (t._engine_choice, t._budget_checked, t._engine_gate_seen) == (
+        j._engine_choice, j._budget_checked, j._engine_gate_seen)
+    # the rule alone against the JAX gate evaluated now (the first update)
+    now, _ = _gates("RC", prev, spreads)
+    s, h = (float(x) for x in torch.tensor(spreads, dtype=torch.float32))
+    assert tnode.auto_engine(prev, s, h, 1.0, 0.1) == now._engine_choice
+
+
+def test_engine_counter_counts_each_update(binned_node):
+    """With tracing on, ``rmcl.mcl.engine.<engine>`` counts one for each
+    sensor update, under the engine the update ran."""
+    from rmcl_tpu_torch.utils import timing
+
+    node, mm = binned_node
+    points, mask = _scan(mm.bvh, POSE)
+    tsb = Transform.identity(device="cpu")
+    timing.set_tracing(True)
+    try:
+        node.global_localization([0.5, 0.5, 1.5, 0, 0, -3.1], [12, 9, 1.5, 0, 0, 3.1])
+        node.sensor_update(points, mask, tsb)
+        node.initial_pose_guess(Transform.from_pose_tuple(POSE, device="cpu"),
+                                torch.diag(torch.tensor([1e-3, 1e-3, 1e-4, 1e-6, 1e-6, 1e-4])))
+        for _ in range(2):
+            node.sensor_update(points, mask, tsb)
+        counts = timing.counters()
+    finally:
+        timing.set_tracing(False)
+    assert node._engine_choice == "binned"
+    assert {k: v for k, v in counts.items() if k.startswith("rmcl.mcl.engine.")} == {
+        "rmcl.mcl.engine.bvh": 1, "rmcl.mcl.engine.binned": 2}
 
 
 def test_dynamic_count_resamples_the_live_prefix(binned_node):
