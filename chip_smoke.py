@@ -195,6 +195,7 @@ import numpy as np
 import torch
 
 import rmcl_tpu_torch  # noqa: F401  (outside a checkout of the repo: fail before any output)
+from rmcl_tpu_torch.utils.tune import cp_block_need, cp_budget_need  # noqa: E402
 
 # sizes of the run
 BUILDING_SUBDIV = 45  # make_building_scene: ~480k faces (BASELINE.json config 2 class)
@@ -351,8 +352,9 @@ EXACT_ERR_SLACK = 1e-4
 # corrections part from JAX's by 3.0e-4 (CP, bins) and 1.43e-3 m (CP, BVH),
 # where 18 of 12,911 closest points tie between two faces and the two
 # packages take the other normal: held within twice that. CP on the bins
-# parts from JAX's by 0.33 m at the fifth correction on the CPU already, so
-# past its first correction it is logged beside JAX's, not held
+# runs at budgets that cut no list and is held to JAX's CP on the BVH (the
+# JAX figures for CP on the bins come from its cut lists); past its first
+# correction it is logged beside JAX's, not held
 BUDGETED_TRANS1_JAX = {
     "cp_bins": [8.999881744384766, 3.0009047985076904, 1.5844019651412964],
     "rc_bvh": [9.039022445678711, 2.9736745357513428, 1.3391839265823364],
@@ -1103,16 +1105,14 @@ def gn_gaps(got, want):
 
 
 def phase_gauss_newton(main_r):
-    import dataclasses
-
     from rmcl_tpu_torch.math.se3 import Transform
-    from rmcl_tpu_torch.micp.pipeline import MICPStats, _correct_torch, find_correspondences
+    from rmcl_tpu_torch.micp.pipeline import STATISTICS, _correct_torch, find_correspondences
     from rmcl_tpu_torch.ops import solve_cuda as sc
 
     def plain(sensors, corrs, tom, tbo, progress, config):
         t, stats = _correct_torch(sensors, corrs, tom, tbo, progress, config, None, "rays")
-        return torch.cat([t.rot, t.trans] + [getattr(stats, f.name).reshape(1)
-                                             for f in dataclasses.fields(MICPStats)])
+        return torch.cat([t.rot, t.trans] + [getattr(stats, name).reshape(1)
+                                             for name in STATISTICS])
 
     bins, sensor, config = main_r["bmap"].bins, main_r["sensor"], main_r["config"]
     tom, tbo = Transform.from_pose_tuple(EXACT_START), Transform.identity()
@@ -1778,29 +1778,6 @@ def launch_floor_ms(n_blk, threads):
     return ms
 
 
-def cp_budget_need(bins, q, max_dist, Rq=128, chunk=2048):
-    """Per query block of the binned closest-point engine (cluster order,
-    blocks of Rq): how many supers and bins lie within max_dist of its box,
-    i.e. the c_super and c_bin a block needs for its list to be complete.
-    Returns the two per-block counts."""
-    from rmcl_tpu_torch.ops.closest_point import _box_box_d2
-    from rmcl_tpu_torch.ops.order import cluster_order
-
-    order, _ = cluster_order(q, None)
-    qs = q[order.long()]
-    pad = (-qs.shape[0]) % Rq
-    qb = torch.cat([qs, qs.new_zeros((pad, 3))]).reshape(-1, Rq, 3)  # padded as the engine pads
-    qlo, qhi = qb.amin(dim=1), qb.amax(dim=1)
-    cap = float(np.float32(max_dist) * np.float32(max_dist))
-    need = [[], []]
-    for s in range(0, qb.shape[0], chunk):
-        lo, hi = qlo[s:s + chunk, None], qhi[s:s + chunk, None]
-        for k, boxes in enumerate((bins.super_aabb, bins.bin_aabb)):
-            need[k].append((_box_box_d2(lo, hi, boxes[None, :, :3], boxes[None, :, 3:]) <= cap)
-                           .sum(dim=1))
-    return torch.cat(need[0]), torch.cat(need[1])
-
-
 def cp_candidates_bound(bins, qb, d2b, cs, cb, chunk=2048):
     """Least time for K7's work on these blocks: the box-box tests it runs
     (every super, then the bins of the supers a block keeps: those within
@@ -1819,7 +1796,7 @@ def cp_candidates_bound(bins, qb, d2b, cs, cb, chunk=2048):
     tests = n_blk * bins.n_super + kept * bins.bins_per_super
     ops = tests * OPS_PER_BOX_BOX + n_blk * Rq * OPS_PER_BLOCK_QUERY
     bytes_moved = ((bins.n_super + bins.n_bins) * 24 + n_blk * Rq * 16
-                   + n_blk * (cb * 8 + 4))
+                   + n_blk * (cb * 8 + 5))
     return bound_of(bytes_moved, ops) + (tests,)
 
 
@@ -1852,7 +1829,7 @@ def check_cp_candidates(name, bins, qb, d2b, cs, cb, plain_blocks=None, path_lis
     launch = lambda: cp_candidates(bins, qb, d2b, cs, cb)
     out = dict(max_abs_err=0.0, bitwise=True, blocks=qb.shape[0], plain_blocks=n,
                mean_count=float(k[1].float().mean()), max_count=int(k[1].max()),
-               saturated=int((p[1] == cb).sum()), timed_by="device trace")
+               saturated=int(p[3].sum()), timed_by="device trace")
     out["call_ms"] = cuda_ms(launch, reps=3)
     out["ms"] = device_ms(launch, "cull_boxes_kernel")
     if out["ms"] is None:
@@ -1915,7 +1892,7 @@ def k7_line(name, r):
             f"{r['plain_ms']:.3f} ms ({r['plain_blocks']} blocks), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['tests']:.0f} box-box tests), an empty launch at this grid "
             f"{r['floor_ms']:.4f} ms, roofline {r['bound_ms'] / r['ms']:.2%}; candidates mean "
-            f"{r['mean_count']:.2f}, max {r['max_count']}, {r['saturated']} blocks at the budget")
+            f"{r['mean_count']:.2f}, max {r['max_count']}, {r['saturated']} blocks truncated (sat)")
 
 
 def binned_breakdown(bins, q, max_dist, **budgets):
@@ -1934,7 +1911,7 @@ def binned_breakdown(bins, q, max_dist, **budgets):
     order, inv = cluster_order(q, None)
     qs, md = q[order.long()], max_d2[order.long()]
     ev[1].record()
-    inputs = binned_inputs(bins, qs, md, **budgets)
+    *inputs, _ = binned_inputs(bins, qs, md, **budgets)
     ev[2].record()
     key, best_bin = closest_bins(bins.tri, *inputs)
     ev[3].record()
@@ -1966,6 +1943,16 @@ def phase_exact_main_path(main_r):
         fail("phase 8: a kernel spills to local memory")
     bmap, model = main_r["bmap"], main_r["model"]
     true_pose, config = main_r["true_pose"], main_r["config"]
+    # CP on the bins at budgets that cut no list (every super and bin):
+    # its corrections are then the exact engine's, and held to JAX's CP on
+    # the BVH; JAX's CP on the bins ran at phase 4's ray budgets, cut lists
+    # (its last block padded with origin queries) that the port no longer
+    # reproduces
+    bins = bmap.bins
+    cs_all = bins.n_super
+    cp_config = dataclasses.replace(config, cp_super=cs_all, cp_bin=min(
+        bins.n_bins, cs_all * bins.bins_per_super, closest_cuda.cp_max_keys(cs_all)))
+    held = {"cp_bins": "cp_bvh"}  # the JAX figure each variant is held to
     # the scan to localise against, as the sensor measures it: the exact
     # engine's. Phase 4's scan comes from the bins at the default budgets,
     # which truncate 97 of its 113 blocks and drop 10.3% of the rays; which
@@ -1983,29 +1970,34 @@ def phase_exact_main_path(main_r):
     for key, label, structure, corr, kernel in variants:
         s = dataclasses.replace(sensor, config=MICPSensorConfig.create(max_dist=EXACT_MAX_DIST,
                                                                        corr_type=corr))
-        correct_once(structure, [s], true_pose, tbo, 0.0, config)  # warm-up, not counted
+        cfg = cp_config if key == "cp_bins" else config
+        correct_once(structure, [s], true_pose, tbo, 0.0, cfg)  # warm-up, not counted
         torch.cuda.synchronize()
         tom = Transform.from_pose_tuple(EXACT_START)
         progress = torch.zeros((), device="cuda")
-        times = []
+        times, truncated = [], []
         reset_counts()
         for _ in range(N_CORRECTIONS):
             t = time.perf_counter()
-            tom, stats = correct_once(structure, [s], tom, tbo, progress, config)
+            tom, stats = correct_once(structure, [s], tom, tbo, progress, cfg)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
             progress = stats.convergence_progress
+            truncated.append(stats.truncated_blocks)
         counts = read_counts()
+        if key == "cp_bins" and any(int(n) for n in truncated):
+            fail(f"phase 8 {label}: K7 flags truncated blocks at every super and bin")
         err = float(torch.linalg.vector_norm(tom.trans - true_pose.trans))
         G = bins_groups(-(-model.n_rays // 128), 128, bmap.bins.bin_size, "cuda")
         split = {"K6": f" at P={walk_split(model.n_rays, 'cuda')}", "K6b": f" at G={G}"}
         log(f"phase 8 {label}: {N_CORRECTIONS} corrections x {model.n_rays} rays, median "
             f"{statistics.median(times):.3f} ms/correction (min {min(times):.3f}), final |dt| "
-            f"{err:.3e} m (JAX on the CPU: {EXACT_ERR_JAX[key]:.3e} m), matches "
+            f"{err:.3e} m (JAX on the CPU: {EXACT_ERR_JAX[held.get(key, key)]:.3e} m), matches "
             f"{float(stats.valid_matches):.0f}/{float(stats.valid_measurements):.0f}; launches "
             + ", ".join(f"{k} {v}{split.get(k, '')}" for k, v in counts.items() if v))
-        if not (err <= EXACT_ERR_JAX[key] + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
-            fail(f"phase 8 {label}: final translation error {err} m, JAX's {EXACT_ERR_JAX[key]} m")
+        want = EXACT_ERR_JAX[held.get(key, key)]
+        if not (err <= want + EXACT_ERR_SLACK and bool(torch.isfinite(tom.trans).all())):
+            fail(f"phase 8 {label}: final translation error {err} m, JAX's {want} m")
         for k in (kernel, "K7", "GN") if key == "cp_bins" else (kernel, "GN"):
             if counts[k] != N_CORRECTIONS:
                 fail(f"phase 8 {label}: {k} launched {counts[k]} times in "
@@ -2023,17 +2015,19 @@ def phase_exact_main_path(main_r):
         progress = torch.zeros((), device="cuda")
         trans = []
         for _ in range(N_CORRECTIONS):
-            tom, stats = correct_once(structure, [s], tom, tbo, progress, config)
+            tom, stats = correct_once(structure, [s], tom, tbo, progress,
+                                      cp_config if key == "cp_bins" else config)
             progress = stats.convergence_progress
             trans.append(tom.trans)
         trans = torch.stack(trans).double().cpu()
         errs = torch.linalg.vector_norm(trans - true_pose.trans.double().cpu(), dim=1).tolist()
-        step1 = float((trans[0] - torch.tensor(BUDGETED_TRANS1_JAX[key],
+        step1 = float((trans[0] - torch.tensor(BUDGETED_TRANS1_JAX[held.get(key, key)],
                                                dtype=torch.float64)).abs().max())
         budgeted[key] = dict(errs=errs, step1_gap=step1)
         log(f"phase 8 {label} on phase 4's budgeted scan: |dt| after each correction "
             + ", ".join(f"{e:.3e}" for e in errs) + f" m (JAX on the CPU ends at "
-            f"{BUDGETED_ERR_JAX[key]:.3e} m); the first correction {step1:.3e} m from JAX's")
+            f"{BUDGETED_ERR_JAX[held.get(key, key)]:.3e} m); the first correction {step1:.3e} m "
+            f"from JAX's")
         if not (step1 <= BUDGETED_STEP1_TOL and bool(torch.isfinite(trans).all())):
             fail(f"phase 8 {label} on the budgeted scan: the first correction is {step1} m from "
                  f"JAX's (at most {BUDGETED_STEP1_TOL} m)")
@@ -2069,14 +2063,14 @@ def phase_exact_main_path(main_r):
     order, _ = cluster_order(q, None)
     qs = q[order.long()]
     md = _max_d2(EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19)
-    budgets = dict(c_super=config.c_super, c_bin=config.c_bin)
-    inputs = binned_inputs(bmap.bins, qs, md, **budgets)
+    budgets = dict(zip(("c_super", "c_bin"), cp_config.cp_budgets()))
+    *inputs, sat = binned_inputs(bmap.bins, qs, md, **budgets)
     r6b = check_closest_bins("phase 8 K6b", bmap.bins.tri, inputs)
     log(exact_line(f"phase 8 K6b (G={r6b['groups']}) on the last CP-on-bins correction's "
                    f"{inputs[0].shape[0]} blocks", r6b, ""))
-    cs = min(config.c_super, bmap.bins.n_super)
+    cs = min(cp_config.cp_super, bmap.bins.n_super)
     r7 = check_cp_candidates("phase 8 K7", bmap.bins, inputs[0], inputs[1], cs,
-                             inputs[2].shape[1], path_lists=inputs[2:])
+                             inputs[2].shape[1], path_lists=(*inputs[2:], sat))
     r7.update(launches=runs["cp_bins"]["k7_launches"], correction_ms=runs["cp_bins"]["ms"],
               inputs_ms=cuda_ms(lambda: binned_inputs(bmap.bins, qs, md, **budgets), reps=3))
     log(k7_line("phase 8 K7 on the last CP-on-bins correction's blocks", r7)
@@ -3042,7 +3036,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
     order, _ = cluster_order(q, None)
     qs = q[order.long()]
     md = _max_d2(QUERY_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19)
-    inputs = binned_inputs(sphere_bins, qs, md, **budgets)
+    *inputs, sat = binned_inputs(sphere_bins, qs, md, **budgets)
     r6b = check_closest_bins("phase 9 K6b", sphere_bins.tri, inputs,
                              plain_blocks=S // inputs[0].shape[1],
                              division_blocks=S // inputs[0].shape[1])
@@ -3051,7 +3045,7 @@ def phase_exact_reference_size(sphere_mesh, sphere_bins):
                    f"{r6b['plain_queries']} queries"))
     r7 = check_cp_candidates("phase 9 K7", sphere_bins, inputs[0], inputs[1],
                              min(c_super, sphere_bins.n_super), inputs[2].shape[1],
-                             plain_blocks=K7_PLAIN_BLOCKS, path_lists=inputs[2:])
+                             plain_blocks=K7_PLAIN_BLOCKS, path_lists=(*inputs[2:], sat))
     r7.update(launches=counts["K7"],
               inputs_ms=cuda_ms(lambda: binned_inputs(sphere_bins, qs, md, **budgets), reps=3))
     log(k7_line(f"phase 9 K7 ({inputs[0].shape[0]} blocks, cs={min(c_super, sphere_bins.n_super)}, "
@@ -3203,10 +3197,26 @@ def phase_node_and_tools():
             r7.update(launches=counts["K7"], correction_ms=runs[key]["ms"])
             log(k7_line(f"phase 12 K7 on the CP run's last {qb.shape[0]} blocks (cs={cs}, "
                         f"cb={cb})", r7))
-            # K6b on the same lists: what the larger adopted budgets cost it,
-            # and the candidates each block visits (slot < count, bound <=
-            # the block's final worst key), which its one CTA walks in turn
-            lists = cp_candidates(bins, qb, d2b, cs, cb)
+            # the node's own CP audit set (cs, cb) from each block's need
+            # (utils/tune.py): which block needs most, and the padded last one's
+            need_s, need_b = cp_block_need(bins, qb, d2b)
+            widest = int(torch.argmax(need_b))
+            last = qb.shape[0] - 1
+            padded = model.n_rays % qb.shape[1] != 0
+            runs[key].update(cs=cs, cb=cb, need_super=int(need_s.max()),
+                             need_bin=int(need_b.max()), widest_block=widest,
+                             widest_is_padded=padded and widest == last)
+            log(f"phase 12 CP audit: adopted cs={cs}, cb={cb}; the widest block is {widest} of "
+                f"{qb.shape[0]} ({int(need_s[widest])} supers, {int(need_b[widest])} bins; the "
+                f"most supers a block needs {int(need_s.max())}), the last block "
+                f"{'padded' if padded else 'whole'}: {int(need_s[last])} supers, "
+                f"{int(need_b[last])} bins; {r7['saturated']} blocks truncated")
+            if r7["saturated"]:
+                fail(f"phase 12 {label}: the audited budgets truncate {r7['saturated']} blocks")
+            # K6b on the same lists: what the adopted budgets cost it, and
+            # the candidates each block visits (slot < count, bound <= the
+            # block's final worst key), which its one CTA walks in turn
+            lists = cp_candidates(bins, qb, d2b, cs, cb)[:3]
             k6b = lambda: closest_bins(bins.tri, qb, d2b, *lists)
             k6b_ms = device_ms(k6b, "closest_bins")
             runs[key]["k6b_ms"] = k6b_ms if k6b_ms is not None else cuda_ms(k6b)

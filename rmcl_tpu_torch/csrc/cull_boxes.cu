@@ -19,7 +19,10 @@
 //            by the key (bits(d2), position) with position = rank * S + s
 //            (the plain version's float path);
 //   output:  cand_bin (-1 past the count), cand_count, cand_dlb (the packed
-//            key's truncated d2, or d2; 3e38 past the count).
+//            key's truncated d2, or d2; 3e38 past the count), and sat: 1
+//            where more supers passed than cs keeps or more bins of the
+//            kept supers passed than cb keeps (the list may then miss a
+//            nearer surface), else 0.
 //
 // d2 >= +0.0, so the unsigned order of its bits is the float order, and
 // every key is unique: the kept keys, sorted, are the plain version's list.
@@ -67,6 +70,7 @@ struct BoxArgs {
   int* cand_bin;            // (n_blk, cb)
   int* cand_count;          // (n_blk,)
   float* cand_dlb;          // (n_blk, cb)
+  unsigned char* sat;       // (n_blk,) bool: a budget truncated the block's list
   int n_blk, Rq, n_super, n_bins, S, cs, cb;
   unsigned idm;   // the packed key's id bits
   int packed;     // 1: packed keys (bin ids within 20 bits); 0: (bits(d2), position)
@@ -146,9 +150,9 @@ __global__ void __launch_bounds__(T) cull_boxes_kernel(const BoxArgs A) {
   };
   u64* kept;
   const auto supers = on_threads<T>(A.n_super, super_key);
-  const int k0 = min(cull_level<T>(supers, supers, A.n_super, A.cs, 31 + sh0, region,
-                                   A.key_slots, s, &kept),
-                     A.cs);
+  const int n0 = cull_level<T>(supers, supers, A.n_super, A.cs, 31 + sh0, region, A.key_slots,
+                               s, &kept);
+  const int k0 = min(n0, A.cs);
   for (int k = tid; k < k0; k += T) s_sup[k] = (int)(kept[k] & ((1ULL << sh0) - 1ULL));
   __syncthreads();
 
@@ -163,9 +167,9 @@ __global__ void __launch_bounds__(T) cull_boxes_kernel(const BoxArgs A) {
     return d2 <= d2cap;
   };
   const auto bins = on_threads<T>(k0 * A.S, bin_key);
-  const int m = min(cull_level<T>(bins, bins, k0 * A.S, A.cb, A.packed ? 31 : 31 + sh1, region,
-                                  A.key_slots, s, &kept),
-                    A.cb);
+  const int passed = cull_level<T>(bins, bins, k0 * A.S, A.cb, A.packed ? 31 : 31 + sh1, region,
+                                   A.key_slots, s, &kept);
+  const int m = min(passed, A.cb);
   for (int k = tid; k < A.cb; k += T) {
     int id = -1;
     float dlb = kBig;
@@ -183,7 +187,10 @@ __global__ void __launch_bounds__(T) cull_boxes_kernel(const BoxArgs A) {
     A.cand_bin[(size_t)blk * A.cb + k] = id;
     A.cand_dlb[(size_t)blk * A.cb + k] = dlb;
   }
-  if (tid == 0) A.cand_count[blk] = m;
+  if (tid == 0) {
+    A.cand_count[blk] = m;
+    A.sat[blk] = (unsigned char)(n0 > A.cs || passed > A.cb);
+  }
 }
 
 // a kernel that does nothing: at K7's grid, the device time of a launch

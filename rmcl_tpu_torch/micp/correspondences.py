@@ -9,6 +9,7 @@ binned engine).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -24,11 +25,15 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Correspondences:
-    """Dataset↔model correspondence buffers in the sensor frame."""
+    """Dataset↔model correspondence buffers in the sensor frame.
+    ``truncated``: of a closest-point search on bins, the count (an int64
+    device scalar) of query blocks whose candidate list a budget cut; None
+    for every other search."""
 
     model_points: Tensor  # (N, 3)
     model_normals: Tensor  # (N, 3) unit, oriented toward the sensor
     found: Tensor  # (N,) bool — sim hit (RC) / within max_dist (CP)
+    truncated: Optional[Tensor] = None
 
 
 def find_rcc(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
@@ -52,16 +57,21 @@ def find_rcc(bvh: "BVH | TriangleBins", model: SensorModel, tsm: Transform,
 
 def find_cpc(bvh: "BVH | TriangleBins", dataset_points: Tensor, dataset_mask: Tensor,
              tsm: Transform, max_dist, chunk_size: int = 65536, c_super: int = 24,
-             c_bin: int = 96) -> Correspondences:
+             c_bin: int = 96, cluster_by: Tensor | None = None) -> Correspondences:
     """Closest-point correspondences: for every dataset point (sensor frame)
     the nearest mesh surface point within ``max_dist`` (the reference's
     CPCEmbree::find: into the map frame, closest point, back into the
     sensor frame, found = within ``max_dist``). ``bvh`` may be
     ``TriangleBins``; the dense binned distance engine then serves the
-    query."""
+    query, in blocks of the Morton order of ``cluster_by`` (N, 3) where
+    given, else of the map-frame points, and ``truncated`` counts the
+    blocks its budgets cut (on the device, no sync)."""
     p_map = tsm.apply(dataset_points)
+    truncated = None
     if isinstance(bvh, TriangleBins):
-        cp = closest_points_binned(bvh, p_map, max_dist=max_dist, c_super=c_super, c_bin=c_bin)
+        cp, sat = closest_points_binned(bvh, p_map, max_dist=max_dist, c_super=c_super,
+                                        c_bin=c_bin, with_sat=True, cluster_by=cluster_by)
+        truncated = torch.sum(sat, dtype=torch.int64)
     else:
         cp = closest_points(bvh, p_map, max_dist=max_dist, chunk_size=chunk_size)
     inv = tsm.inverse()
@@ -75,4 +85,5 @@ def find_cpc(bvh: "BVH | TriangleBins", dataset_points: Tensor, dataset_mask: Te
         model_points=torch.where(found3, inv.apply(cp.point), 0.0),
         model_normals=torch.where(found3, inv.rotate(normal), 0.0),
         found=found,
+        truncated=truncated,
     )

@@ -157,10 +157,12 @@ class MICPLocalization:
         self._odom_hist: List = []  # [(stamp, Tbo)]: the last two stamped samples
         self.corrections = 0
         self.last_stats: Optional[MICPStats] = None
-        # one-shot audit of the dense engine's budgets before the first
-        # binned correction: adopts corrected budgets unless
-        # engine_options.auto_budget is false, in which case it warns
+        # audit of the dense engine's budgets before the first binned
+        # correction (RC sensors' ray cull) and before each new scan of a
+        # CP sensor (the closest-point cull): adopts corrected budgets
+        # unless engine_options.auto_budget is false, in which case it warns
         self._budget_checked = False
+        self._cp_budget_checked = False
         self._auto_budget = bool(self.config.get("engine_options.auto_budget", True))
         # ingest diagnostics thresholds (reference: a warning at 0.5 s of
         # delay, clock-type mismatches dropped, MICPSphericalSensorCPU.cpp:104-124)
@@ -338,22 +340,41 @@ class MICPLocalization:
         return stats
 
     def _correct(self, active: List[MICPSensorState]) -> MICPStats:
-        sensor_data = []
+        sensor_data, fresh = [], []
         for s in active:
             if s.device_data is None or s.outdated:
                 with timing.span("rmcl.micp.upload"):
+                    points = torch.from_numpy(s.points).to(self.device)
+                    # a CP scan on bins keeps the query blocks of its first
+                    # correction for the others (their budgets audited once)
+                    order_points = None
+                    if self.engine == "binned" and s.config.corr_type == "CP":
+                        order_points = (self.tom @ self.tbo @ s.tsb).apply(points)
                     s.device_data = MICPSensorData(
                         model=s.model,
-                        points=torch.from_numpy(s.points).to(self.device),
+                        points=points,
                         mask=torch.from_numpy(s.mask).to(self.device),
                         tsb=s.tsb,
                         config=s.config,
+                        cp_order_points=order_points,
                     )
+                fresh.append(s.device_data)
             sensor_data.append(s.device_data)
         accel = self.map.bins if self.engine == "binned" else self.map.bvh
-        if self.engine == "binned" and not self._budget_checked:
-            with timing.span("rmcl.micp.audit"):
-                self._check_budgets(sensor_data)
+        if self.engine == "binned":
+            rc = [] if self._budget_checked else [d for d in sensor_data
+                                                  if d.config.corr_type != "CP"]
+            # CP: each new scan (a later scan of a loop can need more than
+            # the first), or only the first where budgets are not adopted
+            cp = [d for d in fresh if d.config.corr_type == "CP"]
+            if self._cp_budget_checked and not self._auto_budget:
+                cp = []
+            if rc or cp:
+                with timing.span("rmcl.micp.audit"):
+                    if rc:
+                        self._check_budgets(rc)
+                    if cp:
+                        self._check_cp_budgets(cp)
         tom_new, stats = correct_once(accel, sensor_data, self.tom, self.tbo,
                                       self.convergence_progress, config=self.micp_config)
         self.tom = tom_new
@@ -377,11 +398,11 @@ class MICPLocalization:
     # -- outputs -----------------------------------------------------------
 
     def _check_budgets(self, sensor_data) -> None:
-        """Audit the dense engine's candidate budgets on every sensor's scan
-        rays from the current pose estimate (the block composition the
+        """Audit the dense engine's candidate budgets on every RC sensor's
+        scan rays from the current pose estimate (the block composition the
         correction casts) through the engine's own cull, whose saturation
-        flag covers every level. CP sensors are covered by the same
-        recommendation (a conservative margin)."""
+        flag covers every level. CP sensors have an audit of their own
+        (:meth:`_check_cp_budgets`); the JAX node covers them by this one."""
         import warnings
 
         from rmcl_tpu_torch.ops.raycast_binned import block_cull_stats
@@ -422,6 +443,47 @@ class MICPLocalization:
               f"auto-adopting c_super={self.micp_config.c_super} "
               f"c_bin={self.micp_config.c_bin} c_mid={self.micp_config.c_mid} "
               f"(worst sampled block: {rec.max_bins} bins)")
+
+    def _check_cp_budgets(self, sensor_data) -> None:
+        """Audit the closest-point query's budgets on each CP sensor's new
+        scan from the current pose estimate: the supers and bins within
+        each query block's bound of its box, in the blocks the query forms
+        and keeps for the scan (``cp_order_points``, the scan's points in
+        the map frame at this pose;
+        :func:`~rmcl_tpu_torch.utils.tune.suggest_cp_budgets`, one
+        readback). Where the CP budgets (``MICPConfig.cp_budgets``) do not
+        cover the widest block with the suggestion's margin, adopts budgets
+        that do (they only grow), unless engine_options.auto_budget is
+        false, in which case it warns. The RC budgets stay as they are."""
+        import warnings
+
+        from rmcl_tpu_torch.utils.tune import suggest_cp_budgets
+
+        self._cp_budget_checked = True
+        cfg = self.micp_config
+        cs, cb = cfg.cp_budgets()
+        need, rec = (0, 0), (cs, cb)
+        for data in sensor_data:
+            c_super, c_bin, ns, nb = suggest_cp_budgets(self.map.bins, data.cp_order_points,
+                                                        data.config.max_dist)
+            need = (max(need[0], ns), max(need[1], nb))
+            rec = (max(rec[0], c_super), max(rec[1], c_bin))
+        if rec == (cs, cb):
+            return
+        if not self._auto_budget:
+            short = "truncate" if need[0] > cs or need[1] > cb else "leave no margin"
+            warnings.warn(
+                f"MICP closest-point budgets {short} (the widest query block needs {need[0]} "
+                f"supers and {need[1]} bins, c_super={cs}/c_bin={cb}) — correspondences may "
+                f"miss nearer geometry. Raise engine_options budgets or enable "
+                f"engine_options.auto_budget.",
+                stacklevel=4,
+            )
+            return
+        self.micp_config = dataclasses.replace(cfg, cp_super=rec[0], cp_bin=rec[1])
+        print(f"[rmcl_tpu_torch] MICP closest-point budgets short of the margin at "
+              f"c_super={cs} c_bin={cb}; auto-adopting cp_super={rec[0]} cp_bin={rec[1]} "
+              f"(widest query block: {need[0]} supers, {need[1]} bins)")
 
     def pose_base_map(self) -> Transform:
         """Tbm = Tom * Tbo: the tracked base pose in the map frame."""

@@ -30,7 +30,7 @@ differs from the unsharded path by float32 rounding.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,13 +73,19 @@ class MICPSensorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MICPSensorData:
-    """One sensor's frozen measurement snapshot."""
+    """One sensor's frozen measurement snapshot. ``cp_order_points``: (N,
+    3) points whose Morton order blocks a closest-point query on bins (the
+    node's: the map-frame points at the scan's first correction, so the
+    scan keeps its blocks, and the budgets audited for them, from one pose
+    estimate to the next); None orders each correction's map-frame points,
+    as the JAX package does."""
 
     model: SensorModel
     points: Tensor  # (N, 3) dataset points, sensor frame
     mask: Tensor  # (N,) valid (range-gated) measurements
     tsb: Transform  # sensor → base
     config: MICPSensorConfig
+    cp_order_points: Optional[Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +97,10 @@ class MICPConfig:
     then a point-to-point Umeyama/Kabsch solve — the reference's scheme).
     ``c_super``/``c_bin`` are the binned engine's candidate budgets;
     ``c_mid`` > 0 adds the ray cull's mid level and ``c_hyper`` > 0 its
-    hyper level (bins built with one), 0 leaving each off."""
+    hyper level (bins built with one), 0 leaving each off. ``cp_super``/
+    ``cp_bin`` > 0 are the closest-point query's own budgets (its cull, K7,
+    needs others than the ray cull); 0 takes ``c_super``/``c_bin``, the
+    JAX package's one pair."""
 
     optimization_iterations: int = 5
     adaptive_max_dist: bool = True
@@ -102,17 +111,33 @@ class MICPConfig:
     c_bin: int = 96
     c_mid: int = 0
     c_hyper: int = 0
+    cp_super: int = 0
+    cp_bin: int = 0
+
+    def cp_budgets(self) -> Tuple[int, int]:
+        """The closest-point query's (c_super, c_bin)."""
+        return self.cp_super or self.c_super, self.cp_bin or self.c_bin
+
+
+# the statistics MICPStats carries for every correction
+STATISTICS = ("total_measurements", "valid_measurements", "valid_matches", "covariance_trace",
+              "convergence_progress")
 
 
 @dataclasses.dataclass(frozen=True)
 class MICPStats:
-    """Per-correction statistics."""
+    """Per-correction statistics (:data:`STATISTICS`), and
+    ``truncated_blocks``: the closest-point query blocks on bins whose
+    candidate list a budget cut, summed over the CP sensors (an int64
+    device scalar, never read back by the correction); None where no
+    closest-point query ran on bins."""
 
     total_measurements: Tensor
     valid_measurements: Tensor
     valid_matches: Tensor  # merged n_meas
     covariance_trace: Tensor
     convergence_progress: Tensor
+    truncated_blocks: Optional[Tensor] = None
 
 
 def statistics_p2l(pre_transform: Transform, dataset: Tensor, corr: Correspondences,
@@ -232,11 +257,13 @@ def _annealed_max_dist(cfg: MICPSensorConfig, progress: Tensor, enabled: bool):
 def find_correspondences(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
                          tbm: Transform, chunk_size: int = 262144, c_super: int = 24,
                          c_bin: int = 96, c_mid: int = 0, c_hyper: int = 0, mesh=None,
-                         axis: str = "rays") -> Tuple[Correspondences, ...]:
+                         axis: str = "rays", cp_super: int = 0,
+                         cp_bin: int = 0) -> Tuple[Correspondences, ...]:
     """One correspondence search per sensor from the pose estimate: closest
-    points for a ``"CP"`` sensor (gated at its ``max_dist``), a ray cast
-    otherwise (``c_mid``/``c_hyper`` reach only the ray cast, as in the JAX
-    package).
+    points for a ``"CP"`` sensor (gated at its ``max_dist``; on bins at the
+    budgets ``cp_super``/``cp_bin``, where 0 takes ``c_super``/``c_bin``), a
+    ray cast otherwise (``c_mid``/``c_hyper`` reach only the ray cast, as in
+    the JAX package).
 
     ``mesh`` (a :class:`~rmcl_tpu_torch.parallel.mesh.Mesh`) with the rays
     sharded over its ``axis``: each sensor's points and mask are this rank's
@@ -252,7 +279,8 @@ def find_correspondences(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensor
         tsm = tbm @ s.tsb
         if s.config.corr_type == "CP":
             out.append(find_cpc(bvh, s.points, s.mask, tsm, s.config.max_dist,
-                                chunk_size=chunk_size, c_super=c_super, c_bin=c_bin))
+                                chunk_size=chunk_size, c_super=cp_super or c_super,
+                                c_bin=cp_bin or c_bin, cluster_by=s.cp_order_points))
         else:
             out.append(find_rcc(bvh, s.model, tsm, chunk_size=chunk_size, c_super=c_super,
                                 c_bin=c_bin, c_mid=c_mid, c_hyper=c_hyper))
@@ -275,10 +303,15 @@ def correct_once(bvh: "BVH | TriangleBins", sensors: Sequence[MICPSensorData],
         corrs = find_correspondences(bvh, sensors, tom @ tbo, chunk_size=chunk_size,
                                      c_super=config.c_super, c_bin=config.c_bin,
                                      c_mid=config.c_mid, c_hyper=config.c_hyper, mesh=mesh,
-                                     axis=axis)
+                                     axis=axis, cp_super=config.cp_super, cp_bin=config.cp_bin)
     with timing.span("rmcl.micp.optimize"):
-        return correct_from_correspondences(sensors, corrs, tom, tbo,
-                                            convergence_progress, config, mesh=mesh, axis=axis)
+        tom_new, stats = correct_from_correspondences(sensors, corrs, tom, tbo,
+                                                      convergence_progress, config, mesh=mesh,
+                                                      axis=axis)
+    truncated = [c.truncated for c in corrs if c.truncated is not None]
+    if truncated:  # this rank's blocks, where sharded
+        stats = dataclasses.replace(stats, truncated_blocks=sum(truncated[1:], truncated[0]))
+    return tom_new, stats
 
 
 def correct_from_correspondences(
@@ -313,7 +346,7 @@ def _correct_fused(sensors, corrs, tom: Transform, tbo: Transform, progress_in: 
     out = p2l_gauss_newton(sensors, corrs, tom, tbo, progress_in, config)
     timing.count("rmcl.micp.optimize.fused", 1)
     return Transform(rot=out[OUT_SLICES["rot"]], trans=out[OUT_SLICES["trans"]]), MICPStats(
-        **{f.name: out[OUT_SLICES[f.name]] for f in dataclasses.fields(MICPStats)})
+        **{name: out[OUT_SLICES[name]] for name in STATISTICS})
 
 
 def _correct_torch(sensors, corrs, tom: Transform, tbo: Transform, progress_in: Tensor,

@@ -37,7 +37,9 @@ Contract of ``cp_candidates``: the bins' ``super_aabb (n_super, 6)`` and
 ``bin_aabb (n_bins, 6)``; query blocks ``qb (n_blk, Rq, 3)`` and bounds
 ``d2b (n_blk, Rq)``; budgets ``cs <= n_super`` supers and ``1 <= cb <= cs
 x S`` bins. Returns K6b's candidate lists ``cand_bin (n_blk, cb)`` int32,
-``cand_count (n_blk,)`` int32 and ``cand_dlb (n_blk, cb)`` float32.
+``cand_count (n_blk,)`` int32 and ``cand_dlb (n_blk, cb)`` float32, and
+``sat (n_blk,)`` bool: True where more supers passed the block's bound than
+cs keeps, or more bins of the kept supers than cb keeps (as K3's flag).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class _BoxArgs(ctypes.Structure):
     """K7's argument struct (``BoxArgs`` in ``csrc/cull_boxes.cu``), field
     for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("qb", "d2b", "super_aabb", "bin_aabb",
-                                                 "cand_bin", "cand_count", "cand_dlb")]
+                                                 "cand_bin", "cand_count", "cand_dlb", "sat")]
                 + [(n, ctypes.c_int) for n in ("n_blk", "Rq", "n_super", "n_bins", "S", "cs",
                                                "cb")]
                 + [("idm", ctypes.c_uint), ("packed", ctypes.c_int), ("threads", ctypes.c_int),
@@ -580,6 +582,11 @@ _K7_WIDE_KEYS = 1024
 _K7_STAGE_MAX = 16384
 
 
+def cp_max_keys(cs: int) -> int:
+    """The most keys K7's kept list may hold beside ``cs`` kept supers."""
+    return (_SMEM_CAP - _K7_STATIC_SMEM - 4 * cs) // 8
+
+
 def cp_launch_plan(n_blk: int, n_super: int, S: int, cs: int, cb: int,
                    fill: int = _H100_THREADS) -> tuple[int, int, int]:
     """K7's launch shape for n_blk query blocks against n_super supers of S
@@ -594,7 +601,7 @@ def cp_launch_plan(n_blk: int, n_super: int, S: int, cs: int, cb: int,
     keys when the whole grid is resident at that width (``fill``: the card's
     threads, as :func:`fill_threads` counts them)."""
     sup_bytes = 4 * cs
-    most = (_SMEM_CAP - _K7_STATIC_SMEM - sup_bytes) // 8
+    most = cp_max_keys(cs)
     if max(cs, cb) > most:
         raise ValueError(f"cb={cb} candidate keys (cs={cs} supers) do not fit a CTA's shared "
                          f"memory: a kept list holds at most {most} keys")
@@ -610,7 +617,9 @@ def cp_launch_plan(n_blk: int, n_super: int, S: int, cs: int, cb: int,
 def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: int = 256):
     """Nearest-first candidate bins per query block of the binned
     closest-point query: the cs nearest supers of each block's query box
-    within its greatest bound, then the cb nearest of their bins.
+    within its greatest bound, then the cb nearest of their bins. Returns
+    ``(cand_bin, cand_count, cand_dlb, sat)``; ``sat`` flags the blocks
+    whose list a budget truncated.
 
     CUDA tensors launch K7 once for every block (or raise); CPU tensors take
     the plain version, :func:`rmcl_tpu_torch.ops.closest_point._cp_candidates`,
@@ -633,7 +642,7 @@ def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: 
         step = max(1, int(block_chunk))
         parts = [closest_point._cp_candidates(bins, qb[s:s + step], d2cap[s:s + step], cs, cb)
                  for s in range(0, max(n_blk, 1), step)]
-        return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
+        return tuple(torch.cat([p[k] for p in parts]) for k in range(4))
     if dev.type != "cuda":
         raise ValueError(f"cp_candidates runs on cuda or cpu tensors, not {dev}")
     threads, slots, _ = cp_launch_plan(n_blk, n_super, S, cs, cb, fill_threads(dev))
@@ -642,16 +651,17 @@ def cp_candidates(bins, qb: Tensor, d2b: Tensor, cs: int, cb: int, block_chunk: 
     cand_bin = torch.empty((n_blk, cb), dtype=torch.int32, device=dev)
     cand_count = torch.empty((n_blk,), dtype=torch.int32, device=dev)
     cand_dlb = torch.empty((n_blk, cb), dtype=torch.float32, device=dev)
+    sat = torch.empty((n_blk,), dtype=torch.bool, device=dev)
     args = _BoxArgs(qb.data_ptr(), d2b.data_ptr(), bins.super_aabb.data_ptr(),
                     bins.bin_aabb.data_ptr(), cand_bin.data_ptr(), cand_count.data_ptr(),
-                    cand_dlb.data_ptr(), n_blk, Rq, n_super, n_bins, S, cs, cb,
+                    cand_dlb.data_ptr(), sat.data_ptr(), n_blk, Rq, n_super, n_bins, S, cs, cb,
                     (1 << id_bits) - 1 if packed else 0, int(packed), threads, slots)
     with torch.cuda.device(dev):
         err = _boxes_kernel()(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"cp_candidates kernel launch failed: cudaError {err}")
     cp_candidates.launches += 1
-    return cand_bin, cand_count, cand_dlb
+    return cand_bin, cand_count, cand_dlb, sat
 
 
 cp_candidates.launches = 0

@@ -23,6 +23,7 @@ from rmcl_tpu_torch.bvh.bins import TriangleBins
 from rmcl_tpu_torch.bvh.types import BVH
 from rmcl_tpu_torch.ops.closest_cuda import closest_bins, closest_bvh, cp_candidates, walk_split
 from rmcl_tpu_torch.ops.order import cluster_order
+from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -165,7 +166,8 @@ def _cp_candidates(bins: TriangleBins, q_blk: Tensor, d2cap: Tensor, cs: int, cb
 
     Two-level cull by box-box distance lower bounds. Returns (cand_bin (Cb,
     cb) int32 -1-padded, cand_count (Cb,) int32, cand_dlb (Cb, cb)
-    squared-distance lower bounds, ascending)."""
+    squared-distance lower bounds, ascending, sat (Cb,) bool: more supers
+    passed than cs keeps, or more bins of the kept supers than cb keeps)."""
     Cb = q_blk.shape[0]
     S = bins.bins_per_super
     n_super = bins.n_super
@@ -211,49 +213,75 @@ def _cp_candidates(bins: TriangleBins, q_blk: Tensor, d2cap: Tensor, cs: int, cb
         cand_bin = torch.where(cand_score > -3.0e38, torch.gather(gbin, 1, cand_pos), -1)
         cand_dlb = torch.where(cand_bin >= 0, -cand_score, 3.0e38)
     cand_count = torch.sum(cand_bin >= 0, dim=1).to(torch.int32)
-    return cand_bin.to(torch.int32).contiguous(), cand_count, cand_dlb.contiguous()
+    sat = (torch.sum(ok_s, dim=1) > cs) | (torch.sum(valid, dim=1) > cb)
+    return cand_bin.to(torch.int32).contiguous(), cand_count, cand_dlb.contiguous(), sat
+
+
+def query_blocks(q: Tensor, max_d2: Tensor, block_size: int = 128):
+    """Queries ``q (n, 3)`` and their bounds in blocks of ``block_size``, in
+    the order given: ``(qb (n_blk, Rq, 3), d2b (n_blk, Rq))``. The last
+    block is padded with copies of the last query at max_d2 = 0, so its box
+    is its real queries' box. (The JAX package pads with origin queries,
+    whose box can reach across the map: the widest need of a scan, which
+    its budgets then truncate.)"""
+    n = q.shape[0]
+    Rq = block_size
+    n_pad = (-n) % Rq
+    if n_pad:
+        q = torch.cat([q, q[-1:].expand(n_pad, 3)], 0)
+        max_d2 = torch.cat([max_d2, max_d2.new_zeros((n_pad,))], 0)
+    n_blk = (n + n_pad) // Rq
+    return q.reshape(n_blk, Rq, 3).contiguous(), max_d2.reshape(n_blk, Rq).contiguous()
+
+
+def cp_budgets(bins: TriangleBins, c_super: int, c_bin: int) -> tuple[int, int]:
+    """The (cs, cb) K7 runs at for budgets (c_super, c_bin) on ``bins``."""
+    cs = min(c_super, bins.n_super)
+    return cs, min(c_bin, bins.n_bins, cs * bins.bins_per_super)
 
 
 def binned_inputs(bins: TriangleBins, q: Tensor, max_d2: Tensor, block_size: int = 128,
                   c_super: int = 24, c_bin: int = 96, block_chunk: int = 256):
     """K6b's inputs for queries ``q (n, 3)`` in the order given: the query
-    blocks (the last padded with origin queries at max_d2 = 0, as the JAX
-    package pads) and their candidate lists, from one K7 launch on the
-    card. Returns ``(qb, d2b, cand_bin, cand_count, cand_dlb)``; on the CPU
-    ``block_chunk`` blocks at a time go through the plain cull (memory
-    only: each block's list is its own)."""
+    blocks (:func:`query_blocks`) and their candidate lists, from one K7
+    launch on the card, and K7's per-block ``sat`` flags. Returns ``(qb,
+    d2b, cand_bin, cand_count, cand_dlb, sat)``: the first five are K6b's
+    arguments. On the CPU ``block_chunk`` blocks at a time go through the
+    plain cull (memory only: each block's list is its own)."""
     B = bins.bin_size
     if B & (B - 1):
         raise ValueError("bin_size must be a power of two (packed-key min)")
-    n = q.shape[0]
-    Rq = block_size
-    n_pad = (-n) % Rq
-    if n_pad:
-        q = torch.cat([q, q.new_zeros((n_pad, 3))], 0)
-        max_d2 = torch.cat([max_d2, max_d2.new_zeros((n_pad,))], 0)
-    n_blk = (n + n_pad) // Rq
-    qb = q.reshape(n_blk, Rq, 3).contiguous()
-    d2b = max_d2.reshape(n_blk, Rq).contiguous()
-    cs = min(c_super, bins.n_super)
-    cb = min(c_bin, bins.n_bins, cs * bins.bins_per_super)
-    return (qb, d2b) + cp_candidates(bins, qb, d2b, cs, cb, block_chunk)
+    qb, d2b = query_blocks(q, max_d2, block_size)
+    return (qb, d2b) + cp_candidates(bins, qb, d2b, *cp_budgets(bins, c_super, c_bin),
+                                     block_chunk)
 
 
 def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
                           block_size: int = 128, c_super: int = 24, c_bin: int = 96,
-                          block_chunk: int = 256, cluster: bool = True) -> ClosestPoints:
+                          block_chunk: int = 256, cluster: bool = True,
+                          with_sat: bool = False, cluster_by: Tensor | None = None):
     """Dense closest-point query (drop-in for :func:`closest_points`).
 
     Query blocks are culled against super-bins and bins by box-box distance
     lower bounds (never a false cull); the surviving bins are tested by the
     K6b kernel, nearest first with a block-wide early exit.
     ``cluster=True`` Morton-sorts the queries so arbitrary orders form
-    tight blocks (the result order is restored).
+    tight blocks (the result order is restored); ``cluster_by``, (n, 3)
+    points to sort by in the queries' place: a scan's points as they lay
+    at one pose estimate keep its blocks while the estimate moves.
 
     Candidate budgets (c_super, c_bin) follow the binned ray caster's
     contract: a block needing more candidates than the budget may return a
-    farther-than-true point. ``block_chunk`` blocks at a time go through the
-    candidate cull on the CPU (memory only)."""
+    farther-than-true point, and K7 flags it. ``with_sat=True`` returns
+    ``(ClosestPoints, sat)`` with ``sat (n_blk,)`` bool, the flags.
+    ``block_chunk`` blocks at a time go through the candidate cull on the
+    CPU (memory only).
+
+    With tracing on (:func:`rmcl_tpu_torch.utils.timing.set_tracing`): the
+    spans ``rmcl.closest.cull`` (order, blocks, K7), ``rmcl.closest.query``
+    (K6b) and ``rmcl.closest.winners``; the device counters
+    ``rmcl.closest.pairs`` (sum over blocks of the list's length x the
+    block's queries) and ``rmcl.closest.truncated_blocks`` (the flags)."""
     dev = bins.device
     queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     batch_shape = queries.shape[:-1]
@@ -264,16 +292,22 @@ def closest_points_binned(bins: TriangleBins, queries: Tensor, max_dist=3.0e38,
     max_d2 = _max_d2(max_dist, batch_shape, dev, cap=1.7e19)
 
     inv_perm = None
-    if cluster and n > block_size:
-        order, inv_perm = cluster_order(q, None)
-        q = q[order.long()]
-        max_d2 = max_d2[order.long()]
-
-    inputs = binned_inputs(bins, q, max_d2, block_size, c_super, c_bin, block_chunk)
-    best_key, best_bin = closest_bins(bins.tri, *inputs)
-    out = binned_winners(bins, q, max_d2, best_key, best_bin, inv_perm)
-    return ClosestPoints(**{f.name: getattr(out, f.name).reshape(
-        batch_shape + getattr(out, f.name).shape[1:]) for f in dataclasses.fields(out)})
+    with timing.span("rmcl.closest.cull"):
+        if cluster and n > block_size:
+            order, inv_perm = cluster_order(q if cluster_by is None else
+                                            cluster_by.reshape(-1, 3).to(q.device), None)
+            q = q[order.long()]
+            max_d2 = max_d2[order.long()]
+        *inputs, sat = binned_inputs(bins, q, max_d2, block_size, c_super, c_bin, block_chunk)
+    timing.count_device("rmcl.closest.pairs", inputs[3], block_size)
+    timing.count_device("rmcl.closest.truncated_blocks", sat)
+    with timing.span("rmcl.closest.query"):
+        best_key, best_bin = closest_bins(bins.tri, *inputs)
+    with timing.span("rmcl.closest.winners"):
+        out = binned_winners(bins, q, max_d2, best_key, best_bin, inv_perm)
+        out = ClosestPoints(**{f.name: getattr(out, f.name).reshape(
+            batch_shape + getattr(out, f.name).shape[1:]) for f in dataclasses.fields(out)})
+    return (out, sat) if with_sat else out
 
 
 def binned_winners(bins: TriangleBins, q: Tensor, max_d2: Tensor, best_key: Tensor,

@@ -187,7 +187,7 @@ def main():
               _max_d2(chip_smoke.EXACT_MAX_DIST, q.shape[:1], "cuda"), card)
     order, _ = cluster_order(q, None)
     inputs = binned_inputs(bmap.bins, q[order.long()],
-                           _max_d2(chip_smoke.EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19))
+                           _max_d2(chip_smoke.EXACT_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19))[:5]
     probe_bins("phase 8", bins_k, parent_bins, bmap.bins.tri, inputs, card)
     del bmap, inputs
 
@@ -208,7 +208,7 @@ def main():
     inputs = binned_inputs(bins, q[order.long()],
                            _max_d2(chip_smoke.QUERY_MAX_DIST, q.shape[:1], "cuda", cap=1.7e19),
                            c_super=int(need_s.max()), c_bin=int(need_b.max()),
-                           block_chunk=chip_smoke.QUERY_BLOCK_CHUNK)
+                           block_chunk=chip_smoke.QUERY_BLOCK_CHUNK)[:5]
     probe_bins("phase 9", bins_k, parent_bins, bins.tri, inputs, card)
 
 

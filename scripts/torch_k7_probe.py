@@ -62,10 +62,19 @@ from scripts.torch_k5_probe import interleaved_ms
 OUT_DIR = _build.BUILD_DIR.parent / "k7_probe"
 
 
+_NO_SAT = [f for f in closest_cuda._BoxArgs._fields_ if f[0] != "sat"]
+
+
+class FlaglessBoxArgs(ctypes.Structure):
+    """An older planned entry's struct: this one's without the sat flags."""
+    _fields_ = _NO_SAT
+
+
 class ParentBoxArgs(ctypes.Structure):
-    """The older entry's struct: a key capacity (a power of two at least
-    the widest level) where this one has the CTA width and key slots."""
-    _fields_ = closest_cuda._BoxArgs._fields_[:-2] + [("key_cap", ctypes.c_int)]
+    """The oldest entry's struct: a key capacity (a power of two at least
+    the widest level) where this one has the CTA width and key slots, and
+    no sat flags."""
+    _fields_ = _NO_SAT[:-2] + [("key_cap", ctypes.c_int)]
 
 
 def build(src_dir=_build.CSRC, tag="as built"):
@@ -79,7 +88,9 @@ def build(src_dir=_build.CSRC, tag="as built"):
     lib = ctypes.CDLL(str(so))
     # an entry that takes the launch plan (CTA width, key slots), or the
     # older one that sizes its keys by the widest level
-    lib.planned = "int key_slots;" in (Path(src_dir) / "cull_boxes.cu").read_text()
+    src = (Path(src_dir) / "cull_boxes.cu").read_text()
+    lib.planned = "int key_slots;" in src
+    lib.flags = "unsigned char* sat;" in src
     return lib
 
 
@@ -102,10 +113,12 @@ def launcher(lib, bins, qb, d2b, cs, cb, parent=False):
     else:
         tail = closest_cuda.cp_launch_plan(n_blk, n_super, S, cs, cb,
                                            closest_cuda.fill_threads(qb.device))[:2]
-        struct = closest_cuda._BoxArgs
+        struct = closest_cuda._BoxArgs if lib.flags else FlaglessBoxArgs
     out = (torch.empty((n_blk, cb), dtype=torch.int32, device="cuda"),
            torch.empty((n_blk,), dtype=torch.int32, device="cuda"),
            torch.empty((n_blk, cb), dtype=torch.float32, device="cuda"))
+    if lib.flags:
+        out += (torch.empty((n_blk,), dtype=torch.bool, device="cuda"),)
     args = struct(qb.data_ptr(), d2b.data_ptr(), bins.super_aabb.data_ptr(),
                   bins.bin_aabb.data_ptr(), *(x.data_ptr() for x in out), n_blk, Rq, n_super,
                   n_bins, S, cs, cb, (1 << id_bits) - 1 if packed else 0, int(packed), *tail)

@@ -142,11 +142,13 @@ def test_closest_points_matches_jax(name, max_dist):
     _assert_cp_agree(j, t, max_dist)
 
 
-def _j_candidates(jbins, q, max_d2, Rq, cs, cb):
-    """The JAX package's candidate lists for blocks of Rq queries (padded
-    with origin queries at max_d2 = 0, as closest_points_binned pads)."""
+def _j_candidates(jbins, q, max_d2, Rq, cs, cb, pad=None):
+    """The JAX package's candidate lists for blocks of Rq queries, the last
+    padded with origin queries at max_d2 = 0 as its closest_points_binned
+    pads, or with ``pad`` (a query) at max_d2 = 0."""
     n_pad = (-q.shape[0]) % Rq
-    q = np.concatenate([q, np.zeros((n_pad, 3), np.float32)])
+    fill = np.zeros((n_pad, 3), np.float32) if pad is None else np.tile(pad, (n_pad, 1))
+    q = np.concatenate([q, fill])
     max_d2 = np.concatenate([max_d2, np.zeros(n_pad, np.float32)])
     qb = q.reshape(-1, Rq, 3)
     d2cap = max_d2.reshape(-1, Rq).max(axis=1)
@@ -161,7 +163,11 @@ def test_cp_candidates_match_jax(case):
     """Candidate lists equal, entry for entry: ids, counts and bounds.
     "super_ties" puts each block's box around the whole room, so every super
     lies at d2 = 0 and the super-level selection cuts between equal keys
-    (ties go to the lower index)."""
+    (ties go to the lower index). The port's intended difference: it pads
+    the last block with copies of the last query where the JAX package pads
+    with origin queries, so that block's list is JAX's list of the block
+    padded the port's way (JAX's own differs where the origin widens the
+    block's box: not here, where every block spans the room).""" 
     name = "building" if case == "building" else "room"
     bins_kw = dict(bin_size=4, bps=2) if case == "super_ties" else {}
     mesh, _, jbins, _, tbins = _maps(name, **bins_kw)
@@ -171,16 +177,79 @@ def test_cp_candidates_match_jax(case):
         q = q[np.random.default_rng(0).permutation(n)]  # scattered blocks: wide boxes
     max_d2 = np.full(n, 0.25, np.float32)
     cs, cb = (3, 12) if case == "super_ties" else (8, 32)
-    want = _j_candidates(jbins, q, max_d2, 128, cs, cb)
+    want = _j_candidates(jbins, q, max_d2, 128, cs, cb, pad=q[-1])
     qb, d2b, *got = tcp.binned_inputs(tbins, torch.from_numpy(q), torch.from_numpy(max_d2), 128,
                                       c_super=cs, c_bin=cb)
     assert qb.shape == (-(-n // 128), 128, 3)
     if case == "padded_last_block":
-        assert (qb[-1, n % 128:] == 0).all() and (d2b[-1, n % 128:] == 0).all()
+        assert (qb[-1, n % 128:] == torch.from_numpy(q[-1])).all()
+        assert (d2b[-1, n % 128:] == 0).all()
+        jax_own = _j_candidates(jbins, q, max_d2, 128, cs, cb)
+        for w, g in zip(jax_own, got):  # the blocks of real queries alone agree
+            np.testing.assert_array_equal(g[:-1].numpy(), w[:-1])
     if case == "super_ties":
         assert (got[1] > 0).all()
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+def _brute_cull(bins, qb, d2cap, cs, cb):
+    """Per block, in numpy float32 apart from the port's code: the supers
+    and the bins within the block's bound of its query box (the needs), and
+    whether the budgets cut its list: more supers pass than cs keeps, or
+    more bins of the cs nearest passing supers (by d2, then index) than cb
+    keeps."""
+    def d2(lo, hi, boxes):
+        g = np.maximum(np.maximum(boxes[:, :3] - hi, lo - boxes[:, 3:]), np.float32(0))
+        g = g * g
+        return (g[:, 0] + g[:, 1]) + g[:, 2]
+
+    sup, box = bins.super_aabb.numpy(), bins.bin_aabb.numpy()
+    S, n_bins = bins.bins_per_super, bins.n_bins
+    need_s, need_b, sat = [], [], []
+    for blk, cap in zip(qb.numpy(), d2cap.numpy()):
+        lo, hi = blk.min(0), blk.max(0)
+        ds, db = d2(lo, hi, sup), d2(lo, hi, box)
+        ok = np.flatnonzero(ds <= cap)
+        kept = ok[np.lexsort((ok, ds[ok]))][:cs]
+        gbin = (kept[:, None] * S + np.arange(S)).reshape(-1)
+        gbin = gbin[gbin < n_bins]
+        need_s.append(ok.size)
+        need_b.append(int((db <= cap).sum()))
+        sat.append(ok.size > cs or int((db[gbin] <= cap).sum()) > cb)
+    return np.asarray(need_s), np.asarray(need_b), np.asarray(sat)
+
+
+@pytest.mark.parametrize("budgets", ["whole", "supers_cut", "bins_cut", "both_cut", "one_each"])
+def test_cp_sat_matches_a_brute_force_count(budgets):
+    """K7's plain version flags exactly the blocks a brute-force count
+    finds cut, at budgets that cut no block (the widest block's needs),
+    one short of them and one entry a level; the needs
+    (utils/tune.py::cp_block_need) are the brute-force counts. 1000
+    clustered queries: the last block is padded (with copies of the last
+    query at max_d2 = 0), its box that of its real queries."""
+    from rmcl_tpu_torch.utils.tune import cp_block_need
+
+    mesh, _, _, _, tbins = _maps("building")
+    q = torch.from_numpy(_queries(mesh, n=1000, seed=8, grow=-0.1))
+    q = q[torder.cluster_order(q, None)[0].long()]
+    qb, d2b = tcp.query_blocks(q, torch.full((1000,), 0.25), 128)
+    assert torch.equal(qb[-1].amin(0), q[896:].amin(0))
+    assert torch.equal(qb[-1].amax(0), q[896:].amax(0)) and (d2b[-1, 1000 % 128:] == 0).all()
+    d2cap = torch.amax(d2b, dim=1)
+    need_s, need_b, _ = _brute_cull(tbins, qb, d2cap, tbins.n_super, tbins.n_bins)
+    got_s, got_b = cp_block_need(tbins, qb, d2b)
+    np.testing.assert_array_equal(got_s.numpy(), need_s)
+    np.testing.assert_array_equal(got_b.numpy(), need_b)
+    cs, cb = {"whole": (need_s.max(), need_b.max()), "supers_cut": (need_s.max() - 1, need_b.max()),
+              "bins_cut": (need_s.max(), need_b.max() - 1),
+              "both_cut": (need_s.max() - 1, need_b.max() - 1), "one_each": (1, 1)}[budgets]
+    cs, cb = tcp.cp_budgets(tbins, int(cs), int(cb))
+    *lists, sat = tcp._cp_candidates(tbins, qb, d2cap, cs, cb)
+    want = _brute_cull(tbins, qb, d2cap, cs, cb)[2]
+    np.testing.assert_array_equal(sat.numpy(), want)
+    assert sat.any() == (budgets != "whole")
+    assert (lists[1].numpy() == np.minimum(need_b, cb))[~want].all()
 
 
 def test_cp_candidates_float_key_path(monkeypatch):
@@ -206,20 +275,43 @@ def test_cp_candidates_float_key_path(monkeypatch):
     ("room", 3.0e38, True), ("room", 0.5, False), ("building", 0.5, True),
     ("sphere_room", 1.0, True),
 ])
-def test_closest_points_binned_matches_jax(name, max_dist, cluster):
-    mesh, _, jbins, _, tbins = _maps(name)
+def test_closest_points_binned_matches_jax(name, max_dist, cluster, monkeypatch):
+    """The port's result is JAX's where both pad the last query block with
+    origin queries, as the JAX package does. The port's own padding (copies
+    of the last query) keeps that block's box to its real queries, so it
+    truncates no block that the origin padding leaves whole; where it
+    truncates none, its result is the exact engine's."""
+    mesh, _, jbins, tb, tbins = _maps(name)
     q = _queries(mesh, n=1000, seed=4)  # 1000 queries: a padded last block
     j = jcp.closest_points_binned(jbins, jnp.asarray(q), max_dist=max_dist, c_super=8, c_bin=64,
                                   cluster=cluster)
-    t = tcp.closest_points_binned(tbins, torch.from_numpy(q), max_dist=max_dist, c_super=8,
-                                  c_bin=64, cluster=cluster)
-    _assert_cp_agree(j, t, max_dist)
+    t, sat = tcp.closest_points_binned(tbins, torch.from_numpy(q), max_dist=max_dist, c_super=8,
+                                       c_bin=64, cluster=cluster, with_sat=True)
+    if not sat.any():
+        e = tcp.closest_points(tb, torch.from_numpy(q), max_dist=max_dist)
+        assert torch.equal(e.found, t.found)
+        torch.testing.assert_close(t.dist[t.found], e.dist[e.found], rtol=D_RTOL, atol=D_ATOL)
+
+    def jax_padding(q, max_d2, block_size=128):
+        n_pad = (-q.shape[0]) % block_size
+        q = torch.cat([q, q.new_zeros((n_pad, 3))])
+        max_d2 = torch.cat([max_d2, max_d2.new_zeros((n_pad,))])
+        return q.reshape(-1, block_size, 3), max_d2.reshape(-1, block_size)
+
+    monkeypatch.setattr(tcp, "query_blocks", jax_padding)
+    t_jax, sat_jax = tcp.closest_points_binned(tbins, torch.from_numpy(q), max_dist=max_dist,
+                                               c_super=8, c_bin=64, cluster=cluster,
+                                               with_sat=True)
+    _assert_cp_agree(j, t_jax, max_dist)
+    # the port's padding never truncates a block that the origin's leaves whole
+    assert not (sat & ~sat_jax).any()
 
 
 def test_closest_bins_wrapper_takes_the_plain_version():
     mesh, _, _, _, tbins = _maps("room")
     q = torch.from_numpy(_queries(mesh, n=300, seed=6))
-    inputs = tcp.binned_inputs(tbins, q, torch.full((300,), 0.25), 128, c_super=8, c_bin=32)
+    inputs = tcp.binned_inputs(tbins, q, torch.full((300,), 0.25), 128, c_super=8,
+                               c_bin=32)[:5]
     before = closest_bins.launches
     for a, b in zip(closest_bins(tbins.tri, *inputs),
                     closest_bins_reference(tbins.tri, *inputs)):
@@ -641,7 +733,8 @@ def test_bins_groups_at_the_documented_sizes(n_blk, Rq, B, want):
 def test_closest_bins_refuses_groups_that_do_not_fit():
     mesh, _, _, _, tbins = _maps("room")  # bins of 16
     q = torch.from_numpy(_queries(mesh, n=256, seed=6))
-    inputs = tcp.binned_inputs(tbins, q, torch.full((256,), 0.25), 128, c_super=8, c_bin=32)
+    inputs = tcp.binned_inputs(tbins, q, torch.full((256,), 0.25), 128, c_super=8,
+                               c_bin=32)[:5]
     want = closest_bins_reference(tbins.tri, *inputs)
     for G in (1, 2, 4, 8):
         assert all(torch.equal(a, b) for a, b in zip(closest_bins(tbins.tri, *inputs, groups=G),

@@ -881,7 +881,7 @@ def test_closest_bins_kernel_matches_plain_version(card, mesh, B, Rq, max_dist, 
     bins = build_bins(m, bin_size=B, bins_per_super=8, device=card)
     q = _points_in(m, card, 3000, 9, 0.1)
     inputs = binned_inputs(bins, q, _max_d2(max_dist, q.shape[:1], card, cap=1.7e19), Rq,
-                           c_super=8, c_bin=64)
+                           c_super=8, c_bin=64)[:5]
     before = closest_bins.launches
     k = closest_bins(bins.tri, *inputs, groups=groups)
     p = closest_bins_reference(bins.tri, *inputs)
@@ -1261,6 +1261,36 @@ def test_cp_candidates_kernel_matches_plain_version(card, monkeypatch, mesh, B, 
         assert int(p[1][11]) == cb and bool((p[1] < cb).any())
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+@pytest.mark.parametrize("budgets", ["whole", "supers_cut", "bins_cut", "both_cut"])
+def test_cp_candidates_sat_on_card_matches_plain_version(card, monkeypatch, budgets, width):
+    """K7's per-block ``sat`` bitwise its plain version's, at budgets that
+    cut no block (the widest block's need exactly), one short of the widest
+    need of supers, of bins, and of both; the flags then mark exactly the
+    blocks whose need passes a budget (the last block partly padding)."""
+    from rmcl_tpu_torch.ops import closest_cuda, closest_point
+    from rmcl_tpu_torch.ops.closest_cuda import cp_candidates
+    from rmcl_tpu_torch.utils.tune import cp_block_need
+
+    monkeypatch.setattr(closest_cuda, "_K7_WIDE_KEYS", 0 if width == "wide" else 1 << 30)
+    bins, qb, d2b = _cp_blocks(_exact_mesh("building"), card, 16, 16, 3000, 0.5)
+    need_s, need_b = cp_block_need(bins, qb, d2b)
+    cs, cb = int(need_s.max()), int(need_b.max())
+    cs -= budgets in ("supers_cut", "both_cut")
+    cb -= budgets in ("bins_cut", "both_cut")
+    cs, cb = closest_point.cp_budgets(bins, cs, cb)
+    k = cp_candidates(bins, qb, d2b, cs, cb)
+    p = closest_point._cp_candidates(bins, qb, torch.amax(d2b, dim=1), cs, cb)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if budgets == "whole":
+        assert not bool(k[3].any())
+    else:
+        assert bool(k[3].any()) and not bool(k[3].all())
+    assert torch.equal(k[3], (need_s > cs) | (need_b > cb))
 
 
 def test_cp_candidates_kernel_has_no_spills(card):

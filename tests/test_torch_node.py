@@ -129,6 +129,16 @@ def test_node_steps_match_jax(maps, scans, engine, corr):
                                    atol=step_tol, rtol=0)
         _quat_close(jn.tom.rot, tn.tom.rot, step_tol)
         assert float(ts.valid_measurements) == float(js.valid_measurements)
+        if engine == "binned" and corr == "CP":
+            assert int(ts.truncated_blocks) == 0
+    if engine == "binned" and corr == "CP":
+        # the port's intended difference: a CP-only node runs no ray audit
+        # and keeps budgets of the CP query's own (its audit's, on each new
+        # scan); the JAX node's CP query takes the ray audit's one pair
+        jc, tc = jn.micp_config, tn.micp_config
+        assert (tc.c_super, tc.c_bin, tc.c_mid) == (24, 96, 0)
+        assert tc.cp_budgets() >= (24, 96) and jn._budget_checked and not tn._budget_checked
+        assert (jc.c_super, jc.c_bin) >= (24, 96)
     est = tn.pose_base_map().trans.numpy()
     assert np.linalg.norm(est - np.float32(scans[-1][1][:3])) < 0.05
     # the outputs
@@ -207,6 +217,115 @@ def test_audit_adopts_the_same_budgets(building, capsys, monkeypatch):
     with pytest.warns(UserWarning, match="budgets saturate"):
         tn2.step()
     assert (tn2.micp_config.c_super, tn2.micp_config.c_bin) == (24, 96)
+
+
+@pytest.fixture(scope="module")
+def large_building():
+    """A 4 x 3-room building (34,920 faces; bins of 16 in supers of 16) and
+    a VLP-16 scan of 14,400 points (the last query block half padding),
+    where the ray audit's budgets leave the JAX node's closest-point query a
+    truncated block: (map, model, points, mask, start pose)."""
+    from rmcl_tpu_torch.sensors.simulate import simulate
+
+    mm = TMap.from_mesh(tm.make_building_scene(rooms_x=4, rooms_y=3, subdiv=12, n_clutter=2,
+                                               seed=0), bin_size=16, bins_per_super=16,
+                        device="cpu")
+    model = TSpherical.vlp16()
+    hits = simulate(mm.bvh, model, TTransform.from_pose_tuple([15.0, 9.0, 1.5, 0.0, 0.0, 1.0],
+                                                              device="cpu"))
+    return mm, model, hits.point, hits.hit, [14.9, 9.0, 1.5, 0.0, 0.0, 1.0]
+
+
+def _static_node(mm, start, sensors, **extra):
+    node = tnode.MICPLocalization(mm, TPT(dict({"initial_pose_guess": start, "sensors": {
+        name: {"correspondences": {"type": corr, "max_dist": 0.5}} for name, corr in sensors}},
+        **extra)))
+    node.on_odometry(TTransform.identity(device="cpu"))
+    return node
+
+
+def test_cp_audit_covers_every_block_and_matches_the_bvh(large_building, monkeypatch, capsys):
+    """The node's closest-point audit on the bins: the adopted CP budgets
+    cover every query block's need from the start pose with room to spare,
+    no correction's blocks are truncated, and the binned CP corrections
+    equal the BVH CP corrections within POSE_TOL (both engines return each
+    point's closest surface point; a point equidistant from two faces may
+    take either face's normal, and the sums run in other orders). The JAX
+    node's query, at the ray audit's budgets and with its last block padded
+    with origin queries, truncates a block and K7's flag says so; at the
+    same budgets the port's padding truncates none."""
+    from rmcl_tpu_torch.micp import pipeline as tpl
+    from rmcl_tpu_torch.ops import closest_point as tcp
+    from rmcl_tpu_torch.utils.tune import cp_budget_need
+
+    mm, model, points, mask, start = large_building
+    nodes = {}
+    for engine in ("binned", "bvh"):
+        n = _static_node(mm, start, [("lidar", "CP")], engine=engine)
+        n.set_static_dataset("lidar", model, points, mask)
+        nodes[engine] = (n, [n.step() for _ in range(3)])
+    node, stats = nodes["binned"]
+    assert "auto-adopting cp_super" in capsys.readouterr().out
+    cs, cb = node.micp_config.cp_budgets()
+    q = TTransform.from_pose_tuple(start, device="cpu").apply(points)
+    need_s, need_b = cp_budget_need(mm.bins, q, 0.5)
+    assert cs >= 1.25 * int(need_s.max()) and cb >= 1.25 * int(need_b.max())
+    assert (node.micp_config.c_super, node.micp_config.c_bin) == (24, 96)  # no ray audit ran
+    assert [int(s.truncated_blocks) for s in stats] == [0, 0, 0]
+    assert all(s.truncated_blocks is None for s in nodes["bvh"][1])
+    other = nodes["bvh"][0]
+    np.testing.assert_allclose(node.tom.trans.numpy(), other.tom.trans.numpy(), atol=POSE_TOL,
+                               rtol=0)
+    _quat_close(other.tom.rot, node.tom.rot, POSE_TOL)
+    # the JAX node's CP query: the ray audit's budgets, origin padding
+    rc = _static_node(mm, start, [("lidar", "RC")])
+    rc.set_static_dataset("lidar", model, points, mask)
+    rc.step()
+    ray = rc.micp_config
+    sensor = tpl.MICPSensorData(model=model, points=points, mask=mask,
+                                tsb=TTransform.identity(device="cpu"),
+                                config=tpl.MICPSensorConfig.create(max_dist=0.5, corr_type="CP"))
+    tom = TTransform.from_pose_tuple(start, device="cpu")
+    ident = TTransform.identity(device="cpu")
+    _, own = tpl.correct_once(mm.bins, [sensor], tom, ident, 0.0, ray)
+    assert int(own.truncated_blocks) == 0
+
+    def origin_padding(q, max_d2, block_size=128):
+        n_pad = (-q.shape[0]) % block_size
+        q = torch.cat([q, q.new_zeros((n_pad, 3))])
+        max_d2 = torch.cat([max_d2, max_d2.new_zeros((n_pad,))])
+        return q.reshape(-1, block_size, 3), max_d2.reshape(-1, block_size)
+
+    monkeypatch.setattr(tcp, "query_blocks", origin_padding)
+    _, jax_like = tpl.correct_once(mm.bins, [sensor], tom, ident, 0.0, ray)
+    assert int(jax_like.truncated_blocks) >= 1
+
+
+def test_rc_and_cp_sensors_keep_their_budgets(large_building):
+    """A node with an RC and a CP sensor: the ray audit sets the RC pair
+    (c_super, c_bin, c_mid) as in an RC-only node, the CP audit the CP pair
+    (cp_super, cp_bin) as in a CP-only node; neither takes the other's.
+    Without auto_budget the CP audit warns and adopts nothing."""
+    mm, model, points, mask, start = large_building
+    both = _static_node(mm, start, [("rc", "RC"), ("cp", "CP")], engine="binned")
+    rc_only = _static_node(mm, start, [("rc", "RC")], engine="binned")
+    cp_only = _static_node(mm, start, [("cp", "CP")], engine="binned")
+    for n, names in ((both, ("rc", "cp")), (rc_only, ("rc",)), (cp_only, ("cp",))):
+        for name in names:
+            n.set_static_dataset(name, model, points, mask)
+        n.step()
+    b, r, c = both.micp_config, rc_only.micp_config, cp_only.micp_config
+    assert (b.c_super, b.c_bin, b.c_mid) == (r.c_super, r.c_bin, r.c_mid) != (24, 96, 0)
+    assert (b.cp_super, b.cp_bin) == (c.cp_super, c.cp_bin) != (0, 0)
+    assert (r.cp_super, r.cp_bin) == (0, 0) and (c.c_super, c.c_bin, c.c_mid) == (24, 96, 0)
+    assert b.cp_budgets() != (b.c_super, b.c_bin)
+    # a node that may not adopt warns and keeps the configured pair for CP
+    fixed = _static_node(mm, start, [("cp", "CP")], engine="binned",
+                         engine_options={"auto_budget": False})
+    fixed.set_static_dataset("cp", model, points, mask)
+    with pytest.warns(UserWarning, match="closest-point budgets truncate"):
+        fixed.step()
+    assert fixed.micp_config.cp_budgets() == (24, 96)
 
 
 def test_config_budgets_and_no_c_hyper(maps):

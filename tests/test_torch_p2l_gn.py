@@ -64,8 +64,8 @@ def _sensor(points, mask, tsb=None, **cfg):
 
 
 def _flat(tom, stats):
-    return torch.cat([tom.rot, tom.trans] + [getattr(stats, f.name).reshape(1)
-                                             for f in dataclasses.fields(tp.MICPStats)])
+    return torch.cat([tom.rot, tom.trans] + [getattr(stats, name).reshape(1)
+                                             for name in tp.STATISTICS])
 
 
 def _cpu_case(room, case):
@@ -188,8 +188,8 @@ def test_fused_counter_counts_each_correction_on_the_kernel_path(room, monkeypat
         assert counts == {"rmcl.micp.optimize.fused": 3} and len(calls) == 3
         # the pose and the statistics are views of the one output
         ptr = tom.rot.untyped_storage().data_ptr()
-        assert all(getattr(stats, f.name).untyped_storage().data_ptr() == ptr
-                   for f in dataclasses.fields(tp.MICPStats))
+        assert all(getattr(stats, name).untyped_storage().data_ptr() == ptr
+                   for name in tp.STATISTICS)
     else:
         assert "rmcl.micp.optimize.fused" not in counts and not calls
         assert spans.count("rmcl.micp.iteration") == 3 * cfg.optimization_iterations

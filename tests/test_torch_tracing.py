@@ -244,6 +244,56 @@ def test_stage_timer_keeps_totals_and_opens_its_wait(on):
         assert not spans and timing.store().total == before
 
 
+def _cp_node(mm):
+    node = MICPLocalization(mm, ParamTree({
+        "optimization_iterations": ITERATIONS, "engine": "binned",
+        "sensors": {"lidar": {"correspondences": {"type": "CP", "max_dist": 0.5}}}}))
+    points, mask = _points(mm, TRUE_POSE)
+    node.on_odometry(Transform.identity(device="cpu"))
+    node.set_static_dataset("lidar", MODEL, points, mask)
+    node.set_pose(Transform.from_pose_tuple(START_POSE, device="cpu"))
+    return node, points, mask
+
+
+def test_cp_correction_spans_and_counters(room):
+    """A traced closest-point correction on the bins: the query's three
+    spans inside the correspondence search, and its two counters: the
+    pairs its lists hand K6b (each block's list length x 128, the blocks'
+    needs where nothing truncates) and the truncated blocks (none, as the
+    correction's statistics say). Off, neither span nor counter; an RC
+    correction carries no truncated count."""
+    from rmcl_tpu_torch.ops.closest_point import closest_points_binned
+    from rmcl_tpu_torch.utils.tune import cp_budget_need
+
+    node, points, mask = _cp_node(room)
+    timing.set_tracing(True)
+    tsm = node.tom @ node.tbo
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        stats = node.step()
+    spans = collections.Counter(_annotations(prof))
+    for name in ("rmcl.closest.cull", "rmcl.closest.query", "rmcl.closest.winners"):
+        assert spans[(name, "rmcl.micp.correspond")] == 1, name
+    assert spans[("rmcl.micp.audit", "rmcl.micp.step")] == 1  # a new scan's CP audit
+    assert not any(n.startswith("rmcl.cast.") for n, _ in spans)  # no ray audit, no cast
+    got = timing.counters()
+    q = tsm.apply(points)
+    _, need_b = cp_budget_need(room.bins, q, 0.5)
+    assert got == {"rmcl.closest.pairs": int(need_b.sum()) * 128,
+                   "rmcl.closest.truncated_blocks": 0}
+    assert int(stats.truncated_blocks) == 0
+    # budgets that truncate: the counter is the flags' count
+    timing.set_tracing(True)
+    _, sat = closest_points_binned(room.bins, q, max_dist=3.0, c_super=1, c_bin=1, with_sat=True)
+    assert timing.counters()["rmcl.closest.truncated_blocks"] == int(sat.sum()) > 0
+    timing.set_tracing(False)
+    node.set_static_dataset("lidar", MODEL, points, mask)
+    with profile(activities=[ProfilerActivity.CPU]) as off:
+        node.step()
+    assert not _annotations(off)
+    rc, *_ = _micp_node(room)
+    assert rc.step().truncated_blocks is None
+
+
 def test_cast_pairs_counts_what_the_cull_hands_the_intersection(room):
     mm = room
     gen = torch.Generator().manual_seed(0)
