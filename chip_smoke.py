@@ -419,6 +419,17 @@ MCL_SMALL_CYCLES = 5
 MCL_NODE_STEPS = 10
 MCL_NODE_STEP = 0.2
 MCL_NODE_ERR_MAX = 0.25
+# phase 10b: the kernel's evals against its plain version on the first
+# MCL_WS_SLICE particles. Where the winner and the ray agree an eval differs
+# by the exp's last bits; a ray whose winner is a near-tie, or whose
+# direction the card's and the CPU's cross products round a bit apart, may
+# differ more: at most MCL_WS_EVALS_OFF of the rays. The folds (and the
+# likelihoods against the composition's) within MCL_WS_FOLD_RTOL at p75.
+MCL_WS_SLICE = 4096
+MCL_WS_EVAL_RTOL = 1e-5
+MCL_WS_EVALS_OFF = 1e-4
+MCL_WS_FOLD_RTOL = 1e-6
+MCL_WS_QUANTILE_CAP = 1 << 24  # torch.quantile's input limit
 # K5: float instructions per ray (three guarded reciprocals, 3 each; the
 # entry compare), per internal visit (the slab test: 6 differences, 6
 # products, 3 minima and 3 maxima of the pairs, 2 + 2 for t_near and t_far, 3
@@ -428,6 +439,16 @@ MCL_NODE_ERR_MAX = 0.25
 OPS_PER_TRAVERSE_RAY = 10
 OPS_PER_SLAB_VISIT = 25
 OPS_PER_MT_VISIT = 53
+# K5's MCL scoring epilogue (ScoreRC), per ray: the ray from the particle's
+# pose and the beam (two cross products of 3 products and 3 fused
+# multiply-adds, 3 doublings, 3 products and 6 sums: 24), the score of a hit
+# (the plane's denominator 5 and its guard 1, t 9, the compare with
+# range_min 1, the point and the measured point 12, their difference 3, the
+# products with the normal and their sum 5, the absolute value 1: 37) and the
+# Gaussian (z and its square 3, exp 6, the factor 1: 10); the fold, per eval:
+# an add in the first pass, a difference, a square and an add in the second
+OPS_PER_SCORE_RAY = 71
+OPS_PER_FOLD_EVAL = 4
 # K6: per internal visit (the clamp 6, differences 3, squares and sums 5, a
 # compare) and per leaf visit the operations every triangle needs whatever
 # its Voronoi region (ericson.cuh resolves the region first and divides only
@@ -2253,6 +2274,124 @@ def phase_mcl_cast(main_r):
         f"{r5['ms']:.3f} ms in sampled order (the same rays' results)")
     del o, d, t_max, t_min, slot, slot_a
     return r5
+
+
+def phase_mcl_walk_score(world=None):
+    """Phase 10b: MCL's RC sensor update at the cell mcl-1m-tracking's
+    shape, 1,048,576 particles x 100 beams on phase 11's building from a
+    cloud concentrated about the truth (the cell's covariance), on the exact
+    walk: ``sensor_update`` through ``walk_score_rc`` (K5 with its scoring
+    epilogue, then the fold kernel; one launch each) against the composition
+    it replaced (``cast_update_rays``: K5 and ``cast_rays``' winner rows,
+    ``score_rc``, ``fold``) on the same beams, both timed by events with
+    their peak memory; each kernel by the device trace beside its bound; the
+    kernel's evals against its plain version on the first MCL_WS_SLICE
+    particles; registers."""
+    import dataclasses
+
+    from rmcl_tpu_torch.math.se3 import Transform
+    from rmcl_tpu_torch.mcl.sensor_update import (beam_layout, cluster_poses, cast_update_rays,
+                                                  fold, sample_beams, score_beams, score_rc,
+                                                  sensor_update, update_rays)
+    from rmcl_tpu_torch.ops.traverse_cuda import (kernel_registers, traverse_rays,
+                                                  walk_score_rc, walk_score_rc_reference)
+
+    mmap, model, truth, points, mask, scfg = world or mcl_world()
+    bvh = mmap.bvh
+    cfg = dataclasses.replace(scfg, engine="bvh")
+    gen = torch.Generator(device="cuda").manual_seed(MCL_SEED)
+    cloud = mcl_cloud(truth, MCL_PARTICLES, gen)
+    beams = sample_beams(gen, points, mask, MCL_BEAMS)
+    tsb = Transform.identity()
+    N, S = MCL_PARTICLES, MCL_BEAMS
+    regs = kernel_registers()
+    if any(local for _, local in regs.values()):
+        fail(f"phase 10b: a kernel of traverse_bvh.cu spills: {regs}")
+
+    layout = beam_layout(cfg, beams)
+    tsm, _ = cluster_poses(cloud, tsb, cfg)
+    tsm7 = torch.cat([tsm.rot, tsm.trans], dim=-1)
+    table = score_beams(layout)
+    kw = dict(range_min=cfg.range_min, hit_miss=cfg.real_hit_sim_miss_error,
+              miss_hit=cfg.real_miss_sim_hit_error, miss_miss=cfg.real_miss_sim_miss_error,
+              dist_sigma=cfg.dist_sigma)
+
+    # the kernel's evals against its plain version on the first particles
+    n = MCL_WS_SLICE
+    k_mean, k_var, k_ev = walk_score_rc(bvh.nodes, bvh.root_link, tsm7[:n].contiguous(), table,
+                                        evals=True, **kw)
+    p_mean, p_var, p_ev = walk_score_rc_reference(bvh.nodes, bvh.root_link,
+                                                  tsm7[:n].contiguous(), table, evals=True, **kw)
+    rel = lambda a, b: ((a.double() - b.double()).abs()
+                        / b.double().abs().clamp(min=1e-30))
+    ev_rel = rel(k_ev, p_ev)
+    off = int((ev_rel > MCL_WS_EVAL_RTOL).sum())
+    gaps = {"evals_off": off, "evals_off_share": off / ev_rel.numel(),
+            "evals_rel_max_agreeing": float(ev_rel[ev_rel <= MCL_WS_EVAL_RTOL].max()),
+            "e_mean_rel_p75": float(torch.quantile(rel(k_mean, p_mean), 0.75)),
+            "e_var_rel_p75": float(torch.quantile(rel(k_var, p_var), 0.75))}
+    if (off > MCL_WS_EVALS_OFF * ev_rel.numel() or gaps["e_mean_rel_p75"] > MCL_WS_FOLD_RTOL
+            or gaps["e_var_rel_p75"] > MCL_WS_FOLD_RTOL):
+        fail(f"phase 10b: the kernel's evals are off its plain version's: {gaps}")
+    log(f"phase 10b kernel vs plain version ({n} particles x {S} beams): " + json.dumps(gaps))
+    del k_ev, p_ev, ev_rel
+
+    def composed():
+        o, d, hits = cast_update_rays(bvh, cfg, tsm, layout)
+        return fold(cloud, cfg, layout, score_rc(cfg, layout, o, d, hits), None)
+
+    fused = lambda: sensor_update(bvh, cloud, None, None, None, tsb, cfg, beams=beams)
+    out = {}
+    for name, fn in (("composed", composed), ("fused", fused)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        launches = (traverse_rays.launches, walk_score_rc.fold_launches)
+        lik = fn().likelihood
+        torch.cuda.synchronize()
+        out[name] = dict(lik=lik, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                         launches=(traverse_rays.launches - launches[0],
+                                   walk_score_rc.fold_launches - launches[1]))
+    if out["fused"]["launches"] != (1, 1) or out["composed"]["launches"] != (1, 0):
+        fail(f"phase 10b: launches (K5, fold) fused {out['fused']['launches']}, composed "
+             f"{out['composed']['launches']} (expected (1, 1) and (1, 0))")
+    mean_rel = rel(out["fused"]["lik"].mean, out["composed"]["lik"].mean)
+    r = dict(lik_rel_p75=float(torch.quantile(mean_rel[:MCL_WS_QUANTILE_CAP], 0.75)),
+             lik_rel_max=float(mean_rel.max()), registers=regs)
+    for name, fn in (("composed", composed), ("fused", fused)):
+        r[f"{name}_ms"] = cuda_ms(fn, reps=3)
+        r[f"{name}_peak_gb"] = out[name]["peak_gb"]
+    del out, mean_rel
+    r["k5_score_ms"] = device_ms(fused, "traverse_bvh", reps=3)
+    r["fold_ms"] = device_ms(fused, "mcl_fold", reps=3)
+    r["k5_store_ms"] = device_ms(composed, "traverse_bvh", reps=3)
+    # the bound: the walk's visits on the same rays (the cast's rays in the
+    # walk's angular order), every slot read once (an upper bound on bytes)
+    orig_m, dirs_m, t_m = update_rays(tsm, layout)
+    from rmcl_tpu_torch.mcl.sensor_update import _angular_order
+    order = _angular_order(layout.dirs)
+    o = orig_m[:, order].reshape(-1, 3)
+    d = dirs_m[:, order].reshape(-1, 3)
+    t_max = t_m[:, order].reshape(-1).contiguous()
+    del orig_m, dirs_m, t_m
+    _, slot, visits = traverse_rays(bvh.nodes, bvh.root_link, o, d, torch.zeros_like(t_max),
+                                    t_max, visits=True)
+    internal, leaf = (float(x) for x in visits.double().sum(0))
+    del o, d, t_max, slot, visits
+    R = N * S
+    ops = (R * (OPS_PER_TRAVERSE_RAY + OPS_PER_SCORE_RAY) + internal * OPS_PER_SLAB_VISIT
+           + leaf * OPS_PER_MT_VISIT)
+    r["k5_score_bound_ms"], r["k5_score_bound_by"] = bound_of(
+        N * 28 + S * 32 + 64 * bvh.n_slots + R * 4, ops)
+    r["fold_bound_ms"], r["fold_bound_by"] = bound_of(R * 4 + N * 8, R * OPS_PER_FOLD_EVAL)
+    r["visits"] = internal + leaf
+    r["speedup"] = r["composed_ms"] / r["fused_ms"]
+    if r["lik_rel_p75"] > MCL_WS_FOLD_RTOL:
+        fail(f"phase 10b: the fused update's likelihoods are off the composition's: {r}")
+    log(f"phase 10b sensor update at {N} x {S} (mcl-1m-tracking's shape): " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}))
+    return r
 
 
 def mcl_world():
@@ -4870,6 +5009,7 @@ def main():
     ref_r = phase_exact_reference_size(sphere_mesh, sphere)
     mcl_r = phase_mcl_cast(main_r)
     del main_r["bmap"]
+    r10b = phase_mcl_walk_score()
     r11 = phase_mcl_cycle()
     r11b = phase_mcl_engines(r11)
     r11c = phase_mcl_node(r11)
@@ -4924,6 +5064,20 @@ def main():
                                    ("11", r11b["k5"]))},
              phase14b=sub_row(r14b["k5"], bitwise=True),
              phase10_angular_ms=mcl_r["angular_ms"]),
+        {"name": "walk_score_rc", "route": "cuda", "source": "rmcl_tpu_torch/csrc/traverse_bvh.cu",
+         "replaces": "none: K5 (rmcl_tpu/ops/raycast.py:73) with the XLA ops of "
+                     "rmcl_tpu/mcl/sensor_update.py's RC score and fold",
+         "launches": 1, "kernels": {
+             "K5 ScoreRC": {"ms": r10b["k5_score_ms"], "timed_by": "device trace",
+                            "bound_ms": r10b["k5_score_bound_ms"],
+                            "bound_by": r10b["k5_score_bound_by"],
+                            "registers": r10b["registers"]["K5 ScoreRC"][0]},
+             "fold": {"ms": r10b["fold_ms"], "timed_by": "device trace",
+                      "bound_ms": r10b["fold_bound_ms"], "bound_by": r10b["fold_bound_by"],
+                      "registers": r10b["registers"]["fold"][0]}},
+         "update_ms": r10b["fused_ms"], "composed_update_ms": r10b["composed_ms"],
+         "composed_k5_ms": r10b["k5_store_ms"], "visits": r10b["visits"],
+         "lik_rel_p75": r10b["lik_rel_p75"], "library_ms": None},
         dict(row("closest_bvh", "rmcl_tpu_torch/csrc/closest_bvh.cu",
                  "rmcl_tpu/ops/closest_point.py:154", exact_r["k6"]), bitwise=True,
              split=exact_r["k6"]["split"],

@@ -18,8 +18,27 @@
 //   t_near <= t_far, t_far >= t_min and t_near <= t_best, else skip (miss
 //   link).
 //
-// Outputs: t_best (t_max where nothing was hit) and the winning leaf's slot
-// (-1), and on request each ray's visits (internal, leaf).
+// Two epilogues share that walk (csrc/bvh_walk.cuh), as two instantiations
+// of one kernel template, traverse_bvh_kernel<Epilogue>:
+//
+// * StoreHits, the cast's: t_best (t_max where nothing was hit) and the
+//   winning leaf's slot (-1), and on request each ray's visits (internal,
+//   leaf). Every exact cast (ops/raycast.py) runs it.
+// * ScoreRC, MCL's ray-cast sensor update (mcl/sensor_update.py, engine
+//   "bvh"): ray r is (particle r / S, beam r % S in angular order); the
+//   thread builds its ray from the particle's sensor pose and the beam, and
+//   after the walk scores it as ops/raycast.py::cast_rays, score_rc and
+//   fold's Gaussian would (t re-derived from the winner's plane, the
+//   signed point-to-plane error and the hit/miss penalties,
+//   N(error; 0, dist_sigma)), and writes that one float at the beam's
+//   sampled index: no per-ray ray, hit or error tensor is ever written.
+//   mcl_fold_kernel then folds each particle's S evals (one warp a
+//   particle, two passes in a fixed order, no atomics). So the update moves
+//   one 4-byte eval a ray through device memory, where the cast's outputs,
+//   its winner-row gather and torch's scoring moved over 100 bytes a ray;
+//   the winner's row, read again after the walk, is mostly in L2. At
+//   chip_smoke.py's phase 10b (1M particles x 100 beams) the evals and
+//   folds equalled the torch composition's on the card bit for bit.
 //
 // What bounds it on an H100: the chain of dependent slot reads. A visit
 // reads one 64-byte slot (16-byte loads through the read-only path) whose
@@ -52,171 +71,196 @@
 // (PERF.md). So were persistent warps refilled from a ray counter.
 //
 // Built with --fmad=false so every product and sum rounds like the plain
-// PyTorch version's (rmcl_tpu_torch/ops/traverse_cuda.py).
+// PyTorch version's (rmcl_tpu_torch/ops/traverse_cuda.py); the cross
+// products of a quaternion rotation are the explicit fused multiply-adds
+// that PyTorch's CPU kernel compiles them to.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
 
-constexpr int kSent = (int)0x80000000;  // SENTINEL_LINK
-constexpr float kEps = 1e-7f;
-constexpr float kOnePlusEps = 1.0000001f;
 constexpr int kThreads = 128;
+constexpr int kFoldThreads = 256;  // 8 particles a CTA, one a warp
+constexpr float kNoHitT = 3.0e38f;  // ops/raycast.py::NO_HIT_T
 
-__device__ __forceinline__ float safe_inv(float v) {
-  return 1.0f / (fabsf(v) > 1e-20f ? v : 1e-20f);
-}
+// The cast's epilogue: each ray's t_best and winning slot, and its visits
+// on request (visits null: none). Rays are read from (R, 3) origins and
+// directions and (R,) t_min, t_max.
+struct StoreHits {
+  const float* o;
+  const float* d;
+  const float* t_min;
+  const float* t_max;
+  float* t_best;
+  int* slot;
+  int* visits;
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
-};
+  __device__ __forceinline__ Ray ray(int r, float& t_max_r) const {
+    t_max_r = __ldg(t_max + r);
+    return make_ray(__ldg(o + 3 * r), __ldg(o + 3 * r + 1), __ldg(o + 3 * r + 2),
+                    __ldg(d + 3 * r), __ldg(d + 3 * r + 1), __ldg(d + 3 * r + 2),
+                    __ldg(t_min + r));
+  }
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
-                                        const float* __restrict__ t_min, int r) {
-  Ray a;
-  a.ox = o[3 * r + 0];
-  a.oy = o[3 * r + 1];
-  a.oz = o[3 * r + 2];
-  a.dx = d[3 * r + 0];
-  a.dy = d[3 * r + 1];
-  a.dz = d[3 * r + 2];
-  a.ix = safe_inv(a.dx);
-  a.iy = safe_inv(a.dy);
-  a.iz = safe_inv(a.dz);
-  a.tmin = t_min[r];
-  return a;
-}
-
-// A slot's words as the walk reads them: 0-7 and the links 12-15 always,
-// 8-11 for a leaf (its last edge component, word 8). The loads are issued
-// together before any of them is used, so a warp whose lanes hold both
-// kinds waits for one round trip a visit, not one a kind.
-struct Slot {
-  int4 w0, w1, w2, w3;
-};
-
-__device__ __forceinline__ Slot read_slot(const int4* __restrict__ nodes, int idx, bool leaf) {
-  const int4* row = nodes + (size_t)idx * 4;
-  Slot s;
-  s.w0 = __ldg(row);
-  s.w1 = __ldg(row + 1);
-  s.w3 = __ldg(row + 3);
-  if (leaf) s.w2 = __ldg(row + 2);  // a box never reads it
-  return s;
-}
-
-// Moller-Trumbore on a leaf slot's inline triangle (words 0-8): t, and
-// whether the hit passes every gate but the compare with the best.
-__device__ __forceinline__ bool leaf_hit(const Slot& s, const Ray& a, float& t) {
-  const float v0x = __int_as_float(s.w0.x), v0y = __int_as_float(s.w0.y);
-  const float v0z = __int_as_float(s.w0.z), e1x = __int_as_float(s.w0.w);
-  const float e1y = __int_as_float(s.w1.x), e1z = __int_as_float(s.w1.y);
-  const float e2x = __int_as_float(s.w1.z), e2y = __int_as_float(s.w1.w);
-  const float e2z = __int_as_float(s.w2.x);
-  // the operation order below is the plain version's, term for term
-  const float pvx = a.dy * e2z - a.dz * e2y;
-  const float pvy = a.dz * e2x - a.dx * e2z;
-  const float pvz = a.dx * e2y - a.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool det_ok = fabsf(det) > 1e-12f;
-  const float inv_det = det_ok ? 1.0f / det : 0.0f;
-  const float tvx = a.ox - v0x, tvy = a.oy - v0y, tvz = a.oz - v0z;
-  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float v = (a.dx * qvx + a.dy * qvy + a.dz * qvz) * inv_det;
-  t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  return det_ok && u >= -kEps && v >= -kEps && u + v <= kOnePlusEps && t > a.tmin;
-}
-
-// Slab test of an internal slot's box (words 0-5): descend?
-__device__ __forceinline__ bool box_enter(const Slot& s, const Ray& a, float t_best) {
-  const float tx0 = (__int_as_float(s.w0.x) - a.ox) * a.ix;
-  const float tx1 = (__int_as_float(s.w0.w) - a.ox) * a.ix;
-  const float ty0 = (__int_as_float(s.w0.y) - a.oy) * a.iy;
-  const float ty1 = (__int_as_float(s.w1.x) - a.oy) * a.iy;
-  const float tz0 = (__int_as_float(s.w0.z) - a.oz) * a.iz;
-  const float tz1 = (__int_as_float(s.w1.y) - a.oz) * a.iz;
-  const float t_near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  const float t_far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  return t_near <= t_far && t_far >= a.tmin && t_near <= t_best;
-}
-
-// One visit of the serial walk at link cur (leaf: cur < 0).
-__device__ __forceinline__ void serial_visit(const int4* __restrict__ nodes, const Ray& a,
-                                             int& cur, float& t_best, int& best,
-                                             int& n_internal, int& n_leaf) {
-  const bool leaf = cur < 0;
-  const int idx = leaf ? ~cur : cur;
-  const Slot s = read_slot(nodes, idx, leaf);
-  if (leaf) {
-    float t;
-    if (leaf_hit(s, a, t) && t < t_best) {
-      t_best = t;
-      best = idx;
+  __device__ __forceinline__ void finish(const int4* __restrict__, int r, const Ray&,
+                                         float t_best_r, int best, int n_internal,
+                                         int n_leaf) const {
+    t_best[r] = t_best_r;
+    slot[r] = best;
+    if (visits) {
+      visits[2 * r + 0] = n_internal;
+      visits[2 * r + 1] = n_leaf;
     }
-    cur = s.w3.y;  // miss link, word 13
-    ++n_leaf;
-  } else {
-    cur = box_enter(s, a, t_best) ? s.w3.x : s.w3.y;  // hit link (word 12) or miss link (13)
-    ++n_internal;
   }
+};
+
+// fma(a, b, -(c d)): a product difference of a cross product, rounded as
+// PyTorch's CPU kernel (torch.linalg.cross) rounds it.
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -(c * d));
 }
 
-__device__ __forceinline__ void store(float* __restrict__ t_best_out, int* __restrict__ slot_out,
-                                      int* __restrict__ visits_out, int r, float t_best,
-                                      int best, int n_internal, int n_leaf) {
-  t_best_out[r] = t_best;
-  slot_out[r] = best;
-  if (visits_out) {
-    visits_out[2 * r + 0] = n_internal;
-    visits_out[2 * r + 1] = n_leaf;
-  }
-}
+// MCL's ray-cast scoring epilogue. Ray r = (particle p = r / S, beam b = r
+// % S): origin the translation of the particle's sensor pose tsm[p] (w, x,
+// y, z, tx, ty, tz), direction its quaternion applied to the beam's
+// sensor-frame direction (math/se3.py::Quaternion.rotate, term for term),
+// t_min 0, t_max the beam's cap. beams holds two float4 a beam, in angular
+// order: (dx, dy, dz, range), (t_max, real hit 1/0, sampled index, 0).
+struct ScoreRC {
+  const float* tsm;
+  const float4* beams;
+  float* evals;  // (N, S), each particle's row in the beams' sampled order
+  int S;
+  float range_min;
+  float hit_miss;   // real hit, simulated miss
+  float miss_hit;   // real miss, simulated hit
+  float miss_miss;  // real miss, simulated miss
+  float inv_s;      // 1 / dist_sigma, rounded as math/stats.py::gaussian_pdf
+  float coef;       // 0.3989422804014327 * inv_s, rounded likewise
 
-// The serial walk, one thread a ray, in while-while loops: a lane steps
-// boxes while it holds one, then leaves while it holds one, and the warp
-// reconverges between the two loops, so its lanes test boxes together and
-// leaves together.
+  __device__ __forceinline__ Ray ray(int r, float& t_max_r) const {
+    const int p = r / S;
+    const int b = r - p * S;
+    const float* q = tsm + (size_t)p * 7;
+    const float qw = __ldg(q), qx = __ldg(q + 1), qy = __ldg(q + 2), qz = __ldg(q + 3);
+    const float4 b0 = __ldg(beams + 2 * b);
+    t_max_r = __ldg(beams + 2 * b + 1).x;
+    // v' = v + qw t + qv x t, t = 2 qv x v
+    const float tx = 2.0f * cross_term(qy, b0.z, qz, b0.y);
+    const float ty = 2.0f * cross_term(qz, b0.x, qx, b0.z);
+    const float tz = 2.0f * cross_term(qx, b0.y, qy, b0.x);
+    const float dx = (b0.x + qw * tx) + cross_term(qy, tz, qz, ty);
+    const float dy = (b0.y + qw * ty) + cross_term(qz, tx, qx, tz);
+    const float dz = (b0.z + qw * tz) + cross_term(qx, ty, qy, tx);
+    return make_ray(__ldg(q + 4), __ldg(q + 5), __ldg(q + 6), dx, dy, dz, 0.0f);
+  }
+
+  // The winner's row is read again here (words 0-2, v0, and 9-11, the
+  // normal), so the walk's loop holds neither; the beam is read again too.
+  __device__ __forceinline__ void finish(const int4* __restrict__ nodes, int r, const Ray& a,
+                                         float, int best, int, int) const {
+    const int p = r / S;
+    const int b = r - p * S;
+    const float4 b0 = __ldg(beams + 2 * b);
+    const float4 b1 = __ldg(beams + 2 * b + 1);
+    const bool real = b1.y > 0.0f;
+    float error;
+    if (best >= 0) {
+      const int4 w0 = __ldg(nodes + (size_t)best * 4);
+      const int4 w2 = __ldg(nodes + (size_t)best * 4 + 2);
+      const float v0x = __int_as_float(w0.x), v0y = __int_as_float(w0.y);
+      const float v0z = __int_as_float(w0.z);
+      const float nx = __int_as_float(w2.y), ny = __int_as_float(w2.z);
+      const float nz = __int_as_float(w2.w);
+      // ops/raycast.py::cast_rays: t from the winner's plane
+      const float denom = nx * a.dx + ny * a.dy + nz * a.dz;
+      const float safe_denom = fabsf(denom) > 1e-12f ? denom : 1e-12f;
+      const float t = (nx * (v0x - a.ox) + ny * (v0y - a.oy) + nz * (v0z - a.oz)) / safe_denom;
+      if (t > range_min) {
+        // score_rc: the signed distance of the measured point to the plane
+        const float sx = nx * ((a.ox + t * a.dx) - (a.ox + a.dx * b0.w));
+        const float sy = ny * ((a.oy + t * a.dy) - (a.oy + a.dy * b0.w));
+        const float sz = nz * ((a.oz + t * a.dz) - (a.oz + a.dz * b0.w));
+        error = real ? fabsf((sx + sy) + sz) : miss_hit;
+      } else {
+        error = real ? hit_miss : miss_miss;
+      }
+    } else {
+      error = real ? hit_miss : miss_miss;
+    }
+    // math/stats.py::gaussian_pdf
+    const float z = error * inv_s;
+    evals[(size_t)p * S + (int)b1.z] = coef * expf((-0.5f * z) * z);
+  }
+};
+
+// The walk, one thread a ray, and the epilogue's use of its result.
+template <class Epilogue>
 __global__ void __launch_bounds__(kThreads) traverse_bvh_kernel(
     const int4* __restrict__ nodes,     // (n_slots, 16) words as 4 int4 a slot
     const int* __restrict__ root_link,  // ()
-    const float* __restrict__ o,        // (R, 3)
-    const float* __restrict__ d,        // (R, 3)
-    const float* __restrict__ t_min,    // (R,)
-    const float* __restrict__ t_max,    // (R,)
-    float* __restrict__ t_best_out,     // (R,)
-    int* __restrict__ slot_out,         // (R,)
-    int* __restrict__ visits_out,       // (R, 2) or null
-    int R, int n_slots) {
+    const Epilogue e, int R, int n_slots) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= R) return;
-  const Ray a = load_ray(o, d, t_min, r);
-  float t_best = t_max[r];
+  float t_best;
+  const Ray a = e.ray(r, t_best);
   int best = -1;
-  int cur = t_best > a.tmin ? __ldg(root_link) : kSent;
   int n_internal = 0, n_leaf = 0;
-  int c = 0;
-  while (c < n_slots && cur != kSent) {
-    while (c < n_slots && cur >= 0) {
-      serial_visit(nodes, a, cur, t_best, best, n_internal, n_leaf);
-      ++c;
-    }
-    while (c < n_slots && cur < 0 && cur != kSent) {
-      serial_visit(nodes, a, cur, t_best, best, n_internal, n_leaf);
-      ++c;
-    }
+  walk(nodes, root_link, a, n_slots, t_best, best, n_internal, n_leaf);
+  e.finish(nodes, r, a, t_best, best, n_internal, n_leaf);
+}
+
+// The sum of v over a warp's lanes, in one fixed order, in every lane.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// Each particle's S evals folded as one batch Gaussian (mcl/sensor_update.py
+// ::fold): the mean, then the mean squared deviation from it, each a sum in
+// a fixed order (a lane's beams lane, lane + 32, ..., then the warp's tree).
+__global__ void __launch_bounds__(kFoldThreads) mcl_fold_kernel(
+    const float* __restrict__ evals,  // (N, S)
+    float* __restrict__ e_mean,       // (N,)
+    float* __restrict__ e_var,        // (N,)
+    int N, int S) {
+  const int p = (int)((blockIdx.x * (unsigned)kFoldThreads + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (p >= N) return;  // a whole warp
+  const float* e = evals + (size_t)p * S;
+  float s = 0.0f;
+  for (int j = lane; j < S; j += 32) s += __ldg(e + j);
+  const float mean = warp_sum(s) / (float)S;
+  float v = 0.0f;
+  for (int j = lane; j < S; j += 32) {
+    const float x = __ldg(e + j) - mean;
+    v += x * x;
   }
-  store(t_best_out, slot_out, visits_out, r, t_best, best, n_internal, n_leaf);
+  v = warp_sum(v);
+  if (lane == 0) {
+    e_mean[p] = mean;
+    e_var[p] = v / (float)S;
+  }
+}
+
+int attrs(const void* fn, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)err;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). nodes must be 16-byte aligned;
-// visits may be null. Returns cudaGetLastError() after the launch: 0 on
-// success.
+// Plain C entry points (loaded with ctypes). nodes must be 16-byte aligned.
+// Each returns cudaGetLastError() after its launch: 0 on success.
+
+// The cast (StoreHits); visits may be null.
 extern "C" int rmcl_traverse_bvh(
     const float* nodes, const int* root_link, const float* o, const float* d,
     const float* t_min, const float* t_max, float* t_best, int* slot, int* visits,
@@ -224,18 +268,45 @@ extern "C" int rmcl_traverse_bvh(
   if (R == 0) return 0;
   if (((uintptr_t)nodes) % 16) return (int)cudaErrorMisalignedAddress;
   const int grid = (R + kThreads - 1) / kThreads;
-  traverse_bvh_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const int4*>(nodes), root_link, o, d, t_min, t_max, t_best, slot, visits,
-      R, n_slots);
+  const StoreHits e{o, d, t_min, t_max, t_best, slot, visits};
+  traverse_bvh_kernel<StoreHits><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const int4*>(nodes), root_link, e, R, n_slots);
+  return (int)cudaGetLastError();
+}
+
+// MCL's scored walk (ScoreRC) on N x S rays, then the fold: evals (N, S),
+// e_mean and e_var (N,). beams must be 16-byte aligned.
+extern "C" int rmcl_walk_score_rc(
+    const float* nodes, const int* root_link, const float* tsm, const float* beams,
+    float* evals, float* e_mean, float* e_var, int N, int S, int n_slots, float range_min,
+    float hit_miss, float miss_hit, float miss_miss, float inv_s, float coef, void* stream) {
+  if (N == 0 || S == 0) return 0;
+  if (((uintptr_t)nodes) % 16 || ((uintptr_t)beams) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const int R = N * S;  // the wrapper refuses N * S past 2^31 - 1
+  const ScoreRC e{tsm, reinterpret_cast<const float4*>(beams), evals, S, range_min,
+                  hit_miss, miss_hit, miss_miss, inv_s, coef};
+  traverse_bvh_kernel<ScoreRC><<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      reinterpret_cast<const int4*>(nodes), root_link, e, R, n_slots);
+  const cudaError_t err = cudaGetLastError();
+  if (err) return (int)err;
+  const int warps = kFoldThreads / 32;
+  mcl_fold_kernel<<<(N + warps - 1) / warps, kFoldThreads, 0, (cudaStream_t)stream>>>(
+      evals, e_mean, e_var, N, S);
   return (int)cudaGetLastError();
 }
 
 // Registers and local-memory bytes a thread (spills show as local memory)
-// of the kernel as built. Returns the cudaError of the query.
+// of each kernel as built. Returns the cudaError of the query.
 extern "C" int rmcl_traverse_bvh_attrs(int* regs, int* local_bytes) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, traverse_bvh_kernel);
-  *regs = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  return (int)err;
+  return attrs((const void*)traverse_bvh_kernel<StoreHits>, regs, local_bytes);
+}
+
+extern "C" int rmcl_walk_score_rc_attrs(int* regs, int* local_bytes) {
+  return attrs((const void*)traverse_bvh_kernel<ScoreRC>, regs, local_bytes);
+}
+
+extern "C" int rmcl_mcl_fold_attrs(int* regs, int* local_bytes) {
+  return attrs((const void*)mcl_fold_kernel, regs, local_bytes);
 }

@@ -25,6 +25,13 @@ layout uses (sorted by elevation band and azimuth; it groups rays of like
 direction into the walk's warps) and puts the per-beam hits back into the
 sampled order before scoring, so its result is the sampled-order result
 bit for bit: each ray's walk does not depend on its neighbours.
+
+RC on the bvh engine runs none of those steps one by one:
+:func:`~rmcl_tpu_torch.ops.traverse_cuda.walk_score_rc` takes the poses
+and the beams (:func:`score_beams`) to each particle's two fold sums, on
+the card in two launches (K5 scoring each ray as its walk ends, then a
+fold kernel) with no per-ray tensor in device memory but one float a ray,
+on the CPU as the same composition op for op.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from rmcl_tpu_torch.ops.closest_point import (closest_points, closest_points_bin
 from rmcl_tpu_torch.ops.order import cluster_order
 from rmcl_tpu_torch.ops.raycast import NO_HIT_T, RayHits, _map_hits, cast_rays, cast_rays_seeded
 from rmcl_tpu_torch.ops.raycast_binned import cast_rays_binned
+from rmcl_tpu_torch.ops.traverse_cuda import BEAM_WORDS, walk_score_rc
 from rmcl_tpu_torch.utils import timing
 
 Tensor = torch.Tensor
@@ -301,8 +309,29 @@ def fold(cloud: ParticleCloud, config: SensorUpdateConfig, layout: BeamLayout, e
     e_var = torch.sum(w * (evals - e_mean[:, None]) ** 2, dim=-1) / S
     if perm_inv is not None:
         e_mean, e_var = e_mean[perm_inv], e_var[perm_inv]
-    batch = Gaussian1D(mean=e_mean, sigma=e_var, n_meas=torch.full_like(e_mean, float(S)))
+    return merge_batch(cloud, config, e_mean, e_var)
+
+
+def merge_batch(cloud: ParticleCloud, config: SensorUpdateConfig, e_mean: Tensor,
+                e_var: Tensor) -> ParticleCloud:
+    """Merge each particle's batch Gaussian of S evals (mean ``e_mean``,
+    variance ``e_var``) into its prior likelihood, with the n_meas clamp."""
+    batch = Gaussian1D(mean=e_mean, sigma=e_var,
+                       n_meas=torch.full_like(e_mean, float(config.samples)))
     return dataclasses.replace(cloud, likelihood=cloud.likelihood.merge(batch, max_n=MAX_N_MEAS))
+
+
+def score_beams(layout: BeamLayout) -> Tensor:
+    """The beams as :func:`~rmcl_tpu_torch.ops.traverse_cuda.walk_score_rc`
+    takes them, (S, 8) float32 in the bvh engine's angular order: direction,
+    range, t_max, real hit (1.0/0.0), the index in the sampled order, 0."""
+    S = layout.dirs.shape[0]
+    dev = layout.dirs.device
+    idx = torch.arange(S, device=dev, dtype=torch.float32)
+    table = torch.cat([layout.dirs, layout.ranges[:, None], layout.t_max[:, None],
+                       layout.real_hit.to(torch.float32)[:, None], idx[:, None],
+                       torch.zeros((S, BEAM_WORDS - 7), device=dev)], dim=1)
+    return table[_angular_order(layout.dirs)].contiguous()
 
 
 def sensor_update(accel, cloud: ParticleCloud, generator: Optional[torch.Generator],
@@ -327,6 +356,20 @@ def sensor_update(accel, cloud: ParticleCloud, generator: Optional[torch.Generat
     if config.correspondence_type == "CP":
         with timing.span("rmcl.mcl.score"):
             error = score_cp(accel, config, tsm, layout, chunk_size)
+    elif config.engine == "bvh":
+        # the walk scores each ray and a fold reduces them: two floats a
+        # particle come back, no per-ray hit
+        with timing.span("rmcl.mcl.walk_score"):
+            e_mean, e_var = walk_score_rc(
+                accel.nodes, accel.root_link, torch.cat([tsm.rot, tsm.trans], dim=-1),
+                score_beams(layout), range_min=config.range_min,
+                hit_miss=config.real_hit_sim_miss_error,
+                miss_hit=config.real_miss_sim_hit_error,
+                miss_miss=config.real_miss_sim_miss_error, dist_sigma=config.dist_sigma,
+                chunk_size=chunk_size)
+        timing.count("rmcl.mcl.walk_score", 1)
+        with timing.span("rmcl.mcl.fold"):
+            return merge_batch(cloud, config, e_mean, e_var)
     else:
         orig_m, dirs_m, hits = cast_update_rays(accel, config, tsm, layout, chunk_size)
         with timing.span("rmcl.mcl.score"):

@@ -787,12 +787,18 @@ def test_traverse_kernel_matches_plain_version(card, mesh, case):
 
 
 def test_traverse_kernel_has_no_spills(card):
-    """K5's kernel as built: registers within the 255 a thread allows, no
-    local memory (spills)."""
+    """The kernels of traverse_bvh.cu as built (K5's two instantiations, the
+    cast's and MCL's scoring one, and the fold kernel): registers within
+    the 255 a thread allows, and the walk's within the 48 (registers are
+    allocated 8 a thread at a time) that keep 10 CTAs of 128 a SM resident;
+    no local memory (spills)."""
     from rmcl_tpu_torch.ops.traverse_cuda import kernel_registers
 
-    (r, local), = kernel_registers().values()
-    assert 0 < r <= 255 and local == 0
+    regs = kernel_registers()
+    assert set(regs) == {"K5", "K5 ScoreRC", "fold"}
+    for name, (r, local) in regs.items():
+        assert 0 < r <= 255 and local == 0, (name, r, local)
+    assert regs["K5"][0] <= 48 and regs["K5 ScoreRC"][0] <= 48, regs
 
 
 def test_cast_rays_on_card_match_cpu(card):
@@ -1084,6 +1090,128 @@ def test_sensor_update_on_card_matches_cpu(card, engine):
         out[dev.type] = lik
     torch.testing.assert_close(out["cuda"].mean.cpu(), out["cpu"].mean, rtol=1e-5, atol=1e-7)
     assert torch.equal(out["cuda"].n_meas.cpu(), out["cpu"].n_meas)
+
+
+def _walk_score_inputs(dev, case, n=4096, S=100):
+    """walk_score_rc's inputs on ``dev`` for the small building: n particles
+    about the scan's pose and S beams drawn from the scan; "edges" lifts
+    every tenth particle above the roof, makes a third of the beams real
+    misses and measures some at half their surface's distance, with
+    range_min 0.9 m and the cap at 2 sigma (every branch of the score)."""
+    from rmcl_tpu_torch.mcl.sensor_update import (SensorUpdateConfig, beam_layout,
+                                                  cluster_poses, sample_beams, score_beams)
+
+    bvh, _, points, mask = _mcl_world(dev)
+    cloud = _mcl_cloud(dev, n=n)
+    if case == "edges":
+        t = cloud.poses.trans.clone()
+        t[::10, 2] += 20.0
+        cloud = cloud.with_poses(Transform(rot=cloud.poses.rot, trans=t))
+    dirs, ranges, valid = (x.to(dev) for x in sample_beams(
+        torch.Generator().manual_seed(6), points.cpu(), mask.cpu(), S))
+    kw = dict(samples=S, engine="bvh", dist_sigma=0.4, range_max=30.0)
+    if case == "edges":
+        ranges, valid = ranges.clone(), valid.clone()
+        valid[0::6] = False
+        ranges[1::6] = 45.0
+        ranges[2::6] = 0.05
+        ranges[3::6] *= 0.5
+        kw.update(range_min=0.9, range_cap_sigmas=2.0, real_miss_sim_miss_error=0.25)
+    cfg = SensorUpdateConfig.create(**kw)
+    layout = beam_layout(cfg, (dirs, ranges, valid))
+    tsm, _ = cluster_poses(cloud, Transform.identity(device=dev), cfg)
+    args = (bvh.nodes, bvh.root_link, torch.cat([tsm.rot, tsm.trans], dim=-1),
+            score_beams(layout))
+    return args, dict(range_min=cfg.range_min, hit_miss=cfg.real_hit_sim_miss_error,
+                      miss_hit=cfg.real_miss_sim_hit_error,
+                      miss_miss=cfg.real_miss_sim_miss_error, dist_sigma=cfg.dist_sigma)
+
+
+@pytest.mark.parametrize("case", ["scan", "edges"])
+def test_walk_score_kernel_matches_plain_version(card, case):
+    """MCL's scored walk (K5's ScoreRC instantiation and the fold kernel) on
+    4,096 particles x 100 beams of the building against its plain version
+    on the CPU: one K5 and one fold launch; the per-ray evals within 1e-5
+    relative but on at most 1e-4 of the rays (a near-tie's other winner, or
+    a direction the card's and the CPU's cross products round a bit apart);
+    the folds within 1e-6 relative at p75."""
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, walk_score_rc
+
+    args, kw = _walk_score_inputs(card, case)
+    before = (traverse_rays.launches, walk_score_rc.fold_launches)
+    k_mean, k_var, k_ev = walk_score_rc(*args, evals=True, **kw)
+    torch.cuda.synchronize()
+    assert (traverse_rays.launches, walk_score_rc.fold_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    p_mean, p_var, p_ev = walk_score_rc(*(x.cpu() for x in args), evals=True, **kw)
+    assert (traverse_rays.launches, walk_score_rc.fold_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    rel = lambda a, b: (a.cpu().double() - b.double()).abs() / b.double().abs().clamp(
+        min=1e-30)
+    off = rel(k_ev, p_ev) > 1e-5
+    assert int(off.sum()) <= 1e-4 * off.numel(), int(off.sum())
+    assert float(torch.quantile(rel(k_mean, p_mean), 0.75)) <= 1e-6
+    assert float(torch.quantile(rel(k_var, p_var), 0.75)) <= 1e-6
+    assert bool((p_ev > 1e-3).float().mean() > 0.3)  # most beams score a near surface
+
+
+def test_walk_score_runs_once_an_update(card):
+    """A sensor update on the exact walk with RC: one K5 launch (counted in
+    traverse_rays.launches, as the benchmark's trace check reads it), one
+    fold launch and one count of ``rmcl.mcl.walk_score``; the node's
+    likelihoods within 1e-5 of the CPU's."""
+    from rmcl_tpu_torch.mcl.sensor_update import SensorUpdateConfig, sample_beams, sensor_update
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, walk_score_rc
+    from rmcl_tpu_torch.utils import timing
+
+    cfg = SensorUpdateConfig.create(samples=100, engine="bvh", dist_sigma=0.4)
+    lik = {}
+    timing.set_tracing(True)
+    try:
+        for dev in (card, torch.device("cpu")):
+            bvh, _, points, mask = _mcl_world(dev)
+            beams = tuple(x.to(dev) for x in sample_beams(
+                torch.Generator().manual_seed(2), points.cpu(), mask.cpu(), 100))
+            cloud = _mcl_cloud(dev, n=3000)
+            before = (traverse_rays.launches, walk_score_rc.fold_launches)
+            for _ in range(2):
+                lik[dev.type] = sensor_update(bvh, cloud, None, None, None,
+                                              Transform.identity(device=dev), cfg,
+                                              beams=beams).likelihood
+            if dev.type == "cuda":
+                assert (traverse_rays.launches, walk_score_rc.fold_launches) == (
+                    before[0] + 2, before[1] + 2)
+        assert timing.counters()["rmcl.mcl.walk_score"] == 4  # two a device
+    finally:
+        timing.set_tracing(False)
+    torch.testing.assert_close(lik["cuda"].mean.cpu(), lik["cpu"].mean, rtol=1e-5, atol=1e-7)
+
+
+def test_traverse_kernel_on_mcl_rays_matches_plain_version(card):
+    """K5's cast instantiation (StoreHits) on MCL's rays as phase 10 casts
+    them (particles x beams, the beams in angular order) on the building:
+    t, slot and visits bitwise its plain version's, as before the walk
+    became a template."""
+    from rmcl_tpu_torch.mcl.sensor_update import (SensorUpdateConfig, _angular_order,
+                                                  beam_layout, cluster_poses, sample_beams,
+                                                  update_rays)
+    from rmcl_tpu_torch.ops.traverse_cuda import traverse_rays, traverse_rays_reference
+
+    bvh, _, points, mask = _mcl_world(card)
+    beams = sample_beams(torch.Generator(device=card).manual_seed(3), points, mask, 100)
+    cfg = SensorUpdateConfig.create(samples=100, engine="bvh", dist_sigma=0.4)
+    layout = beam_layout(cfg, beams)
+    tsm, _ = cluster_poses(_mcl_cloud(card, n=2000), Transform.identity(device=card), cfg)
+    o, d, t_max = update_rays(tsm, layout)
+    order = _angular_order(layout.dirs)
+    rays = (o[:, order].reshape(-1, 3), d[:, order].reshape(-1, 3))
+    t_max = t_max[:, order].reshape(-1).contiguous()
+    t_min = torch.zeros_like(t_max)
+    k = traverse_rays(bvh.nodes, bvh.root_link, *rays, t_min, t_max, visits=True)
+    p = traverse_rays_reference(bvh.nodes, bvh.root_link, *rays, t_min, t_max, visits=True)
+    assert (p[1] >= 0).float().mean() > 0.5
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
 
 
 def test_auto_engine_on_card_is_the_exact_walk(card):
